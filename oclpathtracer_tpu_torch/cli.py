@@ -1,0 +1,160 @@
+"""Command-line harness — `python -m oclpathtracer_tpu_torch <command>`.
+
+Counterpart of `oclpathtracer_tpu.cli`, with the same commands and flags:
+
+  info                 CUDA device name, count and memory
+  render               progressive render → PPM/PNG
+  bench                not ported yet (ROADMAP queue 1 item 8)
+
+`render --integrator pallas|wavefront` run the ported kernels; the other choices,
+and a non-zero `--scan-chunks` (a scheduling knob of the JAX package's kernels),
+exit 2 with "not yet ported".
+
+`render --device` is where the render runs, a deployment setting: the JAX CLI takes
+it from JAX's platform setting (`JAX_PLATFORMS`), and torch has no such global.
+The default, cuda, launches the kernels and fails without a GPU; `--device cpu`
+runs their plain PyTorch versions, on purpose only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+INTEGRATORS = ["pallas", "wavefront", "bvh", "widebvh", "sorted", "path", "primary",
+               "ao", "ao-pallas", "direct", "direct-pallas"]
+PORTED_INTEGRATORS = ("pallas", "wavefront")
+
+
+def _cmd_info(args) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("cuda: not available  devices: 0")
+        return 0
+    n = torch.cuda.device_count()
+    print(f"cuda: {torch.version.cuda}  devices: {n}")
+    for i in range(n):
+        props = torch.cuda.get_device_properties(i)
+        print(f"  [{i}] gpu {props.name}  mem={props.total_memory}")
+    return 0
+
+
+def _cmd_render(args) -> int:
+    import torch
+
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.render.image import write_png, write_ppm
+    from oclpathtracer_tpu_torch.scene import load_cornell_box
+
+    if args.integrator not in PORTED_INTEGRATORS:
+        print(f"integrator {args.integrator!r}: not yet ported "
+              f"(ported: {', '.join(PORTED_INTEGRATORS)})", file=sys.stderr)
+        return 2
+    if args.scan_chunks:
+        print("--scan-chunks: not yet ported (the kernels here have no such knob; "
+              "pass 0)", file=sys.stderr)
+        return 2
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("render: no CUDA device (pass --device cpu for the plain versions)",
+              file=sys.stderr)
+        return 2
+    scene = load_cornell_box(args.scene).to(device)
+    cfg = RenderConfig(width=args.width, height=args.height, bounces=args.bounces,
+                       seed=args.seed)
+
+    profiler = None
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.__enter__()
+
+    t0 = time.perf_counter()
+    if args.integrator == "pallas":
+        from oclpathtracer_tpu_torch.kernels.megakernel import render_pallas
+
+        img = render_pallas(scene, cfg, args.spp, samples_per_call=min(args.spp, 64),
+                            scan=args.scan)
+    else:
+        from oclpathtracer_tpu_torch.kernels.wavefront import render_wavefront
+
+        img = render_wavefront(scene, cfg, args.spp, samples_per_call=min(args.spp, 64),
+                               scan=args.scan, interleave=args.interleave or 1)
+    img = img.cpu().numpy()
+    dt = time.perf_counter() - t0
+    if profiler is not None:
+        profiler.__exit__(None, None, None)
+        os.makedirs(args.profile, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        sort = "self_device_time_total" if device.type == "cuda" else "self_cpu_time_total"
+        summary = profiler.key_averages().table(sort_by=sort, row_limit=12)
+        with open(os.path.join(args.profile, "summary.txt"), "w") as f:
+            f.write(summary)
+        print(summary)
+        print(f"profile trace written to {args.profile}")
+    print(f"rendered {cfg.width}x{cfg.height} spp={args.spp} "
+          f"integrator={args.integrator} in {dt:.2f}s mean={img.mean():.4f}")
+
+    out = args.output
+    if out.endswith(".ppm"):
+        write_ppm(out, img, cfg.width, cfg.height, reference_quirk=args.reference_quirk)
+    else:
+        write_png(out, img, cfg.width, cfg.height)
+    print(f"wrote {out}")
+    return 0
+
+
+def _cmd_bench(args) -> int:
+    print("bench: not yet ported (ROADMAP queue 1 item 8)", file=sys.stderr)
+    return 2
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="oclpathtracer_tpu_torch")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    sub.add_parser("info", help="CUDA device enumeration and queries")
+
+    r = sub.add_parser("render", help="progressive render to PPM/PNG")
+    r.add_argument("--scene", default=None, help="scene .bin (default: cornellbox)")
+    r.add_argument("--width", type=int, default=512)
+    r.add_argument("--height", type=int, default=512)
+    r.add_argument("--spp", type=int, default=64)
+    r.add_argument("--bounces", type=int, default=16)
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--integrator", default="pallas", choices=INTEGRATORS)
+    r.add_argument("--output", "-o", default="render.png")
+    r.add_argument("--checkpoint", default=None)
+    r.add_argument("--checkpoint-every", type=int, default=0)
+    r.add_argument("--scan", default="auto", choices=["auto", "parity", "fast", "tp"],
+                   help="triangle-scan arithmetic: reference-exact 'parity' or "
+                        "triple-product 'tp' (auto = tp where the scene's materials "
+                        "allow it); 'fast' is not ported yet")
+    r.add_argument("--interleave", type=int, default=0,
+                   help="path streams per pixel for wavefront (0 = the default, 1); "
+                        "the megakernel has no such knob here")
+    r.add_argument("--scan-chunks", type=int, default=0,
+                   help="the JAX package's scheduling knob; only 0 is accepted here")
+    r.add_argument("--reference-quirk", action="store_true",
+                   help="reproduce the reference's double-gamma PPM export")
+    r.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler chrome trace to DIR/trace.json and "
+                        "its per-op table to DIR/summary.txt")
+    r.add_argument("--device", default="cuda",
+                   help="torch device to render on (cuda launches the kernels, "
+                        "cpu runs their plain versions)")
+
+    sub.add_parser("bench", help="not ported yet")
+
+    args = p.parse_args(argv)
+    return {"info": _cmd_info, "render": _cmd_render, "bench": _cmd_bench}[
+        args.command](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

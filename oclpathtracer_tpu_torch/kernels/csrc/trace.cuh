@@ -1,0 +1,360 @@
+// Device-side path trace shared by megakernel.cu and wavefront.cu.
+//
+// One thread owns one pixel. Everything here is per-thread scalar code: the
+// reference's RNG (kernels/rng.py), the camera prologue, the first-min linear
+// scan in parity, tp and tp0 form, and the diffuse/GGX shading with the
+// reference's quirks. The arithmetic follows oclpathtracer_tpu/kernels/
+// megakernel.py:_make_kernel operation by operation, so that with -fmad=false
+// it tracks the port's plain PyTorch version (kernels/megakernel.py) closely:
+// the same f32 operations in the same order, IEEE divisions and square roots,
+// rsqrtf where the plain version calls torch.rsqrt (which is rsqrtf on CUDA).
+//
+// The scene table ((T, 24) f32, pack_scene or pack_scene_tp layout) sits in
+// shared memory; every thread of a warp reads the same triangle at the same
+// time, which is a broadcast. The tp material classes travel by value in the
+// kernel parameters.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace opt {
+
+constexpr int BLOCK = 128;         // threads a block, one pixel each
+constexpr int TABLE_COLS = 24;
+constexpr int CLASS_COLS = 8;     // albedo 3 | emissive 3 | roughness | mtype
+constexpr int TP_CLASS_CAP = 16;
+constexpr int N_HOST_FLOATS = 21;  // see Params, in order
+constexpr float T_MAX = 1e20f;
+constexpr float INV_PI = 0.31830988618f;
+constexpr float TWO_PI = 6.28318530718f;
+
+enum { SCAN_PARITY = 0, SCAN_TP = 1 };
+
+// Host-computed constants, passed by value. Floats arrive as
+// [view3 hol3 upd3 eye3 bg3 angle aspect inv_w inv_h eboost roffset] then
+// n_classes*8 class values; ints as [width bounces scan tp0 n_tris n_classes
+// start_sample n_samples pid_base n_rays interleave].
+struct Params {
+  float view[3], hol[3], upd[3], eye[3], bg[3];
+  float angle, aspect, inv_w, inv_h, eboost, roffset;
+  float classes[TP_CLASS_CAP * CLASS_COLS];
+  int width, bounces, scan, tp0, n_tris, n_classes;
+  int start_sample, n_samples, pid_base, n_rays, interleave;
+};
+
+static inline Params params_from_host(const float* f, const int* i) {
+  Params p;
+  float* dst[5] = {p.view, p.hol, p.upd, p.eye, p.bg};
+  for (int v = 0; v < 5; ++v)
+    for (int c = 0; c < 3; ++c) dst[v][c] = f[3 * v + c];
+  p.angle = f[15]; p.aspect = f[16]; p.inv_w = f[17]; p.inv_h = f[18];
+  p.eboost = f[19]; p.roffset = f[20];
+  p.width = i[0]; p.bounces = i[1]; p.scan = i[2]; p.tp0 = i[3];
+  p.n_tris = i[4]; p.n_classes = i[5]; p.start_sample = i[6];
+  p.n_samples = i[7]; p.pid_base = i[8]; p.n_rays = i[9]; p.interleave = i[10];
+  for (int k = 0; k < TP_CLASS_CAP * CLASS_COLS; ++k)
+    p.classes[k] = k < p.n_classes * CLASS_COLS ? f[N_HOST_FLOATS + k] : 0.0f;
+  return p;
+}
+
+// ---- RNG: GenerateColors.cl:57, :61-71, :308 (mod 2^32 throughout) --------
+
+static __device__ __forceinline__ uint32_t seed_from(uint32_t pid, uint32_t frame) {
+  return pid + (1103515245u * frame + 12345u);
+}
+
+static __device__ __forceinline__ float next_float(uint32_t& s) {
+  s = (s ^ 61u) ^ (s >> 16);
+  s = s + (s << 3);
+  s = s ^ (s >> 4);
+  s = s * 0x27D4EB2Du;
+  s = s ^ (s >> 15);
+  s = 1103515245u * s + 12345u;
+  return __uint2float_rn(s) * 2.3283064365386963e-10f;
+}
+
+// ---- 3-vectors, evaluated left to right like the JAX kernel's helpers -----
+
+static __device__ __forceinline__ float3 v3(float x, float y, float z) {
+  return make_float3(x, y, z);
+}
+static __device__ __forceinline__ float dot3(float3 a, float3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+static __device__ __forceinline__ float3 cross3(float3 a, float3 b) {
+  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
+}
+static __device__ __forceinline__ float3 scale3(float3 a, float s) {
+  return v3(a.x * s, a.y * s, a.z * s);
+}
+static __device__ __forceinline__ float3 add3(float3 a, float3 b) {
+  return v3(a.x + b.x, a.y + b.y, a.z + b.z);
+}
+static __device__ __forceinline__ float3 neg3(float3 a) { return v3(-a.x, -a.y, -a.z); }
+static __device__ __forceinline__ float3 normalize3(float3 a) {
+  return scale3(a, rsqrtf(fmaxf(dot3(a, a), 1e-40f)));
+}
+static __device__ __forceinline__ float safe_denom(float x) {
+  return fabsf(x) > 1e-8f ? x : (x >= 0.0f ? 1e-8f : -1e-8f);
+}
+// max(x, 0) that keeps a NaN, as jnp.maximum and torch.clamp do.
+static __device__ __forceinline__ float clamp0(float x) { return x < 0.0f ? 0.0f : x; }
+
+static __device__ __forceinline__ float3 row3(const float* r, int c) {
+  return v3(r[c], r[c + 1], r[c + 2]);
+}
+
+// ---- path state and the best hit ------------------------------------------
+
+struct Path {
+  float3 o, d, mask, rad;
+  uint32_t rng;
+  bool active;
+};
+
+struct Hit {
+  float t;
+  float3 n, alb, emi;
+  float rough, mty;
+};
+
+// Seed + camera ray (generateRay, GenerateColors.cl:263-288) for one frame.
+// `s` counts from start_sample; frames wrap mod 2^32 like the JAX kernel's int32.
+static __device__ __forceinline__ Path camera_path(const Params& P, int pid, float px,
+                                                   float py, int s) {
+  Path p;
+  p.rng = seed_from((uint32_t)pid, (uint32_t)P.start_sample + (uint32_t)s);
+  float u1 = next_float(p.rng);
+  float u2 = next_float(p.rng);
+  float x = px + u1 - 0.5f;
+  float y = py + u2 - 0.5f;
+  float sx = (2.0f * ((x + 0.5f) * P.inv_w) - 1.0f) * P.angle * P.aspect;
+  float sy = -(1.0f - 2.0f * ((y + 0.5f) * P.inv_h)) * P.angle;
+  p.d = normalize3(v3(sx * P.hol[0] - sy * P.upd[0] + P.view[0],
+                      sx * P.hol[1] - sy * P.upd[1] + P.view[1],
+                      sx * P.hol[2] - sy * P.upd[2] + P.view[2]));
+  p.o = v3(P.eye[0], P.eye[1], P.eye[2]);
+  p.mask = v3(1.0f, 1.0f, 1.0f);
+  p.rad = v3(0.0f, 0.0f, 0.0f);
+  p.active = true;
+  return p;
+}
+
+// Parity scan (megakernel.py tri_body): the reference's Möller–Trumbore with
+// its per-triangle divide, u <= 1 tested, the backface cull det >= 1e-8, and a
+// strict t < best_t in triangle order. The winner's attributes are read once
+// after the loop instead of being selected per triangle: the same values.
+static __device__ __forceinline__ Hit scan_parity(const float* tbl, int n_tris, float3 o,
+                                                  float3 d) {
+  float best_t = T_MAX;
+  int best = -1;
+  for (int j = 0; j < n_tris; ++j) {
+    const float* r = tbl + j * TABLE_COLS;
+    float3 p1 = row3(r, 0), e1 = row3(r, 3), e2 = row3(r, 6);
+    float3 pvec = cross3(d, e2);
+    float det = dot3(e1, pvec);
+    bool front = det >= 1e-8f;
+    float inv_det = 1.0f / (front ? det : 1.0f);
+    float3 tvec = v3(o.x - p1.x, o.y - p1.y, o.z - p1.z);
+    float u = dot3(tvec, pvec) * inv_det;
+    float3 qvec = cross3(tvec, e1);
+    float v = dot3(d, qvec) * inv_det;
+    float t = dot3(e2, qvec) * inv_det;
+    if (front && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
+        t < best_t) {
+      best_t = t;
+      best = j;
+    }
+  }
+  Hit h;
+  h.t = best_t;
+  if (best >= 0) {
+    const float* r = tbl + best * TABLE_COLS;
+    h.n = row3(r, 9); h.alb = row3(r, 12); h.emi = row3(r, 15);
+    h.rough = r[18]; h.mty = r[19];
+  } else {
+    h.n = h.alb = h.emi = v3(0.0f, 0.0f, 0.0f);
+    h.rough = 0.0f; h.mty = 0.0f;
+  }
+  return h;
+}
+
+// min(min(a, b), c) >= 0 without fminf, whose NaN rule differs from jnp.minimum.
+static __device__ __forceinline__ bool inside3(float unum, float vnum, float det) {
+  return unum >= 0.0f && vnum >= 0.0f && det - (unum + vnum) >= 0.0f;
+}
+
+// decode_tp_tc (megakernel.py:393-421): one divide, a 1/sqrt normalize of the
+// winner's raw N, and the class select |code - (i+1)| < 0.5. No hit decodes to
+// T_MAX / 1 with the default class (zeros, diffuse).
+static __device__ __forceinline__ Hit decode_tp(const Params& P, const float* tbl, float bnum,
+                                                float bden, int best) {
+  Hit h;
+  h.t = bnum / bden;
+  float3 N = v3(0.0f, 0.0f, 0.0f);
+  float code = 0.0f;
+  if (best >= 0) {
+    const float* r = tbl + best * TABLE_COLS;
+    N = row3(r, 0);
+    code = r[16];
+  }
+  float inv = 1.0f / sqrtf(fmaxf(dot3(N, N), 1e-40f));
+  h.n = scale3(N, inv);
+  h.alb = h.emi = v3(0.0f, 0.0f, 0.0f);
+  h.rough = 0.0f;
+  h.mty = 1.0f;
+  for (int i = 0; i < P.n_classes; ++i) {
+    if (fabsf(code - (i + 1.0f)) < 0.5f) {
+      const float* c = P.classes + i * CLASS_COLS;
+      h.alb = row3(c, 0); h.emi = row3(c, 3);
+      h.rough = c[6]; h.mty = c[7];
+    }
+  }
+  return h;
+}
+
+// tp scan (megakernel.py tri_body_tp): triple products of the pack_scene_tp
+// constants, t kept as a fraction compared by cross-multiplication.
+static __device__ __forceinline__ Hit scan_tp(const Params& P, const float* tbl, float3 o,
+                                              float3 d) {
+  float3 m = cross3(o, d);
+  float bnum = T_MAX, bden = 1.0f;
+  int best = -1;
+  for (int j = 0; j < P.n_tris; ++j) {
+    const float* r = tbl + j * TABLE_COLS;
+    float3 nv = row3(r, 0), e1 = row3(r, 3), e2 = row3(r, 6);
+    float3 c1 = row3(r, 9), c2 = row3(r, 12);
+    float det = dot3(d, nv);
+    float tnum = r[15] - dot3(o, nv);
+    float unum = dot3(e2, m) - dot3(d, c1);
+    float vnum = dot3(d, c2) - dot3(e1, m);
+    if (det >= 1e-8f && inside3(unum, vnum, det) && tnum > 0.0f &&
+        tnum * bden < bnum * det) {
+      bnum = tnum;
+      bden = det;
+      best = j;
+    }
+  }
+  return decode_tp(P, tbl, bnum, bden, best);
+}
+
+// tp0 scan (megakernel.py tri_body_tp0): the first segment starts at the eye,
+// so the forms collapse to dots with the augment_table_tp0 columns 17:24.
+static __device__ __forceinline__ Hit scan_tp0(const Params& P, const float* tbl, float3 d) {
+  float bnum = T_MAX, bden = 1.0f;
+  int best = -1;
+  for (int j = 0; j < P.n_tris; ++j) {
+    const float* r = tbl + j * TABLE_COLS;
+    float t0 = r[23];
+    float det = dot3(d, row3(r, 0));
+    float unum = dot3(d, row3(r, 17));
+    float vnum = dot3(d, row3(r, 20));
+    if (det >= 1e-8f && inside3(unum, vnum, det) && t0 > 0.0f && t0 * bden < bnum * det) {
+      bnum = t0;
+      bden = det;
+      best = j;
+    }
+  }
+  return decode_tp(P, tbl, bnum, bden, best);
+}
+
+// Post-scan part of one bounce (megakernel.py shade_one, GenerateColors.cl:223-261).
+static __device__ __forceinline__ void shade(const Params& P, Path& p, const Hit& h) {
+  if (!(h.t < T_MAX)) {  // miss: masked bg once, the path dies
+    p.rad = v3(p.rad.x + p.mask.x * P.bg[0], p.rad.y + p.mask.y * P.bg[1],
+               p.rad.z + p.mask.z * P.bg[2]);
+    p.active = false;
+    return;
+  }
+  // emission x3 (GenerateColors.cl:241)
+  p.rad = v3(p.rad.x + p.mask.x * h.emi.x * P.eboost, p.rad.y + p.mask.y * h.emi.y * P.eboost,
+             p.rad.z + p.mask.z * h.emi.z * P.eboost);
+  // flip the normal against the ray (GenerateColors.cl:243)
+  float3 n = dot3(h.n, p.d) < 0.0f ? h.n : neg3(h.n);
+  float3 wo = neg3(p.d);
+
+  float ud1 = next_float(p.rng);  // phi
+  float ud2 = next_float(p.rng);  // xi
+
+  // tangent frame (GenerateColors.cl:167-169)
+  bool use_y = fabsf(n.x) > 0.001f;
+  float3 axis = use_y ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+  float3 tt = normalize3(cross3(axis, n));
+  float3 ss = cross3(n, tt);
+
+  float phi = TWO_PI * ud1;
+  float cphi = cosf(phi);
+  float sphi = sinf(phi);
+
+  // diffuse lobe (GenerateColors.cl:161-172, 197-204)
+  float sin_d = sqrtf(ud2);
+  float cos_d = sqrtf(1.0f - ud2);
+  float3 wi_d = normalize3(
+      add3(add3(scale3(ss, cphi * sin_d), scale3(tt, sphi * sin_d)), scale3(n, cos_d)));
+  float pdf_d = dot3(wi_d, n) * INV_PI;
+  float3 f_d = scale3(h.alb, INV_PI);
+
+  // specular GGX lobe (GenerateColors.cl:174-192, 205-218)
+  float r2 = h.rough * h.rough;
+  float cos_h = sqrtf((1.0f - ud2) / fmaxf(ud2 * (r2 - 1.0f) + 1.0f, 1e-12f));
+  float sin_h = sqrtf(fmaxf(0.0f, 1.0f - cos_h * cos_h));
+  float3 wh = normalize3(
+      add3(add3(scale3(ss, cphi * sin_h), scale3(tt, sphi * sin_h)), scale3(n, cos_h)));
+  float3 wi_s = add3(neg3(wo), scale3(wh, 2.0f * dot3(wo, wh)));
+  bool same_hemi = dot3(wi_s, n) * dot3(wo, n) >= 0.0f;
+  float denom_ndf = cos_h * cos_h * (r2 - 1.0f) + 1.0f;
+  float d_ndf = r2 * INV_PI / fmaxf(denom_ndf * denom_ndf, 1e-12f);
+  float pdf_s = d_ndf * cos_h / safe_denom(4.0f * dot3(wo, wh));
+  float fs_scalar = d_ndf / safe_denom(4.0f * dot3(wi_s, n) * dot3(wo, n)) * 2.0f;  // x2 :217
+  float3 f_s = scale3(h.alb, fs_scalar);
+  if (!same_hemi) {
+    pdf_s = 0.0f;
+    f_s = v3(0.0f, 0.0f, 0.0f);
+  }
+
+  bool spec = h.mty >= 1.5f;
+  float3 wi = spec ? wi_s : wi_d;
+  float pdf = spec ? pdf_s : pdf_d;
+  float3 f = spec ? f_s : f_d;
+
+  // pdf <= 0 terminates (GenerateColors.cl:251); respawn 0.01 along wi (:257)
+  bool alive = pdf > 0.0f;
+  if (alive) {
+    float factor = dot3(wi, n) / pdf;
+    p.mask = v3(p.mask.x * f.x * factor, p.mask.y * f.y * factor, p.mask.z * f.z * factor);
+  }
+  float3 hitp = add3(p.o, scale3(p.d, h.t));
+  p.o = add3(hitp, scale3(wi, P.roffset));
+  if (alive) p.d = wi;
+  p.active = alive;
+}
+
+// One traced segment: scan, decode, shade. `primary` selects the tp0 form.
+static __device__ __forceinline__ void trace_segment(const Params& P, const float* tbl, Path& p,
+                                                     bool primary) {
+  Hit h;
+  if (P.scan == SCAN_TP)
+    h = primary ? scan_tp0(P, tbl, p.d) : scan_tp(P, tbl, p.o, p.d);
+  else
+    h = scan_parity(tbl, P.n_tris, p.o, p.d);
+  shade(P, p, h);
+}
+
+// Copy the scene table into dynamic shared memory; every thread of the block
+// calls this before any returns.
+static __device__ __forceinline__ const float* stage_table(const float* table, int n_tris) {
+  extern __shared__ float smem_table[];
+  for (int i = threadIdx.x; i < n_tris * TABLE_COLS; i += blockDim.x) smem_table[i] = table[i];
+  __syncthreads();
+  return smem_table;
+}
+
+// Opt in to more than 48 KB of dynamic shared memory where the table needs it.
+template <typename Kernel>
+static inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace opt

@@ -1,0 +1,683 @@
+"""Fused path-trace megakernel: host side, plain PyTorch version and CUDA wrapper.
+
+Counterpart of `oclpathtracer_tpu.kernels.megakernel`. The kernel
+(`csrc/megakernel.cu`, device code in `csrc/trace.cuh`) traces whole paths for one
+pixel per thread: camera generation, the bounce loop, the first-min linear triangle
+scan, BRDF sampling and the sum over samples, with the scene table in shared memory.
+
+Sample streams are the reference's RNG (kernels/rng.py): seed = pixel_id +
+hash(frame), wang+LCG per draw, keyed on ABSOLUTE pixel ids so any split of the
+image into `pid_base`/`n_rays` ranges gives the same bits.
+
+Semantics ≡ reference traceRays (GenerateColors.cl:223-261) with all quirks:
+backface cull (:100), first-min hit (:144-150), emissive ×3 (:241), GGX ×2 (:217),
+flat bg on miss (:227), 0.01 respawn offset (:257), ≤`bounces` segments.
+
+Scans: "parity" reproduces the reference's intersectTriangle arithmetic; "tp" is
+the triple-product scan over `pack_scene_tp`'s constants (hit decisions may move
+from parity's only at ulp comparison boundaries; images are allclose), with the
+tp0 bounce-0 peel. The division-free "fast" scan is not ported yet.
+
+`render_samples_pallas_stats` keeps the JAX name so readers find it. For a CUDA
+table it launches the kernel, or raises; for a CPU table it runs the plain version
+`_render_samples_stats_plain`, which has the same arithmetic vectorized over pixels.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from oclpathtracer_tpu_torch.config import RenderConfig
+from oclpathtracer_tpu_torch.kernels import rng as krng
+from oclpathtracer_tpu_torch.scene.types import Scene
+
+INV_PI = 0.31830988618
+TWO_PI = 6.28318530718
+T_MAX = 1e20
+
+# Scene table layout (T, 24) f32 — columns:
+#  0:3 p1 | 3:6 e1 | 6:9 e2 | 9:12 n=normalize(cross(e2,e1)) | 12:15 albedo
+#  15:18 emissive | 18 roughness | 19 mtype (1.0 diffuse / 2.0 specular) |
+#  20:23 pad | 23 fast-scan fused code = rough + 4*mtype + 16*is_emitter
+TABLE_COLS = 24
+
+# The table is staged in one block's shared memory: 227 KB on Hopper. Larger
+# scenes belong to the BVH kernels, which are not ported yet.
+SMEM_TABLE_MAX_BYTES = 232_448
+
+# The tp0 peel's gate, inherited from the JAX kernel (its scan-unroll cap and
+# bounce range). The peel's collapsed forms round differently from the generic tp
+# scan, so the gate decides which numbers come out, not only how fast.
+TP0_MAX_TRIS = 128
+TP0_MAX_BOUNCES = 8
+
+TP_CLASS_CAP = 16  # classes travel by value in the kernel parameters
+CLASS_COLS = 8     # albedo 3 | emissive 3 | roughness | mtype
+
+# Numeric-extent gate for the tp scan: every vertex within TP_ORIGIN_FACTOR × the
+# scene's bounding-box diagonal of the origin (its forms cancel in f32 far from it).
+TP_ORIGIN_FACTOR = 64.0
+
+# tp table layout (T, 24) f32 — columns:
+#  0:3 N | 3:6 e1 | 6:9 e2 | 9:12 C1 | 12:15 C2 | 15 k |
+#  16 code = material class index + 1 (0 = "no hit") |
+#  17:24 pad, UNLESS the tp0 peel is on: augment_table_tp0 fills them with
+#  17:20 U | 20:23 V | 23 t0 (the collapsed bounce-0 scan constants)
+
+# Kernel launches made by render_samples_pallas_stats on CUDA tensors.
+LAUNCHES = 0
+
+
+# ---- scene packing (numpy, exactly as the JAX package builds it) -------------
+
+def pack_scene(scene: Scene) -> torch.Tensor:
+    """Flatten the scene into the kernel's (T, 24) table (on the scene's device)."""
+    g, m = scene.geometry, scene.materials
+    p1 = g.p1.cpu().numpy().astype(np.float32)
+    e1 = g.p2.cpu().numpy().astype(np.float32) - p1
+    e2 = g.p3.cpu().numpy().astype(np.float32) - p1
+    n = np.cross(e2, e1)
+    n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+    mid = g.mat_id.cpu().numpy()
+    emissive = m.emissive.cpu().numpy()
+    tbl = np.zeros((p1.shape[0], TABLE_COLS), np.float32)
+    tbl[:, 0:3] = p1
+    tbl[:, 3:6] = e1
+    tbl[:, 6:9] = e2
+    tbl[:, 9:12] = n
+    tbl[:, 12:15] = m.albedo.cpu().numpy()[mid]
+    tbl[:, 15:18] = emissive[mid]
+    tbl[:, 18] = m.roughness.cpu().numpy()[mid]
+    tbl[:, 19] = m.mtype.cpu().numpy()[mid].astype(np.float32)
+    is_emit = (emissive[mid] != 0.0).any(axis=-1)
+    tbl[:, 23] = tbl[:, 18] + 4.0 * tbl[:, 19] + 16.0 * is_emit
+    return torch.from_numpy(tbl).to(g.p1.device)
+
+
+def fast_scan_supported(scene: Scene) -> bool:
+    """True if the materials survive the fast scan's fused-code encoding: one shared
+    emitter RGB, roughness < 4, and diffuse/specular mtypes."""
+    m = scene.materials
+    emi = m.emissive.cpu().numpy()
+    rough = m.roughness.cpu().numpy()
+    mty = m.mtype.cpu().numpy()
+    emitters = emi[(emi != 0.0).any(axis=-1)]
+    return bool(
+        (emitters.shape[0] == 0 or (emitters == emitters[0]).all())
+        and np.all((rough >= 0.0) & (rough < 4.0))
+        and np.all((mty == 1) | (mty == 2)))
+
+
+def scene_emissive_const(scene: Scene) -> tuple[float, float, float]:
+    """The shared emitter RGB the fast scan bakes in (0,0,0 if no emitters)."""
+    emi = scene.materials.emissive.cpu().numpy()
+    emitters = emi[(emi != 0.0).any(axis=-1)]
+    if emitters.shape[0] == 0:
+        return (0.0, 0.0, 0.0)
+    return tuple(float(c) for c in emitters[0])
+
+
+def material_classes(scene: Scene):
+    """Deduplicate materials into (albedo, emissive, roughness, mtype) classes.
+
+    Returns (classes, per-material class index). Cornell has 18 material records
+    but only 5 distinct classes."""
+    m = scene.materials
+    alb = m.albedo.cpu().numpy().astype(np.float32)
+    emi = m.emissive.cpu().numpy().astype(np.float32)
+    rough = m.roughness.cpu().numpy().astype(np.float32)
+    mty = m.mtype.cpu().numpy().astype(np.float32)
+    seen: dict = {}
+    classes = []
+    idx = np.zeros(alb.shape[0], np.int32)
+    for i in range(alb.shape[0]):
+        key = (tuple(alb[i].tolist()), tuple(emi[i].tolist()),
+               float(rough[i]), float(mty[i]))
+        if key not in seen:
+            seen[key] = len(classes)
+            classes.append(key)
+        idx[i] = seen[key]
+    return tuple(classes), idx
+
+
+def tp_scan_supported(scene: Scene) -> bool:
+    """True if the materials dedupe to ≤ TP_CLASS_CAP diffuse/specular classes AND
+    every vertex lies within TP_ORIGIN_FACTOR × the bbox diagonal of the origin."""
+    classes, _ = material_classes(scene)
+    mty = scene.materials.mtype.cpu().numpy()
+    if not (len(classes) <= TP_CLASS_CAP and np.all((mty == 1) | (mty == 2))):
+        return False
+    g = scene.geometry
+    verts = np.concatenate([g.p1.cpu().numpy().astype(np.float64),
+                            g.p2.cpu().numpy().astype(np.float64),
+                            g.p3.cpu().numpy().astype(np.float64)])
+    if verts.shape[0] == 0:
+        return True
+    diag = float(np.linalg.norm(verts.max(0) - verts.min(0)))
+    dist = float(np.linalg.norm(verts, axis=-1).max())
+    return dist <= TP_ORIGIN_FACTOR * max(diag, 1e-12)
+
+
+def pack_scene_tp(scene: Scene):
+    """Pack the scene for the tp scan: ((T, 24) table on the scene's device,
+    class tuple)."""
+    g = scene.geometry
+    p1 = g.p1.cpu().numpy().astype(np.float32)
+    e1 = g.p2.cpu().numpy().astype(np.float32) - p1
+    e2 = g.p3.cpu().numpy().astype(np.float32) - p1
+    nrm = np.cross(e2, e1)
+    classes, cls_of_mat = material_classes(scene)
+    mid = g.mat_id.cpu().numpy()
+    tbl = np.zeros((p1.shape[0], TABLE_COLS), np.float32)
+    tbl[:, 0:3] = nrm
+    tbl[:, 3:6] = e1
+    tbl[:, 6:9] = e2
+    tbl[:, 9:12] = np.cross(e2, p1)
+    tbl[:, 12:15] = np.cross(e1, p1)
+    tbl[:, 15] = np.einsum("ij,ij->i", p1, nrm)
+    tbl[:, 16] = (cls_of_mat[mid] + 1).astype(np.float32)
+    return torch.from_numpy(tbl).to(g.p1.device), classes
+
+
+def augment_table_tp0(table: torch.Tensor, eye) -> torch.Tensor:
+    """Fill a pack_scene_tp table's pad columns with the bounce-0 constants.
+
+    Every path's first segment starts at the eye, so with m = cross(eye, d):
+        unum = d·(e2×eye − C1) = d·U,  vnum = d·(C2 − e1×eye) = d·V,
+        tnum = k − eye·N = t0.
+    Columns 17:20 = U, 20:23 = V, 23 = t0, each one f32 operation at a time in a
+    fixed order (the JAX package's `@` may sum in another; allclose to it)."""
+    ex, ey, ez = (float(np.float32(c)) for c in eye)
+    e1 = table[:, 3:6]
+    e2 = table[:, 6:9]
+    c1 = table[:, 9:12]
+    c2 = table[:, 12:15]
+    nv = table[:, 0:3]
+
+    def cross_eye(a):
+        return torch.stack([a[:, 1] * ez - a[:, 2] * ey,
+                            a[:, 2] * ex - a[:, 0] * ez,
+                            a[:, 0] * ey - a[:, 1] * ex], dim=1)
+
+    u = cross_eye(e2) - c1
+    v = c2 - cross_eye(e1)
+    t0 = table[:, 15] - (nv[:, 0] * ex + nv[:, 1] * ey + nv[:, 2] * ez)
+    return torch.cat([table[:, :17], u, v, t0[:, None]], dim=1).contiguous()
+
+
+def _camera_constants(cfg: RenderConfig):
+    """Host-side camera basis in float64, cast to f32 (as the JAX kernel bakes it)."""
+    look = np.asarray(cfg.camera.look, np.float64)
+    up = np.asarray(cfg.camera.up, np.float64)
+    view = look / np.linalg.norm(look)
+    hol = np.cross(view, up)
+    hol = hol / np.linalg.norm(hol)
+    upd = np.cross(hol, view)
+    upd = upd / np.linalg.norm(upd)
+    angle = math.tan(0.5 * math.radians(cfg.camera.vfov_degrees))
+    return (tuple(np.float32(v) for v in view), tuple(np.float32(v) for v in hol),
+            tuple(np.float32(v) for v in upd), np.float32(angle),
+            tuple(np.float32(v) for v in cfg.camera.eye))
+
+
+def resolve_scan(scene: Scene, requested: str = "auto") -> str:
+    """'auto' = the fastest scan the scene's materials support (tp, else fast, else
+    parity), as in the JAX package. Explicit requests pass through."""
+    if requested != "auto":
+        return requested
+    if tp_scan_supported(scene):
+        return "tp"
+    if fast_scan_supported(scene):
+        return "fast"
+    return "parity"
+
+
+def prepare_scan(scene: Scene, requested: str = "auto"):
+    """Resolve the scan and pack its table: (scan, table, classes).
+
+    An explicitly requested 'tp' is validated against tp_scan_supported and raises
+    ValueError on a scene it can't encode. 'fast' (explicit, or what 'auto' picks
+    for a scene tp can't take) raises NotImplementedError: that scan is not
+    ported yet."""
+    scan = resolve_scan(scene, requested)
+    if scan == "fast":
+        raise NotImplementedError(
+            "scan='fast' is not ported yet (ROADMAP queue 2, kernel 1's fast form)")
+    if scan == "tp":
+        if requested == "tp" and not tp_scan_supported(scene):
+            raise ValueError(
+                "scan='tp' requested but tp_scan_supported(scene) is False; "
+                "use scan='auto' to fall back")
+        table, classes = pack_scene_tp(scene)
+        return scan, table, classes
+    if scan != "parity":
+        raise ValueError(f"scan must be 'auto', 'parity', 'fast' or 'tp', got {scan!r}")
+    return scan, pack_scene(scene), ()
+
+
+# ---- launch parameters shared by both kernels and their plain versions --------
+
+def tp0_enabled(scan: str, tp0: bool, n_tris: int, bounces: int) -> bool:
+    return bool(tp0 and scan == "tp" and n_tris <= TP0_MAX_TRIS
+                and 1 <= bounces <= TP0_MAX_BOUNCES)
+
+
+def tp0_table_for(table: torch.Tensor, cfg: RenderConfig, scan: str,
+                  tp0: bool = True) -> torch.Tensor | None:
+    """augment_table_tp0 for `cfg`'s eye, or None where the peel is off. Every launch
+    of a render shares the table and the eye, so a render makes this once and passes
+    it on as `tp0_table` instead of redoing its ~15 small device ops per launch."""
+    if not tp0_enabled(scan, tp0, table.shape[0], cfg.bounces):
+        return None
+    return augment_table_tp0(table, cfg.camera.eye)
+
+
+def _peel_table(table: torch.Tensor, cfg: RenderConfig,
+                tp0_table: torch.Tensor | None) -> torch.Tensor:
+    """The table a tp0-peeled launch reads: the caller's `tp0_table`, else made here."""
+    if tp0_table is None:
+        return augment_table_tp0(table, cfg.camera.eye)
+    if (tp0_table.shape != table.shape or tp0_table.dtype != table.dtype
+            or tp0_table.device != table.device or not tp0_table.is_contiguous()):
+        raise ValueError("tp0_table must be tp0_table_for(table, cfg, 'tp'): contiguous, "
+                         "with the table's shape, dtype and device")
+    return tp0_table
+
+
+def check_call(table: torch.Tensor, cfg: RenderConfig, n_samples: int, scan: str,
+               classes: tuple, n_rays: int) -> None:
+    """Raise on anything the kernels do not take."""
+    if table.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"table must be a CUDA or CPU tensor, got {table.device}")
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != TABLE_COLS:
+        raise ValueError(f"table must be (T, {TABLE_COLS}) float32, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    if not table.is_contiguous():
+        raise ValueError("table must be contiguous")
+    if table.numel() * 4 > SMEM_TABLE_MAX_BYTES:
+        raise ValueError(f"{table.shape[0]} triangles exceed the shared-memory table "
+                         f"({SMEM_TABLE_MAX_BYTES} B); such scenes need the BVH kernels")
+    if scan == "fast":
+        raise NotImplementedError("scan='fast' is not ported yet (ROADMAP queue 2)")
+    if scan not in ("parity", "tp"):
+        raise ValueError(f"scan must be 'parity' or 'tp', got {scan!r}")
+    if scan == "tp" and not 1 <= len(classes) <= TP_CLASS_CAP:
+        raise ValueError(f"scan='tp' needs 1..{TP_CLASS_CAP} classes from pack_scene_tp")
+    if cfg.bounces < 1 or n_samples < 1 or n_rays < 1:
+        raise ValueError("bounces, n_samples and n_rays must be >= 1")
+    if cfg.width < 1 or cfg.height < 1:
+        raise ValueError("width and height must be >= 1")
+
+
+class _Consts(NamedTuple):
+    """The render's f32 constants as Python floats (exact), in the order
+    `csrc/trace.cuh:params_from_host` reads them. 1/W etc. are rounded to f32 once,
+    as the JAX kernel's weakly typed constants are."""
+
+    view: tuple
+    hol: tuple
+    upd: tuple
+    eye: tuple
+    bg: tuple
+    angle: float
+    aspect: float
+    inv_w: float
+    inv_h: float
+    eboost: float
+    roffset: float
+
+    @staticmethod
+    def of(cfg: RenderConfig) -> "_Consts":
+        view, hol, upd, angle, eye = _camera_constants(cfg)
+
+        def f32(*xs):
+            return tuple(float(np.float32(x)) for x in xs)
+
+        return _Consts(f32(*view), f32(*hol), f32(*upd), f32(*eye), f32(*cfg.bg_color),
+                       *f32(angle, cfg.width / cfg.height, 1.0 / cfg.width,
+                            1.0 / cfg.height, cfg.emissive_boost, cfg.ray_offset))
+
+    def flat(self) -> list:
+        return [x for v in self for x in (v if isinstance(v, tuple) else (v,))]
+
+
+def host_params(cfg: RenderConfig, scan: str, classes: tuple, tp0_on: bool, n_tris: int,
+                start_sample: int, n_samples: int, pid_base: int, n_rays: int,
+                interleave: int = 1):
+    """(floats, ints) in the order `csrc/trace.cuh:params_from_host` reads them."""
+    floats = _Consts.of(cfg).flat()
+    if scan == "tp":
+        for alb, emi, rough, mty in classes:
+            floats += [*alb, *emi, rough, mty]
+    ints = [cfg.width, cfg.bounces, 1 if scan == "tp" else 0, int(tp0_on), n_tris,
+            len(classes) if scan == "tp" else 0, int(start_sample), n_samples,
+            int(pid_base), n_rays, interleave]
+    return floats, ints
+
+
+# ---- plain PyTorch version -----------------------------------------------------
+#
+# Vectorized over pixels, with a Python loop over bounces and an in-order loop over
+# the triangles (strict '<'); the same f32 operations in the same order as
+# csrc/trace.cuh. Vectors are tuples of three tensors or Python floats (the table's
+# f32 values, exact as Python floats).
+
+def _dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _cross3(a, b):
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def _scale3(a, s):
+    return (a[0] * s, a[1] * s, a[2] * s)
+
+
+def _add3(a, b):
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+
+def _neg3(a):
+    return (-a[0], -a[1], -a[2])
+
+
+def _where3(c, a, b):
+    return tuple(torch.where(c, x, y) for x, y in zip(a, b))
+
+
+def _normalize3(a):
+    return _scale3(a, torch.rsqrt(torch.clamp(_dot3(a, a), min=1e-40)))
+
+
+def _safe_denom(x, eps=1e-8):
+    return torch.where(torch.abs(x) > eps, x,
+                       torch.where(x >= 0.0, torch.full_like(x, eps),
+                                   torch.full_like(x, -eps)))
+
+
+def _cols(rows: torch.Tensor, c: int):
+    return (rows[:, c], rows[:, c + 1], rows[:, c + 2])
+
+
+class _PlainScene:
+    """The table as Python floats plus the gather sources for the winners."""
+
+    def __init__(self, table: torch.Tensor, classes: tuple, scan: str):
+        self.rows = table.tolist()
+        n = table.shape[0]
+        self.n_tris = n
+        # Row n is the no-hit row: zeros, like the kernel's fresh best-hit state.
+        self.table = torch.cat([table, torch.zeros((1, TABLE_COLS), dtype=table.dtype,
+                                                   device=table.device)])
+        if scan == "tp":
+            # Row 0 is decode_tp_tc's default (no class selected): zeros, diffuse.
+            cls = [[0.0] * 7 + [1.0]] + [[*a, *e, r, m] for a, e, r, m in classes]
+            self.classes = torch.tensor(cls, dtype=torch.float32, device=table.device)
+
+
+def _scan_parity(ps: _PlainScene, o, d):
+    n = d[0].shape[0]
+    best_t = torch.full((n,), T_MAX, dtype=torch.float32, device=d[0].device)
+    best = torch.full((n,), ps.n_tris, dtype=torch.int64, device=d[0].device)
+    for j, r in enumerate(ps.rows):
+        p1, e1, e2 = r[0:3], r[3:6], r[6:9]
+        pvec = _cross3(d, e2)
+        det = _dot3(e1, pvec)
+        front = det >= 1e-8
+        inv_det = torch.reciprocal(torch.where(front, det, 1.0))
+        tvec = (o[0] - p1[0], o[1] - p1[1], o[2] - p1[2])
+        u = _dot3(tvec, pvec) * inv_det
+        qvec = _cross3(tvec, e1)
+        v = _dot3(d, qvec) * inv_det
+        t = _dot3(e2, qvec) * inv_det
+        sel = (front & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+               & (t > 0.0) & (t < best_t))
+        best_t = torch.where(sel, t, best_t)
+        best = torch.where(sel, j, best)
+    win = ps.table[best]
+    return best_t, _cols(win, 9), _cols(win, 12), _cols(win, 15), win[:, 18], win[:, 19]
+
+
+def _decode_tp(ps: _PlainScene, bnum, bden, best):
+    best_t = bnum / bden
+    win = ps.table[best]
+    bN = _cols(win, 0)
+    inv = torch.reciprocal(torch.sqrt(torch.clamp(_dot3(bN, bN), min=1e-40)))
+    cls = ps.classes[win[:, 16].to(torch.int64)]
+    return (best_t, _scale3(bN, inv), _cols(cls, 0), _cols(cls, 3), cls[:, 6],
+            cls[:, 7])
+
+
+def _scan_tp(ps: _PlainScene, o, d):
+    n = d[0].shape[0]
+    dev = d[0].device
+    m = _cross3(o, d)
+    bnum = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
+    bden = torch.ones((n,), dtype=torch.float32, device=dev)
+    best = torch.full((n,), ps.n_tris, dtype=torch.int64, device=dev)
+    for j, r in enumerate(ps.rows):
+        nv, e1, e2, c1, c2, kk = r[0:3], r[3:6], r[6:9], r[9:12], r[12:15], r[15]
+        det = _dot3(d, nv)
+        tnum = kk - _dot3(o, nv)
+        unum = _dot3(e2, m) - _dot3(d, c1)
+        vnum = _dot3(d, c2) - _dot3(e1, m)
+        inside = torch.minimum(torch.minimum(unum, vnum), det - (unum + vnum)) >= 0.0
+        sel = (det >= 1e-8) & inside & (tnum > 0.0) & (tnum * bden < bnum * det)
+        bnum = torch.where(sel, tnum, bnum)
+        bden = torch.where(sel, det, bden)
+        best = torch.where(sel, j, best)
+    return _decode_tp(ps, bnum, bden, best)
+
+
+def _scan_tp0(ps: _PlainScene, d):
+    n = d[0].shape[0]
+    dev = d[0].device
+    bnum = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
+    bden = torch.ones((n,), dtype=torch.float32, device=dev)
+    best = torch.full((n,), ps.n_tris, dtype=torch.int64, device=dev)
+    for j, r in enumerate(ps.rows):
+        t0 = r[23]
+        if not t0 > 0.0:
+            continue
+        det = _dot3(d, r[0:3])
+        unum = _dot3(d, r[17:20])
+        vnum = _dot3(d, r[20:23])
+        inside = torch.minimum(torch.minimum(unum, vnum), det - (unum + vnum)) >= 0.0
+        sel = (det >= 1e-8) & inside & (t0 * bden < bnum * det)
+        bnum = torch.where(sel, t0, bnum)
+        bden = torch.where(sel, det, bden)
+        best = torch.where(sel, j, best)
+    return _decode_tp(ps, bnum, bden, best)
+
+
+def _shade(k: _Consts, path, hit):
+    """Post-scan part of one bounce (megakernel.py shade_one)."""
+    o, d, mask, rad, active, state = path
+    best_t, bn, balb, bemi, brough, bmty = hit
+    hit_mask = best_t < T_MAX
+
+    miss = active & ~hit_mask
+    rad = tuple(rad[c] + torch.where(miss, mask[c] * k.bg[c], 0.0) for c in range(3))
+    active = active & hit_mask
+    rad = tuple(rad[c] + torch.where(active, mask[c] * bemi[c] * k.eboost, 0.0)
+                for c in range(3))
+
+    n = _where3(_dot3(bn, d) < 0.0, bn, _neg3(bn))
+    wo = _neg3(d)
+
+    state, ud1 = krng.next_float(state)
+    state, ud2 = krng.next_float(state)
+
+    use_y = torch.abs(n[0]) > 0.001
+    one = torch.ones_like(n[0])
+    zero = torch.zeros_like(n[0])
+    axis = _where3(use_y, (zero, one, zero), (one, zero, zero))
+    tt = _normalize3(_cross3(axis, n))
+    ss = _cross3(n, tt)
+
+    phi = TWO_PI * ud1
+    cphi = torch.cos(phi)
+    sphi = torch.sin(phi)
+
+    sin_d = torch.sqrt(ud2)
+    cos_d = torch.sqrt(1.0 - ud2)
+    wi_d = _normalize3(_add3(_add3(_scale3(ss, cphi * sin_d), _scale3(tt, sphi * sin_d)),
+                             _scale3(n, cos_d)))
+    pdf_d = _dot3(wi_d, n) * INV_PI
+    f_d = _scale3(balb, INV_PI)
+
+    r2 = brough * brough
+    cos_h = torch.sqrt((1.0 - ud2) / torch.clamp(ud2 * (r2 - 1.0) + 1.0, min=1e-12))
+    sin_h = torch.sqrt(torch.clamp(1.0 - cos_h * cos_h, min=0.0))
+    wh = _normalize3(_add3(_add3(_scale3(ss, cphi * sin_h), _scale3(tt, sphi * sin_h)),
+                           _scale3(n, cos_h)))
+    wi_s = _add3(_neg3(wo), _scale3(wh, 2.0 * _dot3(wo, wh)))
+    same_hemi = _dot3(wi_s, n) * _dot3(wo, n) >= 0.0
+    denom_ndf = cos_h * cos_h * (r2 - 1.0) + 1.0
+    d_ndf = r2 * INV_PI / torch.clamp(denom_ndf * denom_ndf, min=1e-12)
+    pdf_s = d_ndf * cos_h / _safe_denom(4.0 * _dot3(wo, wh))
+    fs_scalar = d_ndf / _safe_denom(4.0 * _dot3(wi_s, n) * _dot3(wo, n)) * 2.0  # ×2 :217
+    f_s = _scale3(balb, fs_scalar)
+    pdf_s = torch.where(same_hemi, pdf_s, 0.0)
+    f_s = _where3(same_hemi, f_s, (zero, zero, zero))
+
+    bspec = bmty >= 1.5
+    wi = _where3(bspec, wi_s, wi_d)
+    pdf = torch.where(bspec, pdf_s, pdf_d)
+    f = _where3(bspec, f_s, f_d)
+
+    alive = active & (pdf > 0.0)
+    factor = _dot3(wi, n) / torch.where(pdf > 0.0, pdf, 1.0)
+    mask = tuple(torch.where(alive, mask[c] * f[c] * factor, mask[c]) for c in range(3))
+
+    hitp = _add3(o, _scale3(d, best_t))
+    o = _add3(hitp, _scale3(wi, k.roffset))
+    d = _where3(alive, wi, d)
+    return o, d, mask, rad, alive, state
+
+
+def _trace_sample_plain(ps: _PlainScene, cfg: RenderConfig, pid: torch.Tensor,
+                        frame: int, scan: str, tp0_on: bool):
+    """One 1-spp frame for pixels `pid`: (max(rad, 0) (N, 3), segments (N,) int32)."""
+    k = _Consts.of(cfg)
+    px = (pid % cfg.width).to(torch.float32)
+    py = (pid // cfg.width).to(torch.float32)
+
+    state = krng.seed_from(pid, frame)
+    state, u1 = krng.next_float(state)
+    state, u2 = krng.next_float(state)
+    x = px + u1 - 0.5
+    y = py + u2 - 0.5
+    sx = (2.0 * ((x + 0.5) * k.inv_w) - 1.0) * k.angle * k.aspect
+    sy = -(1.0 - 2.0 * ((y + 0.5) * k.inv_h)) * k.angle
+    d = _normalize3(tuple(sx * k.hol[c] - sy * k.upd[c] + k.view[c] for c in range(3)))
+    zero = torch.zeros_like(px)
+    o = tuple(zero + k.eye[c] for c in range(3))
+    path = (o, d, (zero + 1.0, zero + 1.0, zero + 1.0), (zero, zero, zero),
+            torch.ones_like(px, dtype=torch.bool), state)
+    segs = torch.zeros_like(pid, dtype=torch.int32)
+
+    for b in range(cfg.bounces):
+        active = path[4]
+        if not bool(active.any()):
+            break
+        segs = segs + active.to(torch.int32)
+        if scan == "tp":
+            hit = _scan_tp0(ps, path[1]) if tp0_on and b == 0 else _scan_tp(ps, *path[:2])
+        else:
+            hit = _scan_parity(ps, *path[:2])
+        path = _shade(k, path, hit)
+    rad = torch.stack(path[3], dim=1)
+    return torch.clamp(rad, min=0.0), segs
+
+
+def _render_samples_stats_plain(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
+                                n_samples: int, pid_base: int = 0,
+                                n_rays: int | None = None, scan: str = "parity",
+                                classes: tuple = (), tp0: bool = True,
+                                tp0_table: torch.Tensor | None = None):
+    """The kernel's plain PyTorch version: (img (n_rays, 3) f32, segments int64)."""
+    n_pix = n_rays if n_rays is not None else cfg.n_pixels
+    tp0_on = tp0_enabled(scan, tp0, table.shape[0], cfg.bounces)
+    if tp0_on:
+        table = _peel_table(table, cfg, tp0_table)
+    ps = _PlainScene(table, classes, scan)
+    pid = torch.arange(pid_base, pid_base + n_pix, dtype=torch.int64, device=table.device)
+    acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=table.device)
+    segs = torch.zeros((n_pix,), dtype=torch.int32, device=table.device)
+    for s in range(n_samples):
+        rad, sg = _trace_sample_plain(ps, cfg, pid, int(start_sample) + s, scan, tp0_on)
+        acc = acc + rad
+        segs = segs + sg
+    return acc, segs.sum(dtype=torch.int64)
+
+
+# ---- the kernel's entry point ----------------------------------------------------
+
+def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
+                                n_samples: int, pid_base: int = 0,
+                                n_rays: int | None = None, scan: str = "parity",
+                                classes: tuple = (), tp0: bool = True,
+                                tp0_table: torch.Tensor | None = None):
+    """SUM of `n_samples` progressive 1-spp frames + traced-segment count.
+
+    Returns (img (n_rays, 3) f32, segments () int64). `table` is pack_scene's
+    (parity) or pack_scene_tp's (tp, with its `classes`). A device rendering pixels
+    [pid_base, pid_base + n_rays) passes its offset so RNG and camera stay keyed on
+    absolute ids. `tp0` (tp only): peel bounce 0 onto the collapsed scan, under
+    the gate of `tp0_enabled`; `tp0_table` is `tp0_table_for`'s result, made once
+    per render (without it each launch augments the table itself).
+
+    A CUDA table launches `csrc/megakernel.cu`; a CPU table runs the plain version.
+    """
+    global LAUNCHES
+    n_pix = n_rays if n_rays is not None else cfg.n_pixels
+    check_call(table, cfg, n_samples, scan, classes, n_pix)
+    if table.device.type == "cpu":
+        return _render_samples_stats_plain(table, cfg, start_sample, n_samples, pid_base,
+                                           n_pix, scan, classes, tp0, tp0_table)
+    from oclpathtracer_tpu_torch.kernels import cuda_build
+
+    tp0_on = tp0_enabled(scan, tp0, table.shape[0], cfg.bounces)
+    if tp0_on:
+        table = _peel_table(table, cfg, tp0_table)
+    floats, ints = host_params(cfg, scan, classes, tp0_on, table.shape[0], start_sample,
+                               n_samples, pid_base, n_pix)
+    out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
+    segs = torch.empty((n_pix,), dtype=torch.int32, device=table.device)
+    cuda_build.launch("opt_megakernel_launch", table, floats, ints, out, segs)
+    LAUNCHES += 1
+    return out, segs.sum(dtype=torch.int64)
+
+
+def render_samples_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
+                          n_samples: int, scan: str = "parity", classes: tuple = (),
+                          tp0_table: torch.Tensor | None = None) -> torch.Tensor:
+    """SUM of `n_samples` progressive 1-spp frames: (n_pixels, 3) f32."""
+    img, _ = render_samples_pallas_stats(table, cfg, start_sample, n_samples, scan=scan,
+                                         classes=classes, tp0_table=tp0_table)
+    return img
+
+
+def render_pallas(scene: Scene, cfg: RenderConfig, total_spp: int,
+                  samples_per_call: int = 0, scan: str = "auto") -> torch.Tensor:
+    """Progressive mean image via the megakernel (host loop over sample chunks), on
+    the scene's device."""
+    scan, table, classes = prepare_scan(scene, scan)
+    tp0_table = tp0_table_for(table, cfg, scan)
+    chunk = samples_per_call or total_spp
+    acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=table.device)
+    s = 0
+    while s < total_spp:
+        n = min(chunk, total_spp - s)
+        acc = acc + render_samples_pallas(table, cfg, s, n, scan=scan, classes=classes,
+                                          tp0_table=tp0_table)
+        s += n
+    return acc / total_spp

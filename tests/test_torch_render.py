@@ -1,0 +1,144 @@
+"""The slice as a whole: the port's progressive driver against the JAX package's,
+checkpoints shared between the two, the CLI, and that the port never imports JAX.
+
+The JAX side runs its Pallas kernels in interpret mode (two calls, about 35 s)."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from oclpathtracer_tpu import RenderConfig as JCfg
+from oclpathtracer_tpu.render import driver as jdriver
+from oclpathtracer_tpu_torch import cli
+from oclpathtracer_tpu_torch.config import RenderConfig
+from oclpathtracer_tpu_torch.convert import scene_from_numpy
+from oclpathtracer_tpu_torch.render import checkpoint as ckpt
+from oclpathtracer_tpu_torch.render import driver
+
+torch.set_num_threads(1)
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+@pytest.fixture(scope="module")
+def port_scene(scene):
+    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene])
+
+
+@pytest.fixture(scope="module")
+def jax_pallas_run(scene, tmp_path_factory):
+    """JAX render_progressive(backend="pallas", scan="parity") at 32×32, 3 bounces,
+    4 spp in steps of 2, leaving its checkpoint behind."""
+    path = str(tmp_path_factory.mktemp("ckpt") / "jax.npz")
+    img = jdriver.render_progressive(scene, JCfg(width=32, height=32, bounces=3), 4,
+                                     samples_per_step=2, backend="pallas", scan="parity",
+                                     checkpoint_path=path)
+    return np.asarray(img), path
+
+
+def test_render_progressive_pallas_matches_jax(port_scene, jax_pallas_run):
+    img = driver.render_progressive(port_scene, RenderConfig(width=32, height=32, bounces=3),
+                                    4, samples_per_step=2, backend="pallas", scan="parity")
+    np.testing.assert_allclose(img.numpy(), jax_pallas_run[0], rtol=1e-4, atol=1e-4)
+
+
+def test_jax_checkpoint_resumes_in_port(port_scene, jax_pallas_run, tmp_path):
+    cfg = RenderConfig(width=32, height=32, bounces=3)
+    path = str(tmp_path / "resume.npz")
+    with open(jax_pallas_run[1], "rb") as src, open(path, "wb") as dst:
+        dst.write(src.read())
+    acc, next_sample = ckpt.load(path)
+    assert next_sample == 4 and int(acc.count) == 4
+    resumed = driver.render_progressive(port_scene, cfg, 6, samples_per_step=2,
+                                        backend="pallas", scan="parity", checkpoint_path=path)
+    straight = driver.render_progressive(port_scene, cfg, 6, samples_per_step=2,
+                                         backend="pallas", scan="parity")
+    np.testing.assert_allclose(resumed.numpy(), straight.numpy(), rtol=1e-4, atol=1e-4)
+    acc, next_sample = ckpt.load(path)
+    assert next_sample == 6 and int(acc.count) == 6
+
+
+def test_port_checkpoint_resume_is_exact(port_scene, tmp_path):
+    cfg = RenderConfig(width=12, height=8, bounces=2)
+    path = str(tmp_path / "port.npz")
+    driver.render_progressive(port_scene, cfg, 2, samples_per_step=2, backend="pallas",
+                              checkpoint_path=path)
+    resumed = driver.render_progressive(port_scene, cfg, 4, samples_per_step=2,
+                                        backend="pallas", checkpoint_path=path)
+    straight = driver.render_progressive(port_scene, cfg, 4, samples_per_step=2,
+                                         backend="pallas")
+    assert torch.equal(resumed, straight)
+
+
+def test_auto_deep_bounces_matches_jax(scene, port_scene):
+    """9 bounces: both packages' auto picks the wavefront kernel with the tp scan;
+    only the summation order differs (JAX's streams vs the port's k=1)."""
+    img_j = jdriver.render_progressive(scene, JCfg(width=32, height=32, bounces=9), 2,
+                                       samples_per_step=2, backend="auto")
+    img_t = driver.render_progressive(port_scene, RenderConfig(width=32, height=32, bounces=9),
+                                      2, samples_per_step=2, backend="auto")
+    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ["jnp", "bvh", "widebvh"])
+def test_unported_backends_raise(port_scene, backend):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        driver.render_progressive(port_scene, RenderConfig(8, 8, bounces=1), 1,
+                                  backend=backend)
+
+
+def test_unknown_backend_raises(port_scene):
+    with pytest.raises(ValueError):
+        driver.render_progressive(port_scene, RenderConfig(8, 8, bounces=1), 1,
+                                  backend="nope")
+
+
+def test_cli_render_on_cpu(tmp_path, capsys):
+    out = str(tmp_path / "r.png")
+    rc = cli.main(["render", "--device", "cpu", "--width", "8", "--height", "6",
+                   "--spp", "2", "--bounces", "2", "--integrator", "wavefront",
+                   "--interleave", "2", "-o", out])
+    assert rc == 0 and os.path.getsize(out) > 0
+    ppm = str(tmp_path / "r.ppm")
+    assert cli.main(["render", "--device", "cpu", "--width", "8", "--height", "6",
+                     "--spp", "1", "--bounces", "1", "--reference-quirk", "-o", ppm]) == 0
+    with open(ppm) as f:
+        assert f.read(2) == "P3"
+    assert cli.main(["info"]) == 0
+    assert "rendered 8x6" in capsys.readouterr().out
+
+
+def test_cli_profile_writes_trace_and_summary(tmp_path, capsys):
+    prof = str(tmp_path / "prof")
+    assert cli.main(["render", "--device", "cpu", "--width", "4", "--height", "4",
+                     "--spp", "1", "--bounces", "1", "--profile", prof,
+                     "-o", str(tmp_path / "p.png")]) == 0
+    assert os.path.getsize(os.path.join(prof, "trace.json")) > 0
+    with open(os.path.join(prof, "summary.txt")) as f:
+        assert "Self CPU" in f.read()
+
+
+@pytest.mark.parametrize("argv", [["render", "--integrator", "ao", "--device", "cpu"],
+                                  ["render", "--scan-chunks", "2", "--device", "cpu"],
+                                  ["bench"]])
+def test_cli_unported_commands_exit_2(argv, capsys):
+    assert cli.main(argv) == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_port_never_imports_jax():
+    code = ("import sys\n"
+            "import oclpathtracer_tpu_torch, oclpathtracer_tpu_torch.render.driver\n"
+            "import oclpathtracer_tpu_torch.cli, oclpathtracer_tpu_torch.kernels.wavefront\n"
+            "import oclpathtracer_tpu_torch.kernels.selfcheck\n"
+            "import oclpathtracer_tpu_torch.integrators, oclpathtracer_tpu_torch.core\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "       or m == 'oclpathtracer_tpu' or m.startswith('oclpathtracer_tpu.')]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
