@@ -6,9 +6,9 @@ Counterpart of `oclpathtracer_tpu.cli`, with the same commands and flags:
   render               progressive render → PPM/PNG
   bench                not ported yet (ROADMAP queue 1 item 8)
 
-`render --integrator pallas|wavefront` run the ported kernels; the other choices,
-and a non-zero `--scan-chunks` (a scheduling knob of the JAX package's kernels),
-exit 2 with "not yet ported".
+`render --integrator pallas|wavefront|bvh|widebvh` run the ported kernels on the
+Cornell box, as the JAX CLI does; the other choices, and a non-zero `--scan-chunks`
+(a scheduling knob of the JAX package's kernels), exit 2 with "not yet ported".
 
 `render --device` is where the render runs, a deployment setting: the JAX CLI takes
 it from JAX's platform setting (`JAX_PLATFORMS`), and torch has no such global.
@@ -25,7 +25,7 @@ import time
 
 INTEGRATORS = ["pallas", "wavefront", "bvh", "widebvh", "sorted", "path", "primary",
                "ao", "ao-pallas", "direct", "direct-pallas"]
-PORTED_INTEGRATORS = ("pallas", "wavefront")
+PORTED_INTEGRATORS = ("pallas", "wavefront", "bvh", "widebvh")
 
 
 def _cmd_info(args) -> int:
@@ -80,11 +80,21 @@ def _cmd_render(args) -> int:
 
         img = render_pallas(scene, cfg, args.spp, samples_per_call=min(args.spp, 64),
                             scan=args.scan)
-    else:
+    elif args.integrator == "wavefront":
         from oclpathtracer_tpu_torch.kernels.wavefront import render_wavefront
 
         img = render_wavefront(scene, cfg, args.spp, samples_per_call=min(args.spp, 64),
                                scan=args.scan, interleave=args.interleave or 1)
+    elif args.integrator == "bvh":
+        from oclpathtracer_tpu_torch.kernels.bvh_megakernel import render_bvh
+
+        img = render_bvh(scene, cfg, args.spp, samples_per_call=min(args.spp, 64),
+                         scan=args.scan)
+    else:
+        from oclpathtracer_tpu_torch.render.driver import render_progressive
+
+        img = render_progressive(scene, cfg, args.spp, samples_per_step=min(args.spp, 64),
+                                 backend="widebvh", scan=args.scan)
     img = img.cpu().numpy()
     dt = time.perf_counter() - t0
     if profiler is not None:
@@ -132,9 +142,9 @@ def main(argv=None) -> int:
     r.add_argument("--checkpoint", default=None)
     r.add_argument("--checkpoint-every", type=int, default=0)
     r.add_argument("--scan", default="auto", choices=["auto", "parity", "fast", "tp"],
-                   help="triangle-scan arithmetic: reference-exact 'parity' or "
-                        "triple-product 'tp' (auto = tp where the scene's materials "
-                        "allow it); 'fast' is not ported yet")
+                   help="triangle-scan arithmetic: reference-exact 'parity', "
+                        "division-free 'fast' or triple-product 'tp' (auto = the "
+                        "fastest the scene's materials allow)")
     r.add_argument("--interleave", type=int, default=0,
                    help="path streams per pixel for wavefront (0 = the default, 1); "
                         "the megakernel has no such knob here")

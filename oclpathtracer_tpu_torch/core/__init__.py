@@ -1,3 +1,3 @@
-from oclpathtracer_tpu_torch.core import brdf, camera, intersect, rng
+from oclpathtracer_tpu_torch.core import brdf, bvh, camera, intersect, rng
 
-__all__ = ["brdf", "camera", "intersect", "rng"]
+__all__ = ["brdf", "bvh", "camera", "intersect", "rng"]

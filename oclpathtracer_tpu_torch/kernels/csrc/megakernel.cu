@@ -1,22 +1,25 @@
 // Fused path-trace megakernel for Hopper (sm_90a).
 //
 // Replaces oclpathtracer_tpu/kernels/megakernel.py:render_samples_pallas_stats
-// (kernel body _make_kernel), in its parity and tp scan forms with the tp0
+// (kernel body _make_kernel), in its parity, fast and tp scan forms with the tp0
 // bounce-0 peel. Per pixel it returns the sum over n 1-spp frames of the path
 // radiance, clamped at max(rad, 0) per path and added in sample order, and the
 // number of traced segments.
 //
 // What bounds it on the H100: FP32 ALU work and register pressure. Each thread
-// runs the whole bounce loop with a 36-triangle scan per bounce (about 40 FP32
-// operations per triangle) and touches device memory only to stage the 3.4 KB
-// table once per block and to write one float3 and one int per pixel.
+// runs the whole bounce loop with a linear scan of every triangle per bounce
+// (about 40 FP32 operations per triangle) and touches device memory only to
+// stage the table once per block and to write one float3 and one int per pixel.
 //
 // What the design does about that: one thread per pixel, 128 threads a block;
-// the table lives in shared memory so that a warp's 32 lanes read each
-// triangle as one broadcast; the scan tracks only (t, index) or (num, den,
-// index) and reads the winner's attributes once; a thread leaves the bounce
-// loop as soon as its path is dead, which is exact because a dead lane adds no
-// radiance and is not counted. The TPU kernel's tiles, SMEM flattening and
+// the table lives in shared memory when it fits (227 KB, about 2,400
+// triangles) so that a warp's 32 lanes read each triangle as one broadcast, and
+// is read from global memory through read-only loads (L1/L2-resident broadcasts)
+// when it does not; which of the two depends only on the table's size, and the
+// results are the same. The scan tracks only (t, index) or (num, den, index)
+// and reads the winner's attributes once; a thread leaves the bounce loop as
+// soon as its path is dead, which is exact because a dead lane adds no radiance
+// and is not counted. The TPU kernel's tiles, SMEM flattening and
 // interleave/scan-chunk/unroll knobs are scheduling for the TPU and have no
 // counterpart here.
 //
@@ -27,31 +30,22 @@
 
 namespace opt {
 
+static __device__ __forceinline__ void megakernel_pixel(const Params& P, const float* tbl,
+                                                        float* __restrict__ out,
+                                                        int* __restrict__ segs) {
+  int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= P.n_rays) return;
+  render_pixel(
+      P, idx, [&](Path& p, int b) { trace_segment(P, tbl, p, P.tp0 && b == 0); }, out, segs);
+}
+
 __global__ void __launch_bounds__(BLOCK) megakernel(const float* __restrict__ table,
                                                   const Params P, float* __restrict__ out,
                                                   int* __restrict__ segs) {
-  const float* tbl = stage_table(table, P.n_tris);
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= P.n_rays) return;
-  int pid = P.pid_base + idx;
-  float px = (float)(pid % P.width);
-  float py = (float)(pid / P.width);
-
-  float3 acc = v3(0.0f, 0.0f, 0.0f);
-  int sg = 0;
-  for (int s = 0; s < P.n_samples; ++s) {
-    Path p = camera_path(P, pid, px, py, s);
-    for (int b = 0; b < P.bounces; ++b) {
-      if (!p.active) break;
-      sg += 1;
-      trace_segment(P, tbl, p, P.tp0 && b == 0);
-    }
-    acc = v3(acc.x + clamp0(p.rad.x), acc.y + clamp0(p.rad.y), acc.z + clamp0(p.rad.z));
-  }
-  out[3 * idx + 0] = acc.x;
-  out[3 * idx + 1] = acc.y;
-  out[3 * idx + 2] = acc.z;
-  segs[idx] = sg;
+  if (P.smem)
+    megakernel_pixel(P, stage_table(table, P.n_tris), out, segs);
+  else
+    megakernel_pixel(P, table, out, segs);
 }
 
 }  // namespace opt
@@ -60,12 +54,7 @@ extern "C" int opt_megakernel_launch(const float* table, const float* host_f,
                                      const int* host_i, float* out, int* segs,
                                      void* stream) {
   opt::Params P = opt::params_from_host(host_f, host_i);
-  size_t smem = (size_t)P.n_tris * opt::TABLE_COLS * sizeof(float);
-  cudaError_t err = opt::set_smem(opt::megakernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  int grid = (P.n_rays + opt::BLOCK - 1) / opt::BLOCK;
-  opt::megakernel<<<grid, opt::BLOCK, smem, (cudaStream_t)stream>>>(table, P, out, segs);
-  return (int)cudaGetLastError();
+  return opt::launch_linear(opt::megakernel, table, P, out, segs, stream);
 }
 
 extern "C" const char* opt_error_string(int code) {

@@ -1,18 +1,20 @@
-// Device-side path trace shared by megakernel.cu and wavefront.cu.
+// Device-side path trace shared by every kernel of the port.
 //
 // One thread owns one pixel. Everything here is per-thread scalar code: the
-// reference's RNG (kernels/rng.py), the camera prologue, the first-min linear
-// scan in parity, tp and tp0 form, and the diffuse/GGX shading with the
-// reference's quirks. The arithmetic follows oclpathtracer_tpu/kernels/
-// megakernel.py:_make_kernel operation by operation, so that with -fmad=false
-// it tracks the port's plain PyTorch version (kernels/megakernel.py) closely:
-// the same f32 operations in the same order, IEEE divisions and square roots,
-// rsqrtf where the plain version calls torch.rsqrt (which is rsqrtf on CUDA).
+// reference's RNG (kernels/rng.py), the camera prologue, the triangle tests in
+// parity, fast and tp form over a [begin, end) range of the table, the decode of
+// each form's best hit, and the diffuse/GGX shading with the reference's quirks.
+// The arithmetic follows oclpathtracer_tpu/kernels/megakernel.py:_make_kernel
+// operation by operation, so that with -fmad=false it tracks the port's plain
+// PyTorch version (kernels/megakernel.py) closely: the same f32 operations in
+// the same order, IEEE divisions and square roots, rsqrtf where the plain
+// version calls torch.rsqrt (which is rsqrtf on CUDA).
 //
-// The scene table ((T, 24) f32, pack_scene or pack_scene_tp layout) sits in
-// shared memory; every thread of a warp reads the same triangle at the same
-// time, which is a broadcast. The tp material classes travel by value in the
-// kernel parameters.
+// The linear kernels stage the scene table ((T, 24) f32, pack_scene or
+// pack_scene_tp layout) in shared memory when it fits (every thread of a warp
+// reads the same triangle at the same time, a broadcast) and read it from
+// global memory through read-only loads when it does not. The tp material
+// classes and the fast scan's emitter RGB travel by value in the parameters.
 #pragma once
 
 #include <cstdint>
@@ -24,23 +26,27 @@ constexpr int BLOCK = 128;         // threads a block, one pixel each
 constexpr int TABLE_COLS = 24;
 constexpr int CLASS_COLS = 8;     // albedo 3 | emissive 3 | roughness | mtype
 constexpr int TP_CLASS_CAP = 16;
-constexpr int N_HOST_FLOATS = 21;  // see Params, in order
+constexpr int N_HOST_FLOATS = 24;  // see Params, in order
 constexpr float T_MAX = 1e20f;
 constexpr float INV_PI = 0.31830988618f;
 constexpr float TWO_PI = 6.28318530718f;
 
-enum { SCAN_PARITY = 0, SCAN_TP = 1 };
+enum { SCAN_PARITY = 0, SCAN_TP = 1, SCAN_FAST = 2 };
 
 // Host-computed constants, passed by value. Floats arrive as
-// [view3 hol3 upd3 eye3 bg3 angle aspect inv_w inv_h eboost roffset] then
+// [view3 hol3 upd3 eye3 bg3 angle aspect inv_w inv_h eboost roffset emi3] then
 // n_classes*8 class values; ints as [width bounces scan tp0 n_tris n_classes
-// start_sample n_samples pid_base n_rays interleave].
+// start_sample n_samples pid_base n_rays interleave smem n_nodes depth].
+// n_tris counts table rows; smem = 1 stages the table in shared memory (linear
+// kernels); n_nodes / depth size the BVH kernels' node tables.
 struct Params {
   float view[3], hol[3], upd[3], eye[3], bg[3];
   float angle, aspect, inv_w, inv_h, eboost, roffset;
+  float emi[3];  // the fast scan's shared emitter RGB
   float classes[TP_CLASS_CAP * CLASS_COLS];
   int width, bounces, scan, tp0, n_tris, n_classes;
   int start_sample, n_samples, pid_base, n_rays, interleave;
+  int smem, n_nodes, depth;
 };
 
 static inline Params params_from_host(const float* f, const int* i) {
@@ -50,9 +56,11 @@ static inline Params params_from_host(const float* f, const int* i) {
     for (int c = 0; c < 3; ++c) dst[v][c] = f[3 * v + c];
   p.angle = f[15]; p.aspect = f[16]; p.inv_w = f[17]; p.inv_h = f[18];
   p.eboost = f[19]; p.roffset = f[20];
+  p.emi[0] = f[21]; p.emi[1] = f[22]; p.emi[2] = f[23];
   p.width = i[0]; p.bounces = i[1]; p.scan = i[2]; p.tp0 = i[3];
   p.n_tris = i[4]; p.n_classes = i[5]; p.start_sample = i[6];
   p.n_samples = i[7]; p.pid_base = i[8]; p.n_rays = i[9]; p.interleave = i[10];
+  p.smem = i[11]; p.n_nodes = i[12]; p.depth = i[13];
   for (int k = 0; k < TP_CLASS_CAP * CLASS_COLS; ++k)
     p.classes[k] = k < p.n_classes * CLASS_COLS ? f[N_HOST_FLOATS + k] : 0.0f;
   return p;
@@ -119,6 +127,21 @@ struct Hit {
   float rough, mty;
 };
 
+// A scan's running best hit. parity keeps t in `num` (`den` unused); fast and tp
+// keep t = num / den with den > 0. idx is the winning table row, -1 for none.
+struct Best {
+  float num, den;
+  int idx;
+};
+
+static __device__ __forceinline__ Best fresh_best() {
+  Best b;
+  b.num = T_MAX;
+  b.den = 1.0f;
+  b.idx = -1;
+  return b;
+}
+
 // Seed + camera ray (generateRay, GenerateColors.cl:263-288) for one frame.
 // `s` counts from start_sample; frames wrap mod 2^32 like the JAX kernel's int32.
 static __device__ __forceinline__ Path camera_path(const Params& P, int pid, float px,
@@ -141,36 +164,98 @@ static __device__ __forceinline__ Path camera_path(const Params& P, int pid, flo
   return p;
 }
 
-// Parity scan (megakernel.py tri_body): the reference's Möller–Trumbore with
-// its per-triangle divide, u <= 1 tested, the backface cull det >= 1e-8, and a
-// strict t < best_t in triangle order. The winner's attributes are read once
-// after the loop instead of being selected per triangle: the same values.
-static __device__ __forceinline__ Hit scan_parity(const float* tbl, int n_tris, float3 o,
-                                                  float3 d) {
-  float best_t = T_MAX;
-  int best = -1;
-  for (int j = 0; j < n_tris; ++j) {
-    const float* r = tbl + j * TABLE_COLS;
-    float3 p1 = row3(r, 0), e1 = row3(r, 3), e2 = row3(r, 6);
-    float3 pvec = cross3(d, e2);
-    float det = dot3(e1, pvec);
-    bool front = det >= 1e-8f;
-    float inv_det = 1.0f / (front ? det : 1.0f);
-    float3 tvec = v3(o.x - p1.x, o.y - p1.y, o.z - p1.z);
-    float u = dot3(tvec, pvec) * inv_det;
-    float3 qvec = cross3(tvec, e1);
-    float v = dot3(d, qvec) * inv_det;
-    float t = dot3(e2, qvec) * inv_det;
-    if (front && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
-        t < best_t) {
-      best_t = t;
-      best = j;
-    }
+// ---- one triangle of each scan form ----------------------------------------
+
+// min(min(a, b), c) >= 0 without fminf, whose NaN rule differs from jnp.minimum.
+static __device__ __forceinline__ bool inside3(float unum, float vnum, float det) {
+  return unum >= 0.0f && vnum >= 0.0f && det - (unum + vnum) >= 0.0f;
+}
+
+// Parity (megakernel.py tri_body): the reference's Möller–Trumbore with its
+// per-triangle divide, u <= 1 tested, the backface cull det >= 1e-8, and a
+// strict t < best_t in table order.
+static __device__ __forceinline__ void test_parity(const float* r, int j, float3 o, float3 d,
+                                                   Best& b) {
+  float3 p1 = row3(r, 0), e1 = row3(r, 3), e2 = row3(r, 6);
+  float3 pvec = cross3(d, e2);
+  float det = dot3(e1, pvec);
+  bool front = det >= 1e-8f;
+  float inv_det = 1.0f / (front ? det : 1.0f);
+  float3 tvec = v3(o.x - p1.x, o.y - p1.y, o.z - p1.z);
+  float u = dot3(tvec, pvec) * inv_det;
+  float3 qvec = cross3(tvec, e1);
+  float v = dot3(d, qvec) * inv_det;
+  float t = dot3(e2, qvec) * inv_det;
+  if (front && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
+      t < b.num) {
+    b.num = t;
+    b.idx = j;
   }
+}
+
+// Fast (megakernel.py tri_body_fast): division-free Möller–Trumbore. t stays the
+// fraction tnum / det, ordered by tnum * bden < bnum * det (both dens > 0 after
+// the cull); the inside test runs on the undivided numerators.
+static __device__ __forceinline__ void test_fast(const float* r, int j, float3 o, float3 d,
+                                                 Best& b) {
+  float3 p1 = row3(r, 0), e1 = row3(r, 3), e2 = row3(r, 6);
+  float3 pvec = cross3(d, e2);
+  float det = dot3(e1, pvec);
+  float3 tvec = v3(o.x - p1.x, o.y - p1.y, o.z - p1.z);
+  float unum = dot3(tvec, pvec);
+  float3 qvec = cross3(tvec, e1);
+  float vnum = dot3(d, qvec);
+  float tnum = dot3(e2, qvec);
+  if (det >= 1e-8f && inside3(unum, vnum, det) && tnum > 0.0f &&
+      tnum * b.den < b.num * det) {
+    b.num = tnum;
+    b.den = det;
+    b.idx = j;
+  }
+}
+
+// tp (megakernel.py tri_body_tp): triple products of the pack_scene_tp
+// constants with m = cross(o, d), t kept as a fraction as in the fast scan.
+static __device__ __forceinline__ void test_tp(const float* r, int j, float3 o, float3 d,
+                                               float3 m, Best& b) {
+  float3 nv = row3(r, 0), e1 = row3(r, 3), e2 = row3(r, 6);
+  float3 c1 = row3(r, 9), c2 = row3(r, 12);
+  float det = dot3(d, nv);
+  float tnum = r[15] - dot3(o, nv);
+  float unum = dot3(e2, m) - dot3(d, c1);
+  float vnum = dot3(d, c2) - dot3(e1, m);
+  if (det >= 1e-8f && inside3(unum, vnum, det) && tnum > 0.0f &&
+      tnum * b.den < b.num * det) {
+    b.num = tnum;
+    b.den = det;
+    b.idx = j;
+  }
+}
+
+// Rows [begin, end) of the table in order: the linear scan is [0, n_tris), a BVH
+// leaf its own range. `m` is cross(o, d), read by the tp form only.
+template <int SCAN>
+static __device__ __forceinline__ void scan_range(const float* tbl, int begin, int end,
+                                                  float3 o, float3 d, float3 m, Best& b) {
+  for (int j = begin; j < end; ++j) {
+    const float* r = tbl + (size_t)j * TABLE_COLS;
+    if (SCAN == SCAN_TP)
+      test_tp(r, j, o, d, m, b);
+    else if (SCAN == SCAN_FAST)
+      test_fast(r, j, o, d, b);
+    else
+      test_parity(r, j, o, d, b);
+  }
+}
+
+// ---- decoding a best hit into the shading attributes ----------------------
+
+// Parity: the winner's pack_scene attributes, read once after the scan.
+static __device__ __forceinline__ Hit decode_parity(const float* tbl, const Best& b) {
   Hit h;
-  h.t = best_t;
-  if (best >= 0) {
-    const float* r = tbl + best * TABLE_COLS;
+  h.t = b.num;
+  if (b.idx >= 0) {
+    const float* r = tbl + (size_t)b.idx * TABLE_COLS;
     h.n = row3(r, 9); h.alb = row3(r, 12); h.emi = row3(r, 15);
     h.rough = r[18]; h.mty = r[19];
   } else {
@@ -180,22 +265,41 @@ static __device__ __forceinline__ Hit scan_parity(const float* tbl, int n_tris, 
   return h;
 }
 
-// min(min(a, b), c) >= 0 without fminf, whose NaN rule differs from jnp.minimum.
-static __device__ __forceinline__ bool inside3(float unum, float vnum, float det) {
-  return unum >= 0.0f && vnum >= 0.0f && det - (unum + vnum) >= 0.0f;
+// decode_fast_tc (megakernel.py:424-442): one divide; normal and albedo from the
+// table; roughness, mtype and is-emitter from the fused code in column 23
+// (rough + 4*mtype + 16*is_emitter); emitters share the RGB in P.emi. No hit
+// decodes to T_MAX / 1 with code 0 (diffuse, roughness 0).
+static __device__ __forceinline__ Hit decode_fast(const Params& P, const float* tbl,
+                                                  const Best& b) {
+  Hit h;
+  h.t = b.num / b.den;
+  float code = 0.0f;
+  h.n = h.alb = v3(0.0f, 0.0f, 0.0f);
+  if (b.idx >= 0) {
+    const float* r = tbl + (size_t)b.idx * TABLE_COLS;
+    h.n = row3(r, 9); h.alb = row3(r, 12);
+    code = r[23];
+  }
+  bool emit = code >= 15.5f;
+  float code2 = code - (emit ? 16.0f : 0.0f);
+  bool spec = code2 >= 7.5f;
+  h.rough = clamp0(code2 - (spec ? 8.0f : 4.0f));
+  h.mty = spec ? 2.0f : 1.0f;
+  h.emi = emit ? v3(P.emi[0], P.emi[1], P.emi[2]) : v3(0.0f, 0.0f, 0.0f);
+  return h;
 }
 
 // decode_tp_tc (megakernel.py:393-421): one divide, a 1/sqrt normalize of the
 // winner's raw N, and the class select |code - (i+1)| < 0.5. No hit decodes to
 // T_MAX / 1 with the default class (zeros, diffuse).
-static __device__ __forceinline__ Hit decode_tp(const Params& P, const float* tbl, float bnum,
-                                                float bden, int best) {
+static __device__ __forceinline__ Hit decode_tp(const Params& P, const float* tbl,
+                                                const Best& b) {
   Hit h;
-  h.t = bnum / bden;
+  h.t = b.num / b.den;
   float3 N = v3(0.0f, 0.0f, 0.0f);
   float code = 0.0f;
-  if (best >= 0) {
-    const float* r = tbl + best * TABLE_COLS;
+  if (b.idx >= 0) {
+    const float* r = tbl + (size_t)b.idx * TABLE_COLS;
     N = row3(r, 0);
     code = r[16];
   }
@@ -214,49 +318,40 @@ static __device__ __forceinline__ Hit decode_tp(const Params& P, const float* tb
   return h;
 }
 
-// tp scan (megakernel.py tri_body_tp): triple products of the pack_scene_tp
-// constants, t kept as a fraction compared by cross-multiplication.
-static __device__ __forceinline__ Hit scan_tp(const Params& P, const float* tbl, float3 o,
-                                              float3 d) {
-  float3 m = cross3(o, d);
-  float bnum = T_MAX, bden = 1.0f;
-  int best = -1;
-  for (int j = 0; j < P.n_tris; ++j) {
-    const float* r = tbl + j * TABLE_COLS;
-    float3 nv = row3(r, 0), e1 = row3(r, 3), e2 = row3(r, 6);
-    float3 c1 = row3(r, 9), c2 = row3(r, 12);
-    float det = dot3(d, nv);
-    float tnum = r[15] - dot3(o, nv);
-    float unum = dot3(e2, m) - dot3(d, c1);
-    float vnum = dot3(d, c2) - dot3(e1, m);
-    if (det >= 1e-8f && inside3(unum, vnum, det) && tnum > 0.0f &&
-        tnum * bden < bnum * det) {
-      bnum = tnum;
-      bden = det;
-      best = j;
-    }
-  }
-  return decode_tp(P, tbl, bnum, bden, best);
+template <int SCAN>
+static __device__ __forceinline__ Hit decode(const Params& P, const float* tbl, const Best& b) {
+  if (SCAN == SCAN_TP) return decode_tp(P, tbl, b);
+  if (SCAN == SCAN_FAST) return decode_fast(P, tbl, b);
+  return decode_parity(tbl, b);
 }
 
 // tp0 scan (megakernel.py tri_body_tp0): the first segment starts at the eye,
 // so the forms collapse to dots with the augment_table_tp0 columns 17:24.
 static __device__ __forceinline__ Hit scan_tp0(const Params& P, const float* tbl, float3 d) {
-  float bnum = T_MAX, bden = 1.0f;
-  int best = -1;
+  Best b = fresh_best();
   for (int j = 0; j < P.n_tris; ++j) {
-    const float* r = tbl + j * TABLE_COLS;
+    const float* r = tbl + (size_t)j * TABLE_COLS;
     float t0 = r[23];
     float det = dot3(d, row3(r, 0));
     float unum = dot3(d, row3(r, 17));
     float vnum = dot3(d, row3(r, 20));
-    if (det >= 1e-8f && inside3(unum, vnum, det) && t0 > 0.0f && t0 * bden < bnum * det) {
-      bnum = t0;
-      bden = det;
-      best = j;
+    if (det >= 1e-8f && inside3(unum, vnum, det) && t0 > 0.0f && t0 * b.den < b.num * det) {
+      b.num = t0;
+      b.den = det;
+      b.idx = j;
     }
   }
-  return decode_tp(P, tbl, bnum, bden, best);
+  return decode_tp(P, tbl, b);
+}
+
+// The linear first-min scan over the whole table, decoded.
+template <int SCAN>
+static __device__ __forceinline__ Hit scan_linear(const Params& P, const float* tbl, float3 o,
+                                                  float3 d) {
+  Best b = fresh_best();
+  float3 m = SCAN == SCAN_TP ? cross3(o, d) : v3(0.0f, 0.0f, 0.0f);
+  scan_range<SCAN>(tbl, 0, P.n_tris, o, d, m, b);
+  return decode<SCAN>(P, tbl, b);
 }
 
 // Post-scan part of one bounce (megakernel.py shade_one, GenerateColors.cl:223-261).
@@ -330,15 +425,46 @@ static __device__ __forceinline__ void shade(const Params& P, Path& p, const Hit
   p.active = alive;
 }
 
-// One traced segment: scan, decode, shade. `primary` selects the tp0 form.
+// One traced segment of the linear kernels: scan, decode, shade. `primary`
+// selects the tp0 form.
 static __device__ __forceinline__ void trace_segment(const Params& P, const float* tbl, Path& p,
                                                      bool primary) {
   Hit h;
   if (P.scan == SCAN_TP)
-    h = primary ? scan_tp0(P, tbl, p.d) : scan_tp(P, tbl, p.o, p.d);
+    h = primary ? scan_tp0(P, tbl, p.d) : scan_linear<SCAN_TP>(P, tbl, p.o, p.d);
+  else if (P.scan == SCAN_FAST)
+    h = scan_linear<SCAN_FAST>(P, tbl, p.o, p.d);
   else
-    h = scan_parity(tbl, P.n_tris, p.o, p.d);
+    h = scan_linear<SCAN_PARITY>(P, tbl, p.o, p.d);
   shade(P, p, h);
+}
+
+// The per-sample bounce loop of one pixel: n 1-spp frames, each at most
+// `bounces` segments, max(rad, 0) added in sample order, segments counted.
+// `segment(path, bounce)` traces one segment. A dead path leaves the loop: it
+// adds no radiance and is not counted, so this is exact.
+template <typename Segment>
+static __device__ __forceinline__ void render_pixel(const Params& P, int idx, Segment segment,
+                                                    float* __restrict__ out,
+                                                    int* __restrict__ segs) {
+  int pid = P.pid_base + idx;
+  float px = (float)(pid % P.width);
+  float py = (float)(pid / P.width);
+  float3 acc = v3(0.0f, 0.0f, 0.0f);
+  int sg = 0;
+  for (int s = 0; s < P.n_samples; ++s) {
+    Path p = camera_path(P, pid, px, py, s);
+    for (int b = 0; b < P.bounces; ++b) {
+      if (!p.active) break;
+      sg += 1;
+      segment(p, b);
+    }
+    acc = v3(acc.x + clamp0(p.rad.x), acc.y + clamp0(p.rad.y), acc.z + clamp0(p.rad.z));
+  }
+  out[3 * idx + 0] = acc.x;
+  out[3 * idx + 1] = acc.y;
+  out[3 * idx + 2] = acc.z;
+  segs[idx] = sg;
 }
 
 // Copy the scene table into dynamic shared memory; every thread of the block
@@ -350,11 +476,20 @@ static __device__ __forceinline__ const float* stage_table(const float* table, i
   return smem_table;
 }
 
-// Opt in to more than 48 KB of dynamic shared memory where the table needs it.
+// Launch a linear kernel: the table goes to shared memory when P.smem says it
+// fits (opting in past 48 KB), else the kernel reads it from global memory.
 template <typename Kernel>
-static inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+static inline int launch_linear(Kernel kernel, const float* table, const Params& P, float* out,
+                                int* segs, void* stream) {
+  size_t smem = P.smem ? (size_t)P.n_tris * TABLE_COLS * sizeof(float) : 0;
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int grid = (P.n_rays + BLOCK - 1) / BLOCK;
+  kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(table, P, out, segs);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace opt

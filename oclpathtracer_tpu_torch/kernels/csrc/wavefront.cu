@@ -1,17 +1,18 @@
 // Path-regeneration kernel for Hopper (sm_90a).
 //
 // Replaces oclpathtracer_tpu/kernels/wavefront.py:render_samples_wavefront_stats
-// (kernel body _make_kernel), in its parity and tp scan forms. It computes the
-// megakernel's per-pixel sum by in-thread path regeneration: a thread owns k =
-// interleave streams, stream i traces samples i, i+k, ... and, when a path
+// (kernel body _make_kernel), in its parity, fast and tp scan forms. It computes
+// the megakernel's per-pixel sum by in-thread path regeneration: a thread owns
+// k = interleave streams, stream i traces samples i, i+k, ... and, when a path
 // ends (miss, dead pdf, or the bounce cap), adds max(rad, 0) into its own
 // accumulator and starts its next sample in the same loop. The streams are
 // summed in ascending order, so k fixes only the summation order, and k = 1
 // equals the megakernel bit for bit (same trace routine, same order).
 //
 // What bounds it on the H100: as the megakernel, FP32 ALU work and register
-// pressure, with almost no device-memory traffic (table staging per block,
-// one float3 and one int written per pixel).
+// pressure, with almost no device-memory traffic (table staging per block, or
+// read-only global loads for a table past shared memory; one float3 and one
+// int written per pixel).
 //
 // What the design does about that: the loop body is one traced segment, and a
 // finished lane regenerates inside the same iteration instead of waiting at the
@@ -24,10 +25,9 @@
 
 namespace opt {
 
-__global__ void __launch_bounds__(BLOCK) wavefront(const float* __restrict__ table,
-                                                 const Params P, float* __restrict__ out,
-                                                 int* __restrict__ segs) {
-  const float* tbl = stage_table(table, P.n_tris);
+static __device__ __forceinline__ void wavefront_pixel(const Params& P, const float* tbl,
+                                                       float* __restrict__ out,
+                                                       int* __restrict__ segs) {
   int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= P.n_rays) return;
   int pid = P.pid_base + idx;
@@ -62,15 +62,19 @@ __global__ void __launch_bounds__(BLOCK) wavefront(const float* __restrict__ tab
   segs[idx] = sg;
 }
 
+__global__ void __launch_bounds__(BLOCK) wavefront(const float* __restrict__ table,
+                                                 const Params P, float* __restrict__ out,
+                                                 int* __restrict__ segs) {
+  if (P.smem)
+    wavefront_pixel(P, stage_table(table, P.n_tris), out, segs);
+  else
+    wavefront_pixel(P, table, out, segs);
+}
+
 }  // namespace opt
 
 extern "C" int opt_wavefront_launch(const float* table, const float* host_f, const int* host_i,
                                     float* out, int* segs, void* stream) {
   opt::Params P = opt::params_from_host(host_f, host_i);
-  size_t smem = (size_t)P.n_tris * opt::TABLE_COLS * sizeof(float);
-  cudaError_t err = opt::set_smem(opt::wavefront, smem);
-  if (err != cudaSuccess) return (int)err;
-  int grid = (P.n_rays + opt::BLOCK - 1) / opt::BLOCK;
-  opt::wavefront<<<grid, opt::BLOCK, smem, (cudaStream_t)stream>>>(table, P, out, segs);
-  return (int)cudaGetLastError();
+  return opt::launch_linear(opt::wavefront, table, P, out, segs, stream);
 }

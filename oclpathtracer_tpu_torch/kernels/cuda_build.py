@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (`kernels/csrc/`).
 
-nvcc compiles every `.cu` file into one shared library with a plain C interface,
-loaded with ctypes. The library is built at first use into `kernels/build/`, named
-by a hash of the sources and flags, so a changed source rebuilds and an unchanged
-one loads at once. Nothing here runs at import: the CPU tests import every module,
-and the machine they run on has no nvcc.
+nvcc compiles every `.cu` file, one process per source, all started together, and
+links the objects into one shared library with a plain C interface, loaded with
+ctypes. The library is built at first use into `kernels/build/`, named by a hash
+of the sources and flags, so a changed source rebuilds and an unchanged one loads
+at once. Nothing here runs at import: the CPU tests import every module, and the
+machine they run on has no nvcc.
 
 Flags: `-fmad=false` keeps nvcc from contracting a*b+c into one FMA, so the kernels
 round like their plain PyTorch versions, whose elementwise operations never fuse;
@@ -19,18 +20,25 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from typing import NamedTuple
 
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "build")
-SOURCES = ("megakernel.cu", "wavefront.cu")
-HEADERS = ("trace.cuh",)
+SOURCES = ("megakernel.cu", "wavefront.cu", "bvh_megakernel.cu", "wide_bvh.cu")
+HEADERS = ("trace.cuh", "bvh.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_PTR = ctypes.c_void_p
-_LAUNCH_ARGTYPES = [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR]
+# Each entry point: its pointer arguments are the input tensors, the host float
+# and int arrays, out, segs and the stream, each a c_void_p.
+LAUNCHERS = {
+    "opt_megakernel_launch": 1,      # table
+    "opt_wavefront_launch": 1,       # table
+    "opt_bvh_megakernel_launch": 3,  # table, nodes_f, nodes_i
+    "opt_wide_bvh_launch": 3,        # table, wn_f, wn_i
+}
 
 
 class BuildInfo(NamedTuple):
@@ -60,6 +68,22 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list) -> str:
+    """Run the commands in parallel; their joint output, or RuntimeError."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} -> {proc.returncode}")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {failed}\n{log}")
+    return log
+
+
 @functools.lru_cache(maxsize=None)
 def load_library():
     """(ctypes library, BuildInfo): build the kernels if needed, then load them."""
@@ -68,37 +92,45 @@ def load_library():
     built, log = False, ""
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)  # atomic: another process never loads half a file
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            objs = [os.path.join(tmpdir, s + ".o") for s in SOURCES]
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+                            for s, o in zip(SOURCES, objs)])
+            tmp = os.path.join(tmpdir, "lib.so")
+            log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                              "-o", tmp, *objs]])
+            os.replace(tmp, path)  # atomic: another process never loads half a file
         built = True
     lib = ctypes.CDLL(path)
-    for name in ("opt_megakernel_launch", "opt_wavefront_launch"):
+    for name, n_inputs in LAUNCHERS.items():
         fn = getattr(lib, name)
-        fn.argtypes = _LAUNCH_ARGTYPES
+        fn.argtypes = [ctypes.c_void_p] * (n_inputs + 5)
         fn.restype = ctypes.c_int
     lib.opt_error_string.argtypes = [ctypes.c_int]
     lib.opt_error_string.restype = ctypes.c_char_p
     return lib, BuildInfo(path, built, time.perf_counter() - t0, log)
 
 
-def launch(fn_name: str, table, host_f, host_i, out, segs) -> None:
-    """Launch one kernel on the current stream of `table`'s device; raise if the
+def launch(fn_name: str, inputs: tuple, host_f, host_i, out, segs) -> None:
+    """Launch one kernel on the current stream of the inputs' device; raise if the
     launch is refused (cudaGetLastError is not 0)."""
     import torch
 
+    if len(inputs) != LAUNCHERS[fn_name]:
+        raise ValueError(f"{fn_name} takes {LAUNCHERS[fn_name]} input tensors")
+    device = inputs[0].device
+    for t in (*inputs, out, segs):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{fn_name}: every tensor must be contiguous on {device}")
     lib, _ = load_library()
     f_arr = (ctypes.c_float * len(host_f))(*host_f)
     i_arr = (ctypes.c_int * len(host_i))(*host_i)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = getattr(lib, fn_name)(table.data_ptr(), ctypes.addressof(f_arr),
-                                    ctypes.addressof(i_arr), out.data_ptr(),
-                                    segs.data_ptr(), stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn_name)(*(t.data_ptr() for t in inputs), ctypes.addressof(f_arr),
+                                    ctypes.addressof(i_arr), out.data_ptr(), segs.data_ptr(),
+                                    stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err}: "
                            f"{lib.opt_error_string(err).decode()}")

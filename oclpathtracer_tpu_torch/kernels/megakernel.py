@@ -3,7 +3,9 @@
 Counterpart of `oclpathtracer_tpu.kernels.megakernel`. The kernel
 (`csrc/megakernel.cu`, device code in `csrc/trace.cuh`) traces whole paths for one
 pixel per thread: camera generation, the bounce loop, the first-min linear triangle
-scan, BRDF sampling and the sum over samples, with the scene table in shared memory.
+scan, BRDF sampling and the sum over samples. The scene table sits in shared memory
+while it fits (`table_in_shared`) and is read from global memory beyond; the results
+do not depend on which.
 
 Sample streams are the reference's RNG (kernels/rng.py): seed = pixel_id +
 hash(frame), wang+LCG per draw, keyed on ABSOLUTE pixel ids so any split of the
@@ -13,10 +15,12 @@ Semantics ≡ reference traceRays (GenerateColors.cl:223-261) with all quirks:
 backface cull (:100), first-min hit (:144-150), emissive ×3 (:241), GGX ×2 (:217),
 flat bg on miss (:227), 0.01 respawn offset (:257), ≤`bounces` segments.
 
-Scans: "parity" reproduces the reference's intersectTriangle arithmetic; "tp" is
-the triple-product scan over `pack_scene_tp`'s constants (hit decisions may move
-from parity's only at ulp comparison boundaries; images are allclose), with the
-tp0 bounce-0 peel. The division-free "fast" scan is not ported yet.
+Scans: "parity" reproduces the reference's intersectTriangle arithmetic; "fast" is
+the division-free form (t kept as a fraction, the inside test on undivided
+numerators, material packed into the code column 23, emitters sharing
+`emi_const`); "tp" is the triple-product scan over `pack_scene_tp`'s constants,
+with the tp0 bounce-0 peel. fast and tp hit decisions may move from parity's only at
+ulp comparison boundaries; images are allclose (the JAX package's contract).
 
 `render_samples_pallas_stats` keeps the JAX name so readers find it. For a CUDA
 table it launches the kernel, or raises; for a CPU table it runs the plain version
@@ -25,6 +29,7 @@ table it launches the kernel, or raises; for a CPU table it runs the plain versi
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -45,8 +50,8 @@ T_MAX = 1e20
 #  20:23 pad | 23 fast-scan fused code = rough + 4*mtype + 16*is_emitter
 TABLE_COLS = 24
 
-# The table is staged in one block's shared memory: 227 KB on Hopper. Larger
-# scenes belong to the BVH kernels, which are not ported yet.
+# The linear kernels stage the table in one block's shared memory up to 227 KB on
+# Hopper (about 2,420 triangles) and read it from global memory beyond.
 SMEM_TABLE_MAX_BYTES = 232_448
 
 # The tp0 peel's gate, inherited from the JAX kernel (its scan-unroll cap and
@@ -236,27 +241,34 @@ def resolve_scan(scene: Scene, requested: str = "auto") -> str:
     return "parity"
 
 
-def prepare_scan(scene: Scene, requested: str = "auto"):
-    """Resolve the scan and pack its table: (scan, table, classes).
+NO_EMI = (0.0, 0.0, 0.0)
 
-    An explicitly requested 'tp' is validated against tp_scan_supported and raises
-    ValueError on a scene it can't encode. 'fast' (explicit, or what 'auto' picks
-    for a scene tp can't take) raises NotImplementedError: that scan is not
-    ported yet."""
+
+def prepare_scan(scene: Scene, requested: str = "auto"):
+    """Resolve the scan and pack its table: (scan, table, emi_const, classes), the
+    JAX package's tuple: the kernels' `scan`, table, `emi_const` (the fast scan's
+    shared emitter RGB, else zeros) and `classes` (tp's, else ()).
+
+    An explicitly requested 'tp' or 'fast' is validated against its support
+    predicate and raises ValueError on a scene it can't encode."""
     scan = resolve_scan(scene, requested)
-    if scan == "fast":
-        raise NotImplementedError(
-            "scan='fast' is not ported yet (ROADMAP queue 2, kernel 1's fast form)")
     if scan == "tp":
         if requested == "tp" and not tp_scan_supported(scene):
             raise ValueError(
                 "scan='tp' requested but tp_scan_supported(scene) is False; "
                 "use scan='auto' to fall back")
         table, classes = pack_scene_tp(scene)
-        return scan, table, classes
+        return scan, table, NO_EMI, classes
+    if scan == "fast":
+        if not fast_scan_supported(scene):
+            raise ValueError(
+                "scan='fast' requested but fast_scan_supported(scene) is False "
+                "(emitters with differing RGBs, roughness >= 4, or mtype not "
+                "diffuse/specular); use scan='auto' to fall back")
+        return scan, pack_scene(scene), scene_emissive_const(scene), ()
     if scan != "parity":
         raise ValueError(f"scan must be 'auto', 'parity', 'fast' or 'tp', got {scan!r}")
-    return scan, pack_scene(scene), ()
+    return scan, pack_scene(scene), NO_EMI, ()
 
 
 # ---- launch parameters shared by both kernels and their plain versions --------
@@ -288,23 +300,29 @@ def _peel_table(table: torch.Tensor, cfg: RenderConfig,
     return tp0_table
 
 
+def table_in_shared(table: torch.Tensor) -> bool:
+    """Whether the linear kernels stage `table` in shared memory (else they read it
+    from global memory): a function of its size only."""
+    return table.numel() * table.element_size() <= SMEM_TABLE_MAX_BYTES
+
+
+def check_table(name: str, t: torch.Tensor, cols: int, dtype=torch.float32) -> None:
+    """Raise unless `t` is a contiguous (rows, cols) tensor of `dtype` on CUDA or CPU."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} must be a CUDA or CPU tensor, got {t.device}")
+    if t.dtype != dtype or t.dim() != 2 or t.shape[1] != cols:
+        raise ValueError(f"{name} must be (N, {cols}) {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def check_call(table: torch.Tensor, cfg: RenderConfig, n_samples: int, scan: str,
                classes: tuple, n_rays: int) -> None:
     """Raise on anything the kernels do not take."""
-    if table.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"table must be a CUDA or CPU tensor, got {table.device}")
-    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] != TABLE_COLS:
-        raise ValueError(f"table must be (T, {TABLE_COLS}) float32, got "
-                         f"{tuple(table.shape)} {table.dtype}")
-    if not table.is_contiguous():
-        raise ValueError("table must be contiguous")
-    if table.numel() * 4 > SMEM_TABLE_MAX_BYTES:
-        raise ValueError(f"{table.shape[0]} triangles exceed the shared-memory table "
-                         f"({SMEM_TABLE_MAX_BYTES} B); such scenes need the BVH kernels")
-    if scan == "fast":
-        raise NotImplementedError("scan='fast' is not ported yet (ROADMAP queue 2)")
-    if scan not in ("parity", "tp"):
-        raise ValueError(f"scan must be 'parity' or 'tp', got {scan!r}")
+    check_table("table", table, TABLE_COLS)
+    if scan not in ("parity", "fast", "tp"):
+        raise ValueError(f"scan must be 'parity', 'fast' or 'tp', got {scan!r}")
     if scan == "tp" and not 1 <= len(classes) <= TP_CLASS_CAP:
         raise ValueError(f"scan='tp' needs 1..{TP_CLASS_CAP} classes from pack_scene_tp")
     if cfg.bounces < 1 or n_samples < 1 or n_rays < 1:
@@ -345,17 +363,22 @@ class _Consts(NamedTuple):
         return [x for v in self for x in (v if isinstance(v, tuple) else (v,))]
 
 
+SCAN_CODES = {"parity": 0, "tp": 1, "fast": 2}  # csrc/trace.cuh SCAN_*
+
+
 def host_params(cfg: RenderConfig, scan: str, classes: tuple, tp0_on: bool, n_tris: int,
                 start_sample: int, n_samples: int, pid_base: int, n_rays: int,
-                interleave: int = 1):
+                interleave: int = 1, emi_const: tuple = NO_EMI, smem: bool = False,
+                n_nodes: int = 0, depth: int = 0):
     """(floats, ints) in the order `csrc/trace.cuh:params_from_host` reads them."""
     floats = _Consts.of(cfg).flat()
+    floats += [float(np.float32(c)) for c in (emi_const if scan == "fast" else NO_EMI)]
     if scan == "tp":
         for alb, emi, rough, mty in classes:
             floats += [*alb, *emi, rough, mty]
-    ints = [cfg.width, cfg.bounces, 1 if scan == "tp" else 0, int(tp0_on), n_tris,
+    ints = [cfg.width, cfg.bounces, SCAN_CODES[scan], int(tp0_on), n_tris,
             len(classes) if scan == "tp" else 0, int(start_sample), n_samples,
-            int(pid_base), n_rays, interleave]
+            int(pid_base), n_rays, interleave, int(smem), n_nodes, depth]
     return floats, ints
 
 
@@ -407,13 +430,14 @@ def _cols(rows: torch.Tensor, c: int):
 
 
 class _PlainScene:
-    """The table as Python floats plus the gather sources for the winners."""
+    """The table plus the gather sources for the winners."""
 
-    def __init__(self, table: torch.Tensor, classes: tuple, scan: str):
-        self.rows = table.tolist()
-        n = table.shape[0]
-        self.n_tris = n
-        # Row n is the no-hit row: zeros, like the kernel's fresh best-hit state.
+    def __init__(self, table: torch.Tensor, classes: tuple, scan: str,
+                 emi_const: tuple = NO_EMI):
+        self.n_tris = table.shape[0]
+        self.scan = scan
+        self.emi = tuple(float(np.float32(c)) for c in emi_const)
+        # Row n_tris is the no-hit row: zeros, like the kernel's fresh best-hit state.
         self.table = torch.cat([table, torch.zeros((1, TABLE_COLS), dtype=table.dtype,
                                                    device=table.device)])
         if scan == "tp":
@@ -421,33 +445,106 @@ class _PlainScene:
             cls = [[0.0] * 7 + [1.0]] + [[*a, *e, r, m] for a, e, r, m in classes]
             self.classes = torch.tensor(cls, dtype=torch.float32, device=table.device)
 
-
-def _scan_parity(ps: _PlainScene, o, d):
-    n = d[0].shape[0]
-    best_t = torch.full((n,), T_MAX, dtype=torch.float32, device=d[0].device)
-    best = torch.full((n,), ps.n_tris, dtype=torch.int64, device=d[0].device)
-    for j, r in enumerate(ps.rows):
-        p1, e1, e2 = r[0:3], r[3:6], r[6:9]
-        pvec = _cross3(d, e2)
-        det = _dot3(e1, pvec)
-        front = det >= 1e-8
-        inv_det = torch.reciprocal(torch.where(front, det, 1.0))
-        tvec = (o[0] - p1[0], o[1] - p1[1], o[2] - p1[2])
-        u = _dot3(tvec, pvec) * inv_det
-        qvec = _cross3(tvec, e1)
-        v = _dot3(d, qvec) * inv_det
-        t = _dot3(e2, qvec) * inv_det
-        sel = (front & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-               & (t > 0.0) & (t < best_t))
-        best_t = torch.where(sel, t, best_t)
-        best = torch.where(sel, j, best)
-    win = ps.table[best]
-    return best_t, _cols(win, 9), _cols(win, 12), _cols(win, 15), win[:, 18], win[:, 19]
+    @functools.cached_property
+    def rows(self) -> list:
+        """The table as Python floats, for the linear scans' per-triangle loop."""
+        return self.table[:self.n_tris].tolist()
 
 
-def _decode_tp(ps: _PlainScene, bnum, bden, best):
-    best_t = bnum / bden
-    win = ps.table[best]
+# One triangle of each scan form, split in two. The test (`_tri_*`) gives the
+# triangle's candidacy, its t (parity) or t numerator (fast, tp) and the
+# denominator det (fast, tp); `_take` then orders it against the running best
+# (num, den, row): t < best_t for parity, tnum * den < num * det for fast and tp.
+# `col(c)` is column c of the triangle: a Python float (the linear scans' loop over
+# table rows) or a tensor of gathered rows (the BVH leaves, which test a whole leaf
+# window at once and order it one triangle at a time). csrc/trace.cuh test_parity /
+# test_fast / test_tp, the same f32 operations in the same order.
+
+def _fresh_best(ps: _PlainScene, n: int, device):
+    return (torch.full((n,), T_MAX, dtype=torch.float32, device=device),
+            torch.ones((n,), dtype=torch.float32, device=device),
+            torch.full((n,), ps.n_tris, dtype=torch.int64, device=device))
+
+
+def _take(cand, value, det, j, best):
+    """Fold one triangle's test into the running best, in table order."""
+    num, den, idx = best
+    if det is None:
+        sel = cand & (value < num)
+        return torch.where(sel, value, num), den, torch.where(sel, j, idx)
+    sel = cand & (value * den < num * det)
+    return torch.where(sel, value, num), torch.where(sel, det, den), torch.where(sel, j, idx)
+
+
+def _tri_parity(col, o, d, m):
+    p1 = (col(0), col(1), col(2))
+    e1 = (col(3), col(4), col(5))
+    e2 = (col(6), col(7), col(8))
+    pvec = _cross3(d, e2)
+    det = _dot3(e1, pvec)
+    front = det >= 1e-8
+    inv_det = torch.reciprocal(torch.where(front, det, 1.0))
+    tvec = (o[0] - p1[0], o[1] - p1[1], o[2] - p1[2])
+    u = _dot3(tvec, pvec) * inv_det
+    qvec = _cross3(tvec, e1)
+    v = _dot3(d, qvec) * inv_det
+    t = _dot3(e2, qvec) * inv_det
+    cand = front & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    return cand, t, None
+
+
+def _inside3(unum, vnum, det):
+    return torch.minimum(torch.minimum(unum, vnum), det - (unum + vnum)) >= 0.0
+
+
+def _tri_fast(col, o, d, m):
+    p1 = (col(0), col(1), col(2))
+    e1 = (col(3), col(4), col(5))
+    e2 = (col(6), col(7), col(8))
+    pvec = _cross3(d, e2)
+    det = _dot3(e1, pvec)
+    tvec = (o[0] - p1[0], o[1] - p1[1], o[2] - p1[2])
+    unum = _dot3(tvec, pvec)
+    qvec = _cross3(tvec, e1)
+    vnum = _dot3(d, qvec)
+    tnum = _dot3(e2, qvec)
+    return (det >= 1e-8) & _inside3(unum, vnum, det) & (tnum > 0.0), tnum, det
+
+
+def _tri_tp(col, o, d, m):
+    nv = (col(0), col(1), col(2))
+    e1 = (col(3), col(4), col(5))
+    e2 = (col(6), col(7), col(8))
+    c1 = (col(9), col(10), col(11))
+    c2 = (col(12), col(13), col(14))
+    det = _dot3(d, nv)
+    tnum = col(15) - _dot3(o, nv)
+    unum = _dot3(e2, m) - _dot3(d, c1)
+    vnum = _dot3(d, c2) - _dot3(e1, m)
+    return (det >= 1e-8) & _inside3(unum, vnum, det) & (tnum > 0.0), tnum, det
+
+
+TRI_TESTS = {"parity": _tri_parity, "fast": _tri_fast, "tp": _tri_tp}
+
+
+def _decode(ps: _PlainScene, best):
+    """The best hit as shading attributes (best_t, n, albedo, emissive, rough, mtype):
+    csrc/trace.cuh decode_parity / decode_fast / decode_tp."""
+    num, den, idx = best
+    win = ps.table[idx]
+    if ps.scan == "parity":
+        return num, _cols(win, 9), _cols(win, 12), _cols(win, 15), win[:, 18], win[:, 19]
+    best_t = num / den
+    if ps.scan == "fast":
+        code = win[:, 23]
+        emit = code >= 15.5
+        code2 = code - torch.where(emit, 16.0, 0.0)
+        spec = code2 >= 7.5
+        rough = torch.clamp(code2 - torch.where(spec, 8.0, 4.0), min=0.0)
+        mty = torch.where(spec, 2.0, 1.0)
+        zero = torch.zeros_like(code)
+        emi = tuple(torch.where(emit, zero + c, zero) for c in ps.emi)
+        return best_t, _cols(win, 9), _cols(win, 12), emi, rough, mty
     bN = _cols(win, 0)
     inv = torch.reciprocal(torch.sqrt(torch.clamp(_dot3(bN, bN), min=1e-40)))
     cls = ps.classes[win[:, 16].to(torch.int64)]
@@ -455,33 +552,18 @@ def _decode_tp(ps: _PlainScene, bnum, bden, best):
             cls[:, 7])
 
 
-def _scan_tp(ps: _PlainScene, o, d):
-    n = d[0].shape[0]
-    dev = d[0].device
-    m = _cross3(o, d)
-    bnum = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
-    bden = torch.ones((n,), dtype=torch.float32, device=dev)
-    best = torch.full((n,), ps.n_tris, dtype=torch.int64, device=dev)
+def _scan_linear(ps: _PlainScene, o, d):
+    """The first-min scan over every row in order (csrc/trace.cuh scan_linear)."""
+    best = _fresh_best(ps, d[0].shape[0], d[0].device)
+    m = _cross3(o, d) if ps.scan == "tp" else None
+    test = TRI_TESTS[ps.scan]
     for j, r in enumerate(ps.rows):
-        nv, e1, e2, c1, c2, kk = r[0:3], r[3:6], r[6:9], r[9:12], r[12:15], r[15]
-        det = _dot3(d, nv)
-        tnum = kk - _dot3(o, nv)
-        unum = _dot3(e2, m) - _dot3(d, c1)
-        vnum = _dot3(d, c2) - _dot3(e1, m)
-        inside = torch.minimum(torch.minimum(unum, vnum), det - (unum + vnum)) >= 0.0
-        sel = (det >= 1e-8) & inside & (tnum > 0.0) & (tnum * bden < bnum * det)
-        bnum = torch.where(sel, tnum, bnum)
-        bden = torch.where(sel, det, bden)
-        best = torch.where(sel, j, best)
-    return _decode_tp(ps, bnum, bden, best)
+        best = _take(*test(r.__getitem__, o, d, m), j, best)
+    return _decode(ps, best)
 
 
 def _scan_tp0(ps: _PlainScene, d):
-    n = d[0].shape[0]
-    dev = d[0].device
-    bnum = torch.full((n,), T_MAX, dtype=torch.float32, device=dev)
-    bden = torch.ones((n,), dtype=torch.float32, device=dev)
-    best = torch.full((n,), ps.n_tris, dtype=torch.int64, device=dev)
+    best = _fresh_best(ps, d[0].shape[0], d[0].device)
     for j, r in enumerate(ps.rows):
         t0 = r[23]
         if not t0 > 0.0:
@@ -489,12 +571,8 @@ def _scan_tp0(ps: _PlainScene, d):
         det = _dot3(d, r[0:3])
         unum = _dot3(d, r[17:20])
         vnum = _dot3(d, r[20:23])
-        inside = torch.minimum(torch.minimum(unum, vnum), det - (unum + vnum)) >= 0.0
-        sel = (det >= 1e-8) & inside & (t0 * bden < bnum * det)
-        bnum = torch.where(sel, t0, bnum)
-        bden = torch.where(sel, det, bden)
-        best = torch.where(sel, j, best)
-    return _decode_tp(ps, bnum, bden, best)
+        best = _take((det >= 1e-8) & _inside3(unum, vnum, det), t0, det, j, best)
+    return _decode(ps, best)
 
 
 def _shade(k: _Consts, path, hit):
@@ -563,9 +641,11 @@ def _shade(k: _Consts, path, hit):
     return o, d, mask, rad, alive, state
 
 
-def _trace_sample_plain(ps: _PlainScene, cfg: RenderConfig, pid: torch.Tensor,
-                        frame: int, scan: str, tp0_on: bool):
-    """One 1-spp frame for pixels `pid`: (max(rad, 0) (N, 3), segments (N,) int32)."""
+def _trace_sample_plain(cfg: RenderConfig, pid: torch.Tensor, frame: int, nearest):
+    """One 1-spp frame for pixels `pid`: (max(rad, 0) (N, 3), segments (N,) int32).
+
+    `nearest(bounce, o, d, active)` returns the decoded best hit of every ray; rays
+    whose `active` is False may get any hit (the shading ignores them)."""
     k = _Consts.of(cfg)
     px = (pid % cfg.width).to(torch.float32)
     py = (pid // cfg.width).to(torch.float32)
@@ -589,34 +669,47 @@ def _trace_sample_plain(ps: _PlainScene, cfg: RenderConfig, pid: torch.Tensor,
         if not bool(active.any()):
             break
         segs = segs + active.to(torch.int32)
-        if scan == "tp":
-            hit = _scan_tp0(ps, path[1]) if tp0_on and b == 0 else _scan_tp(ps, *path[:2])
-        else:
-            hit = _scan_parity(ps, *path[:2])
-        path = _shade(k, path, hit)
+        path = _shade(k, path, nearest(b, path[0], path[1], active))
     rad = torch.stack(path[3], dim=1)
     return torch.clamp(rad, min=0.0), segs
+
+
+def linear_nearest(ps: _PlainScene, tp0_on: bool = False):
+    """`nearest` for _trace_sample_plain: the linear scan, tp0 on bounce 0 if on."""
+    def nearest(b, o, d, active):
+        if tp0_on and b == 0:
+            return _scan_tp0(ps, d)
+        return _scan_linear(ps, o, d)
+    return nearest
+
+
+def render_frames_plain(cfg: RenderConfig, start_sample: int, n_samples: int,
+                        pid_base: int, n_pix: int, device, nearest):
+    """Sum of `n_samples` frames in sample order + the segment count (int64)."""
+    pid = torch.arange(pid_base, pid_base + n_pix, dtype=torch.int64, device=device)
+    acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
+    segs = torch.zeros((n_pix,), dtype=torch.int32, device=device)
+    for s in range(n_samples):
+        rad, sg = _trace_sample_plain(cfg, pid, int(start_sample) + s, nearest)
+        acc = acc + rad
+        segs = segs + sg
+    return acc, segs.sum(dtype=torch.int64)
 
 
 def _render_samples_stats_plain(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
                                 n_samples: int, pid_base: int = 0,
                                 n_rays: int | None = None, scan: str = "parity",
                                 classes: tuple = (), tp0: bool = True,
-                                tp0_table: torch.Tensor | None = None):
+                                tp0_table: torch.Tensor | None = None,
+                                emi_const: tuple = NO_EMI):
     """The kernel's plain PyTorch version: (img (n_rays, 3) f32, segments int64)."""
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     tp0_on = tp0_enabled(scan, tp0, table.shape[0], cfg.bounces)
     if tp0_on:
         table = _peel_table(table, cfg, tp0_table)
-    ps = _PlainScene(table, classes, scan)
-    pid = torch.arange(pid_base, pid_base + n_pix, dtype=torch.int64, device=table.device)
-    acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=table.device)
-    segs = torch.zeros((n_pix,), dtype=torch.int32, device=table.device)
-    for s in range(n_samples):
-        rad, sg = _trace_sample_plain(ps, cfg, pid, int(start_sample) + s, scan, tp0_on)
-        acc = acc + rad
-        segs = segs + sg
-    return acc, segs.sum(dtype=torch.int64)
+    ps = _PlainScene(table, classes, scan, emi_const)
+    return render_frames_plain(cfg, start_sample, n_samples, pid_base, n_pix, table.device,
+                               linear_nearest(ps, tp0_on))
 
 
 # ---- the kernel's entry point ----------------------------------------------------
@@ -625,44 +718,50 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
                                 n_samples: int, pid_base: int = 0,
                                 n_rays: int | None = None, scan: str = "parity",
                                 classes: tuple = (), tp0: bool = True,
-                                tp0_table: torch.Tensor | None = None):
+                                tp0_table: torch.Tensor | None = None,
+                                emi_const: tuple = NO_EMI):
     """SUM of `n_samples` progressive 1-spp frames + traced-segment count.
 
     Returns (img (n_rays, 3) f32, segments () int64). `table` is pack_scene's
-    (parity) or pack_scene_tp's (tp, with its `classes`). A device rendering pixels
+    (parity, fast with its `emi_const`) or pack_scene_tp's (tp, with its
+    `classes`): prepare_scan returns all three. A device rendering pixels
     [pid_base, pid_base + n_rays) passes its offset so RNG and camera stay keyed on
     absolute ids. `tp0` (tp only): peel bounce 0 onto the collapsed scan, under
     the gate of `tp0_enabled`; `tp0_table` is `tp0_table_for`'s result, made once
     per render (without it each launch augments the table itself).
 
-    A CUDA table launches `csrc/megakernel.cu`; a CPU table runs the plain version.
+    A CUDA table launches `csrc/megakernel.cu` (table in shared memory where
+    `table_in_shared`, else in global memory); a CPU table runs the plain version.
     """
     global LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     check_call(table, cfg, n_samples, scan, classes, n_pix)
     if table.device.type == "cpu":
         return _render_samples_stats_plain(table, cfg, start_sample, n_samples, pid_base,
-                                           n_pix, scan, classes, tp0, tp0_table)
+                                           n_pix, scan, classes, tp0, tp0_table, emi_const)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
     tp0_on = tp0_enabled(scan, tp0, table.shape[0], cfg.bounces)
     if tp0_on:
         table = _peel_table(table, cfg, tp0_table)
     floats, ints = host_params(cfg, scan, classes, tp0_on, table.shape[0], start_sample,
-                               n_samples, pid_base, n_pix)
+                               n_samples, pid_base, n_pix, emi_const=emi_const,
+                               smem=table_in_shared(table))
     out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
     segs = torch.empty((n_pix,), dtype=torch.int32, device=table.device)
-    cuda_build.launch("opt_megakernel_launch", table, floats, ints, out, segs)
+    cuda_build.launch("opt_megakernel_launch", (table,), floats, ints, out, segs)
     LAUNCHES += 1
     return out, segs.sum(dtype=torch.int64)
 
 
 def render_samples_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
                           n_samples: int, scan: str = "parity", classes: tuple = (),
-                          tp0_table: torch.Tensor | None = None) -> torch.Tensor:
+                          tp0_table: torch.Tensor | None = None,
+                          emi_const: tuple = NO_EMI) -> torch.Tensor:
     """SUM of `n_samples` progressive 1-spp frames: (n_pixels, 3) f32."""
     img, _ = render_samples_pallas_stats(table, cfg, start_sample, n_samples, scan=scan,
-                                         classes=classes, tp0_table=tp0_table)
+                                         classes=classes, tp0_table=tp0_table,
+                                         emi_const=emi_const)
     return img
 
 
@@ -670,7 +769,7 @@ def render_pallas(scene: Scene, cfg: RenderConfig, total_spp: int,
                   samples_per_call: int = 0, scan: str = "auto") -> torch.Tensor:
     """Progressive mean image via the megakernel (host loop over sample chunks), on
     the scene's device."""
-    scan, table, classes = prepare_scan(scene, scan)
+    scan, table, emi, classes = prepare_scan(scene, scan)
     tp0_table = tp0_table_for(table, cfg, scan)
     chunk = samples_per_call or total_spp
     acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=table.device)
@@ -678,6 +777,6 @@ def render_pallas(scene: Scene, cfg: RenderConfig, total_spp: int,
     while s < total_spp:
         n = min(chunk, total_spp - s)
         acc = acc + render_samples_pallas(table, cfg, s, n, scan=scan, classes=classes,
-                                          tp0_table=tp0_table)
+                                          tp0_table=tp0_table, emi_const=emi)
         s += n
     return acc / total_spp

@@ -1,6 +1,6 @@
 """Hold the CUDA kernels against their plain PyTorch versions on the card.
 
-Both run on the same CUDA table: the kernel through its wrapper, the plain version
+Both run on the same CUDA tables: the kernel through its wrapper, the plain version
 called directly. They differ only where an ulp flips a hit decision, and one flip
 changes the rest of that path, so a case is judged by the share of pixels that
 agree and by the segment counts, not by the worst pixel:
@@ -8,54 +8,83 @@ agree and by the segment counts, not by the worst pixel:
   * |segments(kernel) − segments(plain)| ≤ max(2, 1e-5 · segments);
   * at least 99.9% of pixels allclose at rtol = atol = 1e-4.
 
+Scenes: the Cornell box with its own camera; sphere_field(3, 1, seed=2) (244
+triangles, tp-capable), sphere_field() (5,124 triangles, 18 material classes, so
+the fast scan) and sphere_field(80, 3) (102,404 triangles) with the JAX package's
+camera for procedural scenes.
+
 Used by `chip_smoke.py` and `tests/test_torch_cuda.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from oclpathtracer_tpu_torch.config import RenderConfig
+from oclpathtracer_tpu_torch.config import CameraConfig, RenderConfig
+from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import wavefront as wf
+from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
+from oclpathtracer_tpu_torch.scene import load_cornell_box
+from oclpathtracer_tpu_torch.scene.procgen import sphere_field
 
 RTOL = ATOL = 1e-4
 MIN_PIXEL_FRACTION = 0.999
 START_SAMPLE = 3
 N_SAMPLES = 8  # k = 4 wavefront streams then trace two samples each
+BVH_SAMPLES = 2
+PROCGEN_EYE = (0.0, 3.0, 9.0)  # the JAX package's camera for procedural scenes
+
+SCENES = {"cornell": load_cornell_box,
+          "spheres244": functools.partial(sphere_field, 3, 1, seed=2),
+          "spheres5k": sphere_field,
+          "spheres102k": functools.partial(sphere_field, 80, 3)}
 
 
 @dataclasses.dataclass(frozen=True)
 class Case:
-    kernel: str        # "megakernel" | "wavefront"
-    scan: str          # "parity" | "tp"
+    kernel: str        # "megakernel" | "wavefront" | "bvh" | "widebvh"
+    scan: str          # "parity" | "fast" | "tp"
     width: int
     height: int
     bounces: int
     tp0: bool = True   # megakernel only
     interleave: int = 1  # wavefront only
+    scene: str = "cornell"
+    leaf: int = 32     # BVH kernels only
 
     @property
     def name(self) -> str:
-        extra = (f"tp0={int(self.tp0)}" if self.kernel == "megakernel"
-                 else f"k={self.interleave}")
-        return (f"{self.kernel} {self.scan} {extra} "
-                f"{self.width}x{self.height} b{self.bounces}")
+        extra = {"megakernel": f"tp0={int(self.tp0)}", "wavefront": f"k={self.interleave}"}
+        return (f"{self.kernel} {self.scan} {extra.get(self.kernel, f'leaf={self.leaf}')} "
+                f"{self.scene} {self.width}x{self.height} b{self.bounces}")
+
+    @property
+    def cfg(self) -> RenderConfig:
+        cam = CameraConfig() if self.scene == "cornell" else CameraConfig(eye=PROCGEN_EYE)
+        return RenderConfig(width=self.width, height=self.height, bounces=self.bounces,
+                            camera=cam)
+
+    @property
+    def n_samples(self) -> int:
+        return N_SAMPLES if self.kernel in ("megakernel", "wavefront") else BVH_SAMPLES
 
 
 def cases(width: int, height: int, ragged=(100, 77)) -> list:
-    """The kernel-vs-plain cases: megakernel parity, tp with tp0 on and off at 4
-    and 16 bounces; wavefront parity and tp at 16 bounces with k = 1 and 4; and a
-    ragged image size that is no multiple of the block."""
+    """The linear kernels' cases on the Cornell box: megakernel parity, fast, tp with
+    tp0 on and off at 4 and 16 bounces; wavefront parity, fast and tp at 16 bounces
+    with k = 1 and 4; and a ragged image size that is no multiple of the block."""
     out = []
     for b in (4, 16):
         out += [Case("megakernel", "parity", width, height, b),
+                Case("megakernel", "fast", width, height, b),
                 Case("megakernel", "tp", width, height, b, tp0=True),
                 Case("megakernel", "tp", width, height, b, tp0=False)]
-    for scan in ("parity", "tp"):
+    for scan in ("parity", "fast", "tp"):
         for k in (1, 4):
             out.append(Case("wavefront", scan, width, height, 16, interleave=k))
     if ragged:
@@ -66,30 +95,87 @@ def cases(width: int, height: int, ragged=(100, 77)) -> list:
     return out
 
 
-def tables(scene, device):
-    """{"parity": (table, ()), "tp": (table, classes)} on `device`."""
-    _, tp_table, classes = mk.prepare_scan(scene, "tp")
-    return {"parity": (mk.pack_scene(scene).to(device), ()),
-            "tp": (tp_table.to(device), classes)}
+def bvh_cases(width: int, height: int, bounces: int = 4) -> list:
+    """The BVH kernels' cases (leaf 32, the driver's): parity, fast and tp on
+    sphere_field(3, 1); parity and fast on sphere_field(); parity, fast and tp on
+    the Cornell box at leaf 4, where every ray hits."""
+    out = []
+    for scene, scans, leaf in (("spheres244", ("parity", "fast", "tp"), 32),
+                               ("spheres5k", ("parity", "fast"), 32),
+                               ("cornell", ("parity", "fast", "tp"), 4)):
+        for scan in scans:
+            for kernel in ("bvh", "widebvh"):
+                out.append(Case(kernel, scan, width, height, bounces, scene=scene, leaf=leaf))
+    return out
 
 
-def run_kernel(case: Case, table, classes, start=START_SAMPLE, n=N_SAMPLES):
-    cfg = RenderConfig(width=case.width, height=case.height, bounces=case.bounces)
-    if case.kernel == "megakernel":
-        return mk.render_samples_pallas_stats(table, cfg, start, n, scan=case.scan,
-                                              classes=classes, tp0=case.tp0)
-    return wf.render_samples_wavefront_stats(table, cfg, start, n,
-                                             interleave=case.interleave, scan=case.scan,
-                                             classes=classes)
+class Tables:
+    """Each scene's packed tables on one device, made at first use. `scenes` adds
+    name → scene-maker entries to SCENES."""
+
+    def __init__(self, device, scenes: dict | None = None):
+        self.device = device
+        self.scenes = {**SCENES, **(scenes or {})}
+
+    @functools.lru_cache(maxsize=None)
+    def scene(self, name: str):
+        return self.scenes[name]().to(self.device)
+
+    @functools.lru_cache(maxsize=None)
+    def linear(self, name: str, scan: str):
+        """(table, emi_const, classes) of prepare_scan."""
+        _, table, emi, classes = mk.prepare_scan(self.scene(name), scan)
+        return table, emi, classes
+
+    @functools.lru_cache(maxsize=None)
+    def bvh(self, name: str, scan: str, leaf: int):
+        """(table, nodes_f, nodes_i, emi_const, classes) of prepare_bvh_scan."""
+        return bk.prepare_bvh_scan(self.scene(name), scan, leaf_size=leaf)[1:]
+
+    @functools.lru_cache(maxsize=None)
+    def wide(self, name: str, scan: str, leaf: int):
+        """(table, wn_f, wn_i, depth, emi_const, classes)."""
+        scene = self.scene(name)
+        table, wn_f, wn_i, depth, classes = wb.pack_wide_bvh_scene(scene, leaf, scan)
+        emi = mk.scene_emissive_const(scene) if scan == "fast" else mk.NO_EMI
+        return table, wn_f, wn_i, depth, emi, classes
 
 
-def run_plain(case: Case, table, classes, start=START_SAMPLE, n=N_SAMPLES):
-    cfg = RenderConfig(width=case.width, height=case.height, bounces=case.bounces)
-    if case.kernel == "megakernel":
-        return mk._render_samples_stats_plain(table, cfg, start, n, 0, cfg.n_pixels,
-                                              case.scan, classes, case.tp0)
-    return wf._render_samples_wavefront_plain(table, cfg, start, n, case.interleave,
-                                              case.scan, classes, 0, cfg.n_pixels)
+def run(case: Case, tables: Tables, plain: bool = False, start: int = START_SAMPLE,
+        n: int | None = None):
+    """(img, segments) of the case's kernel, or of its plain version, on the tables."""
+    n = case.n_samples if n is None else n
+    cfg = case.cfg
+    if case.kernel in ("megakernel", "wavefront"):
+        table, emi, classes = tables.linear(case.scene, case.scan)
+        if case.kernel == "megakernel":
+            if plain:
+                return mk._render_samples_stats_plain(table, cfg, start, n, 0, cfg.n_pixels,
+                                                      case.scan, classes, case.tp0,
+                                                      emi_const=emi)
+            return mk.render_samples_pallas_stats(table, cfg, start, n, scan=case.scan,
+                                                  classes=classes, tp0=case.tp0,
+                                                  emi_const=emi)
+        if plain:
+            return wf._render_samples_wavefront_plain(table, cfg, start, n, case.interleave,
+                                                      case.scan, classes, 0, cfg.n_pixels,
+                                                      emi)
+        return wf.render_samples_wavefront_stats(table, cfg, start, n,
+                                                 interleave=case.interleave, scan=case.scan,
+                                                 classes=classes, emi_const=emi)
+    if case.kernel == "bvh":
+        table, nf, ni, emi, classes = tables.bvh(case.scene, case.scan, case.leaf)
+        fn = bk._render_samples_bvh_stats_plain if plain else bk.render_samples_bvh_stats
+        return fn(table, nf, ni, cfg, start, n, max_leaf=case.leaf, scan=case.scan,
+                  emi_const=emi, classes=classes)
+    table, wn_f, wn_i, depth, emi, classes = tables.wide(case.scene, case.scan, case.leaf)
+    if plain:
+        return wb._render_samples_wide_bvh_stats_plain(table, wn_f, wn_i, cfg, start, n,
+                                                       scan=case.scan, emi_const=emi,
+                                                       classes=classes)
+    return wb.render_samples_wide_bvh_stats(table, wn_f, wn_i, cfg, start, n,
+                                            max_leaf=case.leaf, max_depth=depth,
+                                            scan=case.scan, emi_const=emi, classes=classes)
 
 
 def compare(img_k, segs_k, img_p, segs_p) -> dict:
@@ -107,39 +193,82 @@ def compare(img_k, segs_k, img_p, segs_p) -> dict:
             "ok": bool(seg_ok and frac >= MIN_PIXEL_FRACTION and np.isfinite(a).all())}
 
 
-def check_case(case: Case, tbls) -> dict:
-    table, classes = tbls[case.scan]
-    img_k, segs_k = run_kernel(case, table, classes)
+def check_case(case: Case, tables: Tables) -> dict:
+    img_k, segs_k = run(case, tables)
     torch.cuda.synchronize()
-    img_p, segs_p = run_plain(case, table, classes)
+    img_p, segs_p = run(case, tables, plain=True)
     return compare(img_k, segs_k, img_p, segs_p)
 
 
-def wavefront_k1_equals_megakernel(tbls, width, height, bounces=16) -> dict:
+def _same(a, b) -> bool:
+    return bool(torch.equal(a[0], b[0]) and int(a[1]) == int(b[1]))
+
+
+def wavefront_k1_equals_megakernel(tables: Tables, width, height, bounces=16) -> dict:
     """Wavefront k = 1 vs the megakernel (tp0 off), both kernels: bit for bit."""
+    return {scan: _same(run(Case("megakernel", scan, width, height, bounces, tp0=False),
+                            tables),
+                        run(Case("wavefront", scan, width, height, bounces, interleave=1),
+                            tables))
+            for scan in ("parity", "fast", "tp")}
+
+
+def matches_parity(tables: Tables, scan: str) -> dict:
+    """The JAX package's fast/tp-vs-parity contract (tests/test_kernels.py,
+    test_tp_scan_matches_parity_megakernel and test_fast_scan_matches_parity_*) on
+    the linear kernels: 64×32, 6 bounces, 2 frames from 0; |Δsegments| ≤ 2 and
+    allclose at rtol = atol = 1e-4."""
     out = {}
-    for scan in ("parity", "tp"):
-        table, classes = tbls[scan]
-        m = run_kernel(Case("megakernel", scan, width, height, bounces, tp0=False),
-                       table, classes)
-        w = run_kernel(Case("wavefront", scan, width, height, bounces, interleave=1),
-                       table, classes)
-        out[scan] = bool(torch.equal(m[0], w[0]) and int(m[1]) == int(w[1]))
+    for kernel in ("megakernel", "wavefront"):
+        ref = run(Case(kernel, "parity", 64, 32, 6), tables, start=0, n=2)
+        got = run(Case(kernel, scan, 64, 32, 6), tables, start=0, n=2)
+        a, b = got[0].cpu().numpy(), ref[0].cpu().numpy()
+        out[kernel] = {"segments_parity": int(ref[1]), f"segments_{scan}": int(got[1]),
+                       "max_abs_err": float(np.abs(a - b).max()),
+                       "ok": bool(abs(int(ref[1]) - int(got[1])) <= 2
+                                  and np.allclose(a, b, rtol=RTOL, atol=ATOL))}
+    return {"ok": all(r["ok"] for r in out.values()), **out}
+
+
+def global_table_matches_shared(tables: Tables, width, height) -> dict:
+    """The Cornell table padded with zero rows past shared memory (the kernels then
+    read it from global memory) renders bit for bit as the table in shared memory:
+    zero rows are never hit. Megakernel and wavefront, each scan."""
+    out = {}
+    for scan in ("parity", "fast", "tp"):
+        table, emi, classes = tables.linear("cornell", scan)
+        rows = mk.SMEM_TABLE_MAX_BYTES // (4 * mk.TABLE_COLS) + 1 - table.shape[0]
+        big = torch.cat([table, torch.zeros((rows, mk.TABLE_COLS), device=table.device)])
+        assert mk.table_in_shared(table) and not mk.table_in_shared(big)
+        cfg = RenderConfig(width=width, height=height, bounces=4)
+        for kernel, fn in (("megakernel", mk.render_samples_pallas_stats),
+                           ("wavefront", wf.render_samples_wavefront_stats)):
+            kw = dict(scan=scan, classes=classes, emi_const=emi)
+            if kernel == "megakernel":
+                kw["tp0"] = False  # the tp0 gate counts rows: keep both launches alike
+            out[f"{kernel} {scan}"] = _same(fn(table, cfg, 1, 2, **kw), fn(big, cfg, 1, 2, **kw))
     return out
 
 
-def tp_matches_parity(tbls) -> dict:
-    """The JAX package's tp-vs-parity contract (tests/test_kernels.py,
-    test_tp_scan_matches_parity_megakernel) on the kernels: 64×32, 6 bounces,
-    2 frames from 0; |Δsegments| ≤ 2 and allclose at rtol = atol = 1e-4."""
-    cfg = RenderConfig(width=64, height=32, bounces=6)
-    p_table, _ = tbls["parity"]
-    t_table, classes = tbls["tp"]
-    img_p, segs_p = mk.render_samples_pallas_stats(p_table, cfg, 0, 2, scan="parity")
-    img_t, segs_t = mk.render_samples_pallas_stats(t_table, cfg, 0, 2, scan="tp",
-                                                   classes=classes)
-    a, b = img_t.cpu().numpy(), img_p.cpu().numpy()
-    return {"segments_parity": int(segs_p), "segments_tp": int(segs_t),
-            "max_abs_err": float(np.abs(a - b).max()),
-            "ok": bool(abs(int(segs_p) - int(segs_t)) <= 2
-                       and np.allclose(a, b, rtol=RTOL, atol=ATOL))}
+def wide_equals_skip_walk(tables: Tables, width, height, bounces=4) -> dict:
+    """The 8-wide kernel vs the skip-link kernel on the same build: bit for bit."""
+    out = {}
+    for case in bvh_cases(width, height, bounces):
+        if case.kernel == "bvh":
+            wide = dataclasses.replace(case, kernel="widebvh")
+            out[f"{case.scene} {case.scan}"] = _same(run(case, tables), run(wide, tables))
+    return out
+
+
+def bvh_matches_linear(tables: Tables, width, height, scene="spheres5k", scan="fast",
+                       bounces=4) -> dict:
+    """The BVH kernels against the linear megakernel on the scene in original order
+    (an independent brute-force search: on sphere_field() its table is past shared
+    memory, so the linear kernel reads it from global memory), under compare's rule."""
+    lin = run(Case("megakernel", scan, width, height, bounces, tp0=False, scene=scene),
+              tables, n=BVH_SAMPLES)
+    out = {}
+    for kernel in ("bvh", "widebvh"):
+        got = run(Case(kernel, scan, width, height, bounces, scene=scene), tables)
+        out[kernel] = compare(got[0], got[1], *lin)
+    return out

@@ -18,11 +18,14 @@ import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.kernels.megakernel import (
+    NO_EMI,
     _PlainScene,
     _trace_sample_plain,
     check_call,
     host_params,
+    linear_nearest,
     prepare_scan,
+    table_in_shared,
 )
 from oclpathtracer_tpu_torch.scene.types import Scene
 
@@ -33,17 +36,18 @@ LAUNCHES = 0
 def _render_samples_wavefront_plain(table: torch.Tensor, cfg: RenderConfig,
                                     start_sample: int, n_samples: int, interleave: int = 1,
                                     scan: str = "parity", classes: tuple = (),
-                                    pid_base: int = 0, n_rays: int | None = None):
+                                    pid_base: int = 0, n_rays: int | None = None,
+                                    emi_const: tuple = NO_EMI):
     """The kernel's plain version: sample s's clamped radiance goes into stream
     s % k; streams are summed in ascending order. (img (n_rays, 3), segments int64)."""
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
-    ps = _PlainScene(table, classes, scan)
+    nearest = linear_nearest(_PlainScene(table, classes, scan, emi_const))
     pid = torch.arange(pid_base, pid_base + n_pix, dtype=torch.int64, device=table.device)
     zeros = torch.zeros((n_pix, 3), dtype=torch.float32, device=table.device)
     streams = [zeros] * interleave
     segs = torch.zeros((n_pix,), dtype=torch.int32, device=table.device)
     for s in range(n_samples):
-        rad, sg = _trace_sample_plain(ps, cfg, pid, int(start_sample) + s, scan, False)
+        rad, sg = _trace_sample_plain(cfg, pid, int(start_sample) + s, nearest)
         streams[s % interleave] = streams[s % interleave] + rad
         segs = segs + sg
     acc = zeros
@@ -55,11 +59,13 @@ def _render_samples_wavefront_plain(table: torch.Tensor, cfg: RenderConfig,
 def render_samples_wavefront_stats(table: torch.Tensor, cfg: RenderConfig,
                                    start_sample: int, n_samples: int, interleave: int = 1,
                                    scan: str = "parity", classes: tuple = (),
-                                   pid_base: int = 0, n_rays: int | None = None):
+                                   pid_base: int = 0, n_rays: int | None = None,
+                                   emi_const: tuple = NO_EMI):
     """SUM of n_samples frames via path regeneration + traced-segment count.
 
     Returns (img (n_rays, 3) f32, segments () int64). interleave: streams per
     pixel (k ≥ 1; 1 is bitwise the megakernel without tp0, k > 1 reorders the sum).
+    scan, classes, emi_const: as prepare_scan returns them.
     A CUDA table launches `csrc/wavefront.cu`; a CPU table runs the plain version.
     """
     global LAUNCHES
@@ -69,14 +75,16 @@ def render_samples_wavefront_stats(table: torch.Tensor, cfg: RenderConfig,
         raise ValueError(f"interleave must be >= 1, got {interleave}")
     if table.device.type == "cpu":
         return _render_samples_wavefront_plain(table, cfg, start_sample, n_samples,
-                                               interleave, scan, classes, pid_base, n_pix)
+                                               interleave, scan, classes, pid_base, n_pix,
+                                               emi_const)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
     floats, ints = host_params(cfg, scan, classes, False, table.shape[0], start_sample,
-                               n_samples, pid_base, n_pix, interleave)
+                               n_samples, pid_base, n_pix, interleave, emi_const=emi_const,
+                               smem=table_in_shared(table))
     out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
     segs = torch.empty((n_pix,), dtype=torch.int32, device=table.device)
-    cuda_build.launch("opt_wavefront_launch", table, floats, ints, out, segs)
+    cuda_build.launch("opt_wavefront_launch", (table,), floats, ints, out, segs)
     LAUNCHES += 1
     return out, segs.sum(dtype=torch.int64)
 
@@ -85,14 +93,14 @@ def render_wavefront(scene: Scene, cfg: RenderConfig, total_spp: int,
                      samples_per_call: int = 0, scan: str = "auto",
                      interleave: int = 1) -> torch.Tensor:
     """Progressive mean image via the path-regeneration kernel, on the scene's device."""
-    scan, table, classes = prepare_scan(scene, scan)
+    scan, table, emi, classes = prepare_scan(scene, scan)
     chunk = samples_per_call or total_spp
     acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=table.device)
     s = 0
     while s < total_spp:
         n = min(chunk, total_spp - s)
         img, _ = render_samples_wavefront_stats(table, cfg, s, n, interleave=interleave,
-                                                scan=scan, classes=classes)
+                                                scan=scan, classes=classes, emi_const=emi)
         acc = acc + img
         s += n
     return acc / total_spp

@@ -16,19 +16,22 @@ from oclpathtracer_tpu_torch.render import checkpoint as ckpt
 from oclpathtracer_tpu_torch.render.accumulate import Accumulator
 from oclpathtracer_tpu_torch.scene.types import Scene
 
-# Auto-backend rule, as in the JAX package (driver.py:84-96): the linear-scan
-# kernels up to this many triangles, the 8-wide BVH kernel beyond. The crossover
-# was measured on the JAX package's chip; the BVH kernels are not ported yet, so
-# larger scenes raise until they are and the crossover is measured on this card.
+# Auto-backend rule, as in the JAX package (driver.py:27-42): the linear-scan
+# kernels up to LINEAR_KERNEL_MAX_TRIS triangles, the 8-wide BVH kernel beyond,
+# with leaf 32 up to WIDE_BVH_LEAF_SWITCH_TRIS and leaf 64 past it. Both numbers
+# were measured on the JAX package's chip; they are kept so that the same call
+# builds the same tree in both packages (PERF.md has this card's crossover).
 LINEAR_KERNEL_MAX_TRIS = 480
+WIDE_BVH_LEAF_SWITCH_TRIS = 12_000
 
 # Past this bounce cap auto picks the path-regeneration kernel: mean paths are far
 # shorter than the cap, so regeneration keeps more lanes busy.
 MEGAKERNEL_MAX_BOUNCES = 8
 
+# The skip-link walk's leaf size on the driver's "bvh" backend (the JAX driver's).
+BVH_LEAF = 32
+
 _NOT_PORTED = {
-    "widebvh": "ROADMAP queue 2 kernel 8 (kernels/wide_bvh.py)",
-    "bvh": "ROADMAP queue 2 kernel 7 (kernels/bvh_megakernel.py)",
     "jnp": "ROADMAP queue 1 item 3 (the threefry render_sample path)",
 }
 
@@ -41,18 +44,22 @@ def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: i
                             backend: str = "auto", scan: str = "auto"):
     """Build a step (Accumulator, start_sample) → Accumulator over one of the kernels.
 
-    backend ∈ {auto, pallas, wavefront}: auto picks the megakernel ("pallas") up to
-    MEGAKERNEL_MAX_BOUNCES and the path-regeneration kernel ("wavefront") beyond.
-    scan ∈ {auto, parity, tp} (megakernel.prepare_scan). The kernels use the
-    reference RNG keyed by absolute (pixel, sample); there is no seed.
+    backend ∈ {auto, pallas, wavefront, bvh, widebvh}: auto picks the 8-wide BVH
+    kernel ("widebvh") above LINEAR_KERNEL_MAX_TRIS triangles, else the megakernel
+    ("pallas") up to MEGAKERNEL_MAX_BOUNCES and the path-regeneration kernel
+    ("wavefront") beyond; "bvh" is the skip-link walk. scan ∈ {auto, parity, fast,
+    tp}: auto is the fastest scan the scene's materials support, for every backend.
+    The kernels use the reference RNG keyed by absolute (pixel, sample); there is no
+    seed.
     """
     from oclpathtracer_tpu_torch.kernels.megakernel import prepare_scan
 
     n_tris = int(scene.geometry.p1.shape[0])
     if backend == "auto":
         if n_tris > LINEAR_KERNEL_MAX_TRIS:
-            raise _not_ported("widebvh")
-        backend = "wavefront" if cfg.bounces > MEGAKERNEL_MAX_BOUNCES else "pallas"
+            backend = "widebvh"
+        else:
+            backend = "wavefront" if cfg.bounces > MEGAKERNEL_MAX_BOUNCES else "pallas"
 
     if backend == "pallas":
         from oclpathtracer_tpu_torch.kernels.megakernel import (
@@ -60,22 +67,57 @@ def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: i
             tp0_table_for,
         )
 
-        scan, table, classes = prepare_scan(scene, scan)
+        scan, table, emi, classes = prepare_scan(scene, scan)
         tp0_table = tp0_table_for(table, cfg, scan)
 
         def chunk(start):
             img, _ = render_samples_pallas_stats(table, cfg, start, samples_per_step,
                                                  scan=scan, classes=classes,
-                                                 tp0_table=tp0_table)
+                                                 tp0_table=tp0_table, emi_const=emi)
             return img
     elif backend == "wavefront":
         from oclpathtracer_tpu_torch.kernels.wavefront import render_samples_wavefront_stats
 
-        scan, table, classes = prepare_scan(scene, scan)
+        scan, table, emi, classes = prepare_scan(scene, scan)
 
         def chunk(start):
             img, _ = render_samples_wavefront_stats(table, cfg, start, samples_per_step,
-                                                    scan=scan, classes=classes)
+                                                    scan=scan, classes=classes,
+                                                    emi_const=emi)
+            return img
+    elif backend == "widebvh":
+        from oclpathtracer_tpu_torch.kernels.bvh_megakernel import resolve_bvh_scan
+        from oclpathtracer_tpu_torch.kernels.megakernel import NO_EMI, scene_emissive_const
+        from oclpathtracer_tpu_torch.kernels.wide_bvh import (
+            pack_wide_bvh_scene,
+            render_samples_wide_bvh_stats,
+        )
+
+        leaf = 32 if n_tris <= WIDE_BVH_LEAF_SWITCH_TRIS else 64
+        scan = resolve_bvh_scan(scene, scan)
+        emi = scene_emissive_const(scene) if scan == "fast" else NO_EMI
+        wtable, wn_f, wn_i, depth, classes = pack_wide_bvh_scene(scene, leaf_size=leaf,
+                                                                 scan=scan)
+
+        def chunk(start):
+            img, _ = render_samples_wide_bvh_stats(wtable, wn_f, wn_i, cfg, start,
+                                                   samples_per_step, max_leaf=leaf,
+                                                   max_depth=depth, scan=scan,
+                                                   emi_const=emi, classes=classes)
+            return img
+    elif backend == "bvh":
+        from oclpathtracer_tpu_torch.kernels.bvh_megakernel import (
+            prepare_bvh_scan,
+            render_samples_bvh_stats,
+        )
+
+        scan, table, nodes_f, nodes_i, emi, classes = prepare_bvh_scan(scene, scan,
+                                                                       leaf_size=BVH_LEAF)
+
+        def chunk(start):
+            img, _ = render_samples_bvh_stats(table, nodes_f, nodes_i, cfg, start,
+                                              samples_per_step, max_leaf=BVH_LEAF,
+                                              scan=scan, emi_const=emi, classes=classes)
             return img
     elif backend in _NOT_PORTED:
         raise _not_ported(backend)
@@ -100,9 +142,10 @@ def render_progressive(scene: Scene, cfg: RenderConfig, total_spp: int,
     on the scene's device.
 
     Resumes from `checkpoint_path` if it exists (the JAX package's format).
-    backend: "auto", "pallas" or "wavefront" (make_kernel_render_step). The JAX
-    default "jnp" (threefry streams, `seed`) and `sample_fn` are not ported yet and
-    raise NotImplementedError, so callers pass `backend` explicitly.
+    backend: "auto", "pallas", "wavefront", "bvh" or "widebvh"
+    (make_kernel_render_step). The JAX default "jnp" (threefry streams, `seed`) and
+    `sample_fn` are not ported yet and raise NotImplementedError, so callers pass
+    `backend` explicitly.
     """
     if sample_fn is not None or backend == "jnp":
         raise _not_ported("jnp")

@@ -3,15 +3,15 @@
 These need a CUDA device (marker `cuda`) and skip without one; on a machine with a
 card run them with `python -m pytest --noconftest tests/test_torch_cuda.py -q` (this
 file needs no fixture of tests/conftest.py, which imports jax). They are
-chip_smoke.py's phase-3 cases at 64×64 (kernels/selfcheck.py holds the cases and the
-pass rule). Whether there is a card is decided inside the fixture, never at import.
+chip_smoke.py's phase-3 checks at 64×64 (kernels/selfcheck.py holds the cases and
+the pass rule), for the linear and the BVH kernels. Whether there is a card is
+decided inside the fixture, never at import.
 """
 
 import pytest
 import torch
 
 from oclpathtracer_tpu_torch.kernels import selfcheck
-from oclpathtracer_tpu_torch.scene import load_cornell_box
 
 torch.set_num_threads(1)
 
@@ -24,11 +24,17 @@ SIZE = 64
 def cuda_tables():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU or interpret mode")
-    return selfcheck.tables(load_cornell_box(), "cuda")
+    return selfcheck.Tables("cuda")
 
 
 @pytest.mark.parametrize("case", selfcheck.cases(SIZE, SIZE), ids=lambda c: c.name)
 def test_kernel_matches_plain(cuda_tables, case):
+    result = selfcheck.check_case(case, cuda_tables)
+    assert result["ok"], result
+
+
+@pytest.mark.parametrize("case", selfcheck.bvh_cases(SIZE, SIZE), ids=lambda c: c.name)
+def test_bvh_kernel_matches_plain(cuda_tables, case):
     result = selfcheck.check_case(case, cuda_tables)
     assert result["ok"], result
 
@@ -38,15 +44,33 @@ def test_wavefront_k1_equals_megakernel_bitwise(cuda_tables):
 
 
 def test_kernel_tp_meets_parity_contract(cuda_tables):
-    result = selfcheck.tp_matches_parity(cuda_tables)
+    result = selfcheck.matches_parity(cuda_tables, "tp")
     assert result["ok"], result
+
+
+def test_kernel_fast_meets_parity_contract(cuda_tables):
+    result = selfcheck.matches_parity(cuda_tables, "fast")
+    assert result["ok"], result
+
+
+def test_table_in_global_memory_renders_as_in_shared(cuda_tables):
+    assert all(selfcheck.global_table_matches_shared(cuda_tables, SIZE, SIZE).values())
+
+
+def test_wide_kernel_is_the_skip_kernel_bitwise(cuda_tables):
+    assert all(selfcheck.wide_equals_skip_walk(cuda_tables, SIZE, SIZE).values())
+
+
+def test_bvh_kernels_match_the_linear_kernel(cuda_tables):
+    result = selfcheck.bvh_matches_linear(cuda_tables, SIZE, SIZE)
+    assert all(r["ok"] for r in result.values()), result
 
 
 def test_kernel_with_render_made_tp0_table_is_bitwise_the_same(cuda_tables):
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.kernels import megakernel as mk
 
-    table, classes = cuda_tables["tp"]
+    table, _, classes = cuda_tables.linear("cornell", "tp")
     cfg = RenderConfig(width=SIZE, height=SIZE, bounces=4)
     own = mk.render_samples_pallas_stats(table, cfg, 3, 4, scan="tp", classes=classes)
     given = mk.render_samples_pallas_stats(table, cfg, 3, 4, scan="tp", classes=classes,

@@ -3,8 +3,8 @@
 On CPU tensors `render_samples_pallas_stats` runs the plain version (the CUDA kernel
 is held against it on the card: tests/test_torch_cuda.py, chip_smoke.py). Parity:
 rtol=atol=1e-4 as tests/test_kernels.py holds the Pallas kernel, and segments
-exactly equal. tp (tp0 on and off): the JAX package's tp-vs-parity contract,
-|Δsegments| ≤ 2 and rtol=atol=1e-4.
+exactly equal. tp (tp0 on and off) and fast: the JAX package's tp/fast-vs-parity
+contract, |Δsegments| ≤ 2 and rtol=atol=1e-4.
 """
 
 import jax.numpy as jnp
@@ -14,6 +14,7 @@ import torch
 
 from oclpathtracer_tpu import RenderConfig as JCfg
 from oclpathtracer_tpu.integrators import parity as jparity
+from oclpathtracer_tpu.kernels import megakernel as jmk
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.convert import scene_from_numpy
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
@@ -66,12 +67,40 @@ def test_plain_parity_sub_range(scene, port_scene):
 
 @pytest.mark.parametrize("tp0", [True, False])
 def test_plain_tp_meets_parity_contract(port_scene, reference, tp0):
-    scan, table, classes = mk.prepare_scan(port_scene, "tp")
+    scan, table, _, classes = mk.prepare_scan(port_scene, "tp")
     assert mk.tp0_enabled(scan, tp0, table.shape[0], CFG.bounces) == tp0
     img, segs = mk.render_samples_pallas_stats(table, CFG, START, N, scan="tp",
                                                classes=classes, tp0=tp0)
     assert abs(int(segs) - reference[1]) <= 2
     np.testing.assert_allclose(img.numpy(), reference[0], rtol=1e-4, atol=1e-4)
+
+
+def test_plain_fast_meets_parity_contract(port_scene, reference):
+    """The division-free fast scan against the JAX parity twin: the JAX package's
+    fast-vs-parity contract (tests/test_kernels.py), |Δsegments| ≤ 2 and
+    rtol = atol = 1e-4."""
+    scan, table, emi, classes = mk.prepare_scan(port_scene, "fast")
+    assert scan == "fast" and emi == (30.0, 30.0, 30.0) and classes == ()
+    img, segs = mk.render_samples_pallas_stats(table, CFG, START, N, scan=scan, emi_const=emi)
+    assert abs(int(segs) - reference[1]) <= 2
+    np.testing.assert_allclose(img.numpy(), reference[0], rtol=1e-4, atol=1e-4)
+
+
+def test_plain_fast_matches_jax_fast_megakernel(scene, port_scene):
+    """Against the JAX package's own fast-scan kernel (interpret mode; 16×16,
+    2 bounces, 1 spp), whose fused-code decode rounds the roughness as the port's
+    does: segments equal, rtol = atol = 1e-4."""
+    jscan, jtable, jemi, _ = jmk.prepare_scan(scene, "fast")
+    img_j, segs_j = jmk.render_samples_pallas_stats(jtable, JCfg(width=16, height=16,
+                                                                 bounces=2),
+                                                    0, 1, scan=jscan, emi_const=jemi)
+    scan, table, emi, _ = mk.prepare_scan(port_scene, "fast")
+    assert emi == jemi
+    img, segs = mk.render_samples_pallas_stats(table, RenderConfig(width=16, height=16,
+                                                                   bounces=2),
+                                               0, 1, scan=scan, emi_const=emi)
+    assert int(segs) == int(segs_j)
+    np.testing.assert_allclose(img.numpy(), np.asarray(img_j), rtol=1e-4, atol=1e-4)
 
 
 def test_cpu_tensors_never_launch(port_scene):
@@ -93,7 +122,7 @@ def test_tp0_table_made_once_is_what_each_launch_would_make(port_scene):
     """A render passes tp0_table_for's table to every launch; the result is bitwise
     the launch that augments the table itself. Outside the gate there is none."""
     cfg = RenderConfig(width=8, height=6, bounces=2)
-    scan, table, classes = mk.prepare_scan(port_scene, "tp")
+    scan, table, _, classes = mk.prepare_scan(port_scene, "tp")
     tp0_table = mk.tp0_table_for(table, cfg, scan)
     assert torch.equal(tp0_table, mk.augment_table_tp0(table, cfg.camera.eye))
     own = mk.render_samples_pallas_stats(table, cfg, 1, 2, scan=scan, classes=classes)
@@ -109,21 +138,38 @@ def test_tp0_table_made_once_is_what_each_launch_would_make(port_scene):
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "fast", "classes", "big", "samples"])
 def test_wrapper_rejects_bad_calls(port_scene, bad):
+    """Calls the kernels do not take raise ValueError. "fast" and "big" were such
+    calls until the fast scan and tables past shared memory were ported; those two
+    cases now pin that the wrapper takes them: the fast scan within the JAX
+    package's contract against parity, and a table past the 227 KB of shared
+    memory (read from global memory on the card) rendering as the small one."""
+    cfg = RenderConfig(8, 8, bounces=2)
     table = mk.pack_scene(port_scene)
+    if bad in ("fast", "big"):
+        ref, ref_segs = mk.render_samples_pallas_stats(table, cfg, 0, 1, scan="parity")
+        if bad == "fast":
+            scan, table, emi, _ = mk.prepare_scan(port_scene, "fast")
+            img, segs = mk.render_samples_pallas_stats(table, cfg, 0, 1, scan=scan,
+                                                       emi_const=emi)
+            assert abs(int(segs) - int(ref_segs)) <= 2
+            np.testing.assert_allclose(img.numpy(), ref.numpy(), rtol=1e-4, atol=1e-4)
+        else:
+            # Zero rows are never hit (det = 0 fails the backface cull).
+            rows = mk.SMEM_TABLE_MAX_BYTES // (4 * 24) + 1 - table.shape[0]
+            big = torch.cat([table, torch.zeros((rows, 24))])
+            assert not mk.table_in_shared(big) and mk.table_in_shared(table)
+            img, segs = mk.render_samples_pallas_stats(big, cfg, 0, 1, scan="parity")
+            assert torch.equal(img, ref) and int(segs) == int(ref_segs)
+        return
     kw = dict(scan="parity", classes=())
-    exc = ValueError
     if bad == "dtype":
         table = table.double()
     elif bad == "shape":
         table = table[:, :20].contiguous()
-    elif bad == "fast":
-        kw["scan"], exc = "fast", NotImplementedError
     elif bad == "classes":
         kw["scan"] = "tp"
-    elif bad == "big":
-        table = torch.zeros((mk.SMEM_TABLE_MAX_BYTES // (4 * 24) + 1, 24))
     n = 0 if bad == "samples" else 1
-    with pytest.raises(exc):
+    with pytest.raises(ValueError):
         mk.render_samples_pallas_stats(table, RenderConfig(8, 8, bounces=1), 0, n, **kw)
 
 

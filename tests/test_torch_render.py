@@ -85,10 +85,21 @@ def test_auto_deep_bounces_matches_jax(scene, port_scene):
 
 
 @pytest.mark.parametrize("backend", ["jnp", "bvh", "widebvh"])
-def test_unported_backends_raise(port_scene, backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        driver.render_progressive(port_scene, RenderConfig(8, 8, bounces=1), 1,
-                                  backend=backend)
+def test_unported_backends_raise(scene, port_scene, backend):
+    """"jnp" is not ported and raises. "bvh" and "widebvh" raised until the BVH
+    kernels were ported; those cases now render the Cornell box and match JAX's
+    render through the same backend (its kernels in interpret mode), allclose at
+    rtol = atol = 1e-4 (the JAX package's contract for the BVH kernels)."""
+    if backend == "jnp":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            driver.render_progressive(port_scene, RenderConfig(8, 8, bounces=1), 1,
+                                      backend=backend)
+        return
+    img_j = jdriver.render_progressive(scene, JCfg(width=8, height=8, bounces=2), 2,
+                                       samples_per_step=2, backend=backend)
+    img_t = driver.render_progressive(port_scene, RenderConfig(8, 8, bounces=2), 2,
+                                      samples_per_step=2, backend=backend)
+    np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), rtol=1e-4, atol=1e-4)
 
 
 def test_unknown_backend_raises(port_scene):
@@ -110,6 +121,17 @@ def test_cli_render_on_cpu(tmp_path, capsys):
         assert f.read(2) == "P3"
     assert cli.main(["info"]) == 0
     assert "rendered 8x6" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [["--integrator", "bvh"], ["--integrator", "widebvh"],
+                                  ["--integrator", "pallas", "--scan", "fast"],
+                                  ["--integrator", "widebvh", "--scan", "fast"]])
+def test_cli_renders_bvh_integrators_and_fast_scan(tmp_path, capsys, argv):
+    out = str(tmp_path / "r.png")
+    rc = cli.main(["render", "--device", "cpu", "--width", "8", "--height", "6",
+                   "--spp", "2", "--bounces", "2", *argv, "-o", out])
+    assert rc == 0 and os.path.getsize(out) > 0
+    assert f"integrator={argv[1]}" in capsys.readouterr().out
 
 
 def test_cli_profile_writes_trace_and_summary(tmp_path, capsys):
@@ -135,6 +157,9 @@ def test_port_never_imports_jax():
             "import oclpathtracer_tpu_torch, oclpathtracer_tpu_torch.render.driver\n"
             "import oclpathtracer_tpu_torch.cli, oclpathtracer_tpu_torch.kernels.wavefront\n"
             "import oclpathtracer_tpu_torch.kernels.selfcheck\n"
+            "import oclpathtracer_tpu_torch.kernels.bvh_megakernel\n"
+            "import oclpathtracer_tpu_torch.kernels.wide_bvh, oclpathtracer_tpu_torch.core.bvh\n"
+            "import oclpathtracer_tpu_torch.scene.procgen\n"
             "import oclpathtracer_tpu_torch.integrators, oclpathtracer_tpu_torch.core\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'oclpathtracer_tpu' or m.startswith('oclpathtracer_tpu.')]\n"

@@ -73,12 +73,16 @@ def test_scan_support_predicates_match(scene, port_scene):
 
 
 def test_prepare_scan(port_scene):
-    scan, table, classes = mk.prepare_scan(port_scene, "auto")
+    """(scan, table, emi_const, classes), the JAX package's tuple; an explicit fast
+    scan packs pack_scene's table with the shared emitter RGB."""
+    scan, table, emi, classes = mk.prepare_scan(port_scene, "auto")
     assert scan == "tp" and table.shape == (36, 24) and len(classes) == 5
-    scan, table, classes = mk.prepare_scan(port_scene, "parity")
-    assert scan == "parity" and classes == ()
-    with pytest.raises(NotImplementedError, match="fast"):
-        mk.prepare_scan(port_scene, "fast")
+    assert emi == (0.0, 0.0, 0.0)
+    scan, table, emi, classes = mk.prepare_scan(port_scene, "parity")
+    assert scan == "parity" and classes == () and emi == (0.0, 0.0, 0.0)
+    scan, table, emi, classes = mk.prepare_scan(port_scene, "fast")
+    assert scan == "fast" and classes == () and emi == (30.0, 30.0, 30.0)
+    assert torch.equal(table, mk.pack_scene(port_scene))
     with pytest.raises(ValueError):
         mk.prepare_scan(port_scene, "bogus")
 

@@ -1,12 +1,15 @@
 """The path-regeneration kernel's plain version: k=1 is the megakernel bit for bit,
 k=4 only reorders the sum, and it matches the JAX Pallas wavefront kernel
-(interpret mode) at rtol=atol=1e-4 with equal segments."""
+(interpret mode) at rtol=atol=1e-4 with equal segments; with the fast scan it meets
+the JAX package's fast-vs-parity contract against the JAX parity twin."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from oclpathtracer_tpu import RenderConfig as JCfg
+from oclpathtracer_tpu.integrators import parity as jparity
 from oclpathtracer_tpu.kernels import megakernel as jmk
 from oclpathtracer_tpu.kernels import wavefront as jwf
 from oclpathtracer_tpu_torch.config import RenderConfig
@@ -26,7 +29,7 @@ def port_scene(scene):
 
 @pytest.mark.parametrize("scan", ["parity", "tp"])
 def test_k1_equals_megakernel_bitwise(port_scene, scan):
-    _, table, classes = mk.prepare_scan(port_scene, scan)
+    _, table, _, classes = mk.prepare_scan(port_scene, scan)
     img_m, segs_m = mk.render_samples_pallas_stats(table, CFG, 2, 3, scan=scan,
                                                    classes=classes, tp0=False)
     img_w, segs_w = wf.render_samples_wavefront_stats(table, CFG, 2, 3, interleave=1,
@@ -59,3 +62,18 @@ def test_plain_matches_jax_pallas_wavefront(scene, port_scene):
     np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), rtol=1e-4, atol=1e-4)
     assert int(segs_t) == int(segs_j)
     assert wf.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_plain_fast_meets_jax_parity_contract(scene, port_scene, k):
+    """The fast scan through the path-regeneration kernel's plain version against the
+    JAX parity twin (32×32, 2 bounces, frames 0-2): |Δsegments| ≤ 2 and
+    rtol = atol = 1e-4, the JAX package's fast-vs-parity contract."""
+    jcfg = JCfg(width=32, height=32, bounces=2)
+    ref = sum(np.asarray(jparity.render_sample_ref(scene, jcfg, f)) for f in range(3))
+    ref_segs = int(jparity.count_segments_ref(scene, jcfg, jnp.arange(0, 3)))
+    scan, table, emi, _ = mk.prepare_scan(port_scene, "fast")
+    img, segs = wf.render_samples_wavefront_stats(table, RenderConfig(32, 32, bounces=2), 0, 3,
+                                                  interleave=k, scan=scan, emi_const=emi)
+    assert abs(int(segs) - ref_segs) <= 2
+    np.testing.assert_allclose(img.numpy(), ref, rtol=1e-4, atol=1e-4)
