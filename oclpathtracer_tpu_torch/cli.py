@@ -7,8 +7,10 @@ Counterpart of `oclpathtracer_tpu.cli`, with the same commands and flags:
   bench                not ported yet (ROADMAP queue 1 item 8)
 
 `render --integrator pallas|wavefront|bvh|widebvh` run the ported kernels on the
-Cornell box, as the JAX CLI does; the other choices, and a non-zero `--scan-chunks`
-(a scheduling knob of the JAX package's kernels), exit 2 with "not yet ported".
+Cornell box, as the JAX CLI does, and `--integrator path` the batched torch
+integrator on threefry streams keyed by `--seed`; the other choices, and a non-zero
+`--scan-chunks` (a scheduling knob of the JAX package's kernels), exit 2 with "not
+yet ported".
 
 `render --device` is where the render runs, a deployment setting: the JAX CLI takes
 it from JAX's platform setting (`JAX_PLATFORMS`), and torch has no such global.
@@ -25,7 +27,7 @@ import time
 
 INTEGRATORS = ["pallas", "wavefront", "bvh", "widebvh", "sorted", "path", "primary",
                "ao", "ao-pallas", "direct", "direct-pallas"]
-PORTED_INTEGRATORS = ("pallas", "wavefront", "bvh", "widebvh")
+PORTED_INTEGRATORS = ("pallas", "wavefront", "bvh", "widebvh", "path")
 
 
 def _cmd_info(args) -> int:
@@ -90,6 +92,12 @@ def _cmd_render(args) -> int:
 
         img = render_bvh(scene, cfg, args.spp, samples_per_call=min(args.spp, 64),
                          scan=args.scan)
+    elif args.integrator == "path":
+        from oclpathtracer_tpu_torch.render.driver import render_progressive
+
+        img = render_progressive(scene, cfg, args.spp, samples_per_step=min(args.spp, 16),
+                                 checkpoint_path=args.checkpoint,
+                                 checkpoint_every=args.checkpoint_every)
     else:
         from oclpathtracer_tpu_torch.render.driver import render_progressive
 

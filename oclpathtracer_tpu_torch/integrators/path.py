@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
+from oclpathtracer_tpu_torch.core import rng
 from oclpathtracer_tpu_torch.core.brdf import sample_brdf
+from oclpathtracer_tpu_torch.core.camera import generate_rays
 from oclpathtracer_tpu_torch.core.intersect import intersect_world
 from oclpathtracer_tpu_torch.scene.types import Scene
 
@@ -78,5 +80,40 @@ def trace_paths(o: torch.Tensor, d: torch.Tensor, scene: Scene,
         active = alive
 
     if clamp:
-        radiance = torch.clamp(radiance, min=0.0)
+        # max(rad, 0) with jnp.maximum's subgradient: 1/2 where rad == 0 exactly (a
+        # path that met no light), as the JAX package's gradients have it.
+        radiance = torch.maximum(radiance, torch.zeros_like(radiance))
     return radiance, {"segments": segments}
+
+
+def render_sample(scene: Scene, cfg: RenderConfig, sample_idx, key: torch.Tensor,
+                  pixel_ids: torch.Tensor | None = None):
+    """Render ONE 1-spp progressive sample of the (sub)image.
+
+    `pixel_ids`: absolute pixel ids (defaults to the full image). Every uniform is
+    keyed by (key, sample_idx, absolute pixel id) through the threefry streams of
+    `core/rng.py`, so any split of the image draws the same samples.
+    Returns (radiance (N, 3), stats).
+    """
+    if pixel_ids is None:
+        pixel_ids = torch.arange(cfg.n_pixels, dtype=torch.int64, device=key.device)
+    px = pixel_ids % cfg.width
+    py = pixel_ids // cfg.width
+
+    skey = rng.sample_key(key, sample_idx)
+    n_uniform = CAMERA_UNIFORMS + UNIFORMS_PER_BOUNCE * cfg.bounces
+    us = rng.pixel_uniforms(skey, pixel_ids, n_uniform)
+
+    o, d = generate_rays(px, py, cfg.width, cfg.height, us[:, 0], us[:, 1], cfg.camera)
+    bounce_us = us[:, CAMERA_UNIFORMS:].reshape(-1, cfg.bounces, UNIFORMS_PER_BOUNCE)
+    return trace_paths(o, d, scene, bounce_us, cfg)
+
+
+def count_segments(scene: Scene, cfg: RenderConfig, sample_idxs, key: torch.Tensor):
+    """Total traced ray segments over `sample_idxs` (int64 tensor): the Mrays/s
+    denominator. A segment counts while its lane is alive at trace time."""
+    total = torch.zeros((), dtype=torch.int64, device=key.device)
+    for s in sample_idxs:
+        _, stats = render_sample(scene, cfg, int(s), key)
+        total = total + stats["segments"]
+    return total

@@ -14,7 +14,10 @@
 // pack_scene_tp layout) in shared memory when it fits (every thread of a warp
 // reads the same triangle at the same time, a broadcast) and read it from
 // global memory through read-only loads when it does not. The tp material
-// classes and the fast scan's emitter RGB travel by value in the parameters.
+// classes travel by value in the parameters (P.classes), except in the adjoint
+// kernel, which reads them from a device table so that a training step never
+// copies parameters to the host; decode_tp takes either through a pointer. The
+// fast scan's emitter RGB travels by value.
 #pragma once
 
 #include <cstdint>
@@ -27,6 +30,7 @@ constexpr int TABLE_COLS = 24;
 constexpr int CLASS_COLS = 8;     // albedo 3 | emissive 3 | roughness | mtype
 constexpr int TP_CLASS_CAP = 16;
 constexpr int N_HOST_FLOATS = 24;  // see Params, in order
+constexpr int N_HOST_INTS = 14;
 constexpr float T_MAX = 1e20f;
 constexpr float INV_PI = 0.31830988618f;
 constexpr float TWO_PI = 6.28318530718f;
@@ -125,6 +129,7 @@ struct Hit {
   float t;
   float3 n, alb, emi;
   float rough, mty;
+  int cls;  // decode_tp: the material class hit, -1 for none
 };
 
 // A scan's running best hit. parity keeps t in `num` (`den` unused); fast and tp
@@ -254,6 +259,7 @@ static __device__ __forceinline__ void scan_range(const float* tbl, int begin, i
 static __device__ __forceinline__ Hit decode_parity(const float* tbl, const Best& b) {
   Hit h;
   h.t = b.num;
+  h.cls = -1;
   if (b.idx >= 0) {
     const float* r = tbl + (size_t)b.idx * TABLE_COLS;
     h.n = row3(r, 9); h.alb = row3(r, 12); h.emi = row3(r, 15);
@@ -275,6 +281,7 @@ static __device__ __forceinline__ Hit decode_fast(const Params& P, const float* 
   h.t = b.num / b.den;
   float code = 0.0f;
   h.n = h.alb = v3(0.0f, 0.0f, 0.0f);
+  h.cls = -1;
   if (b.idx >= 0) {
     const float* r = tbl + (size_t)b.idx * TABLE_COLS;
     h.n = row3(r, 9); h.alb = row3(r, 12);
@@ -290,10 +297,11 @@ static __device__ __forceinline__ Hit decode_fast(const Params& P, const float* 
 }
 
 // decode_tp_tc (megakernel.py:393-421): one divide, a 1/sqrt normalize of the
-// winner's raw N, and the class select |code - (i+1)| < 0.5. No hit decodes to
-// T_MAX / 1 with the default class (zeros, diffuse).
-static __device__ __forceinline__ Hit decode_tp(const Params& P, const float* tbl,
-                                                const Best& b) {
+// winner's raw N, and the class select |code - (i+1)| < 0.5 over the (n_classes,
+// 8) rows at `classes`. No hit decodes to T_MAX / 1 with the default class (zeros,
+// diffuse) and cls -1.
+static __device__ __forceinline__ Hit decode_tp(const float* classes, int n_classes,
+                                                const float* tbl, const Best& b) {
   Hit h;
   h.t = b.num / b.den;
   float3 N = v3(0.0f, 0.0f, 0.0f);
@@ -308,11 +316,13 @@ static __device__ __forceinline__ Hit decode_tp(const Params& P, const float* tb
   h.alb = h.emi = v3(0.0f, 0.0f, 0.0f);
   h.rough = 0.0f;
   h.mty = 1.0f;
-  for (int i = 0; i < P.n_classes; ++i) {
+  h.cls = -1;
+  for (int i = 0; i < n_classes; ++i) {
     if (fabsf(code - (i + 1.0f)) < 0.5f) {
-      const float* c = P.classes + i * CLASS_COLS;
+      const float* c = classes + i * CLASS_COLS;
       h.alb = row3(c, 0); h.emi = row3(c, 3);
       h.rough = c[6]; h.mty = c[7];
+      h.cls = i;
     }
   }
   return h;
@@ -320,7 +330,7 @@ static __device__ __forceinline__ Hit decode_tp(const Params& P, const float* tb
 
 template <int SCAN>
 static __device__ __forceinline__ Hit decode(const Params& P, const float* tbl, const Best& b) {
-  if (SCAN == SCAN_TP) return decode_tp(P, tbl, b);
+  if (SCAN == SCAN_TP) return decode_tp(P.classes, P.n_classes, tbl, b);
   if (SCAN == SCAN_FAST) return decode_fast(P, tbl, b);
   return decode_parity(tbl, b);
 }
@@ -341,7 +351,7 @@ static __device__ __forceinline__ Hit scan_tp0(const Params& P, const float* tbl
       b.idx = j;
     }
   }
-  return decode_tp(P, tbl, b);
+  return decode_tp(P.classes, P.n_classes, tbl, b);
 }
 
 // The linear first-min scan over the whole table, decoded.
@@ -354,23 +364,40 @@ static __device__ __forceinline__ Hit scan_linear(const Params& P, const float* 
   return decode<SCAN>(P, tbl, b);
 }
 
-// Post-scan part of one bounce (megakernel.py shade_one, GenerateColors.cl:223-261).
-static __device__ __forceinline__ void shade(const Params& P, Path& p, const Hit& h) {
-  if (!(h.t < T_MAX)) {  // miss: masked bg once, the path dies
+// Post-scan part of one bounce (megakernel.py shade_one, GenerateColors.cl:223-261),
+// in three steps that the adjoint kernel calls one by one: shade_emit, sample_lobe,
+// advance.
+
+// Miss: the masked background once, and the path dies (false). Hit: emission x3
+// (GenerateColors.cl:241).
+static __device__ __forceinline__ bool shade_emit(const Params& P, Path& p, const Hit& h) {
+  if (!(h.t < T_MAX)) {
     p.rad = v3(p.rad.x + p.mask.x * P.bg[0], p.rad.y + p.mask.y * P.bg[1],
                p.rad.z + p.mask.z * P.bg[2]);
     p.active = false;
-    return;
+    return false;
   }
-  // emission x3 (GenerateColors.cl:241)
   p.rad = v3(p.rad.x + p.mask.x * h.emi.x * P.eboost, p.rad.y + p.mask.y * h.emi.y * P.eboost,
              p.rad.z + p.mask.z * h.emi.z * P.eboost);
-  // flip the normal against the ray (GenerateColors.cl:243)
-  float3 n = dot3(h.n, p.d) < 0.0f ? h.n : neg3(h.n);
-  float3 wo = neg3(p.d);
+  return true;
+}
 
-  float ud1 = next_float(p.rng);  // phi
-  float ud2 = next_float(p.rng);  // xi
+// The sampled BRDF lobe at a hit: the flipped normal n, the direction wi, its pdf,
+// and q, the albedo-free part of the BRDF (f = albedo * q): 1/pi for the diffuse
+// lobe, the GGX term for the specular one, 0 where wi leaves the hemisphere.
+struct Lobe {
+  float3 n, wi;
+  float pdf, q;
+};
+
+static __device__ __forceinline__ Lobe sample_lobe(float3 d, const Hit& h, uint32_t& rng) {
+  Lobe l;
+  // flip the normal against the ray (GenerateColors.cl:243)
+  float3 n = dot3(h.n, d) < 0.0f ? h.n : neg3(h.n);
+  float3 wo = neg3(d);
+
+  float ud1 = next_float(rng);  // phi
+  float ud2 = next_float(rng);  // xi
 
   // tangent frame (GenerateColors.cl:167-169)
   bool use_y = fabsf(n.x) > 0.001f;
@@ -388,7 +415,6 @@ static __device__ __forceinline__ void shade(const Params& P, Path& p, const Hit
   float3 wi_d = normalize3(
       add3(add3(scale3(ss, cphi * sin_d), scale3(tt, sphi * sin_d)), scale3(n, cos_d)));
   float pdf_d = dot3(wi_d, n) * INV_PI;
-  float3 f_d = scale3(h.alb, INV_PI);
 
   // specular GGX lobe (GenerateColors.cl:174-192, 205-218)
   float r2 = h.rough * h.rough;
@@ -401,28 +427,40 @@ static __device__ __forceinline__ void shade(const Params& P, Path& p, const Hit
   float denom_ndf = cos_h * cos_h * (r2 - 1.0f) + 1.0f;
   float d_ndf = r2 * INV_PI / fmaxf(denom_ndf * denom_ndf, 1e-12f);
   float pdf_s = d_ndf * cos_h / safe_denom(4.0f * dot3(wo, wh));
-  float fs_scalar = d_ndf / safe_denom(4.0f * dot3(wi_s, n) * dot3(wo, n)) * 2.0f;  // x2 :217
-  float3 f_s = scale3(h.alb, fs_scalar);
+  float q_s = d_ndf / safe_denom(4.0f * dot3(wi_s, n) * dot3(wo, n)) * 2.0f;  // x2 :217
   if (!same_hemi) {
     pdf_s = 0.0f;
-    f_s = v3(0.0f, 0.0f, 0.0f);
+    q_s = 0.0f;
   }
 
   bool spec = h.mty >= 1.5f;
-  float3 wi = spec ? wi_s : wi_d;
-  float pdf = spec ? pdf_s : pdf_d;
-  float3 f = spec ? f_s : f_d;
+  l.n = n;
+  l.wi = spec ? wi_s : wi_d;
+  l.pdf = spec ? pdf_s : pdf_d;
+  l.q = spec ? q_s : INV_PI;
+  return l;
+}
 
-  // pdf <= 0 terminates (GenerateColors.cl:251); respawn 0.01 along wi (:257)
-  bool alive = pdf > 0.0f;
+// Carry the path along the lobe: mask *= f * cos/pdf where pdf > 0, else the path
+// dies (GenerateColors.cl:251); respawn 0.01 along wi (:257). A dead lane's f is
+// never used, so f = albedo * q rounds as the reference's per-lobe products.
+static __device__ __forceinline__ void advance(const Params& P, Path& p, const Hit& h,
+                                               const Lobe& l) {
+  bool alive = l.pdf > 0.0f;
   if (alive) {
-    float factor = dot3(wi, n) / pdf;
+    float factor = dot3(l.wi, l.n) / l.pdf;
+    float3 f = scale3(h.alb, l.q);
     p.mask = v3(p.mask.x * f.x * factor, p.mask.y * f.y * factor, p.mask.z * f.z * factor);
   }
   float3 hitp = add3(p.o, scale3(p.d, h.t));
-  p.o = add3(hitp, scale3(wi, P.roffset));
-  if (alive) p.d = wi;
+  p.o = add3(hitp, scale3(l.wi, P.roffset));
+  if (alive) p.d = l.wi;
   p.active = alive;
+}
+
+static __device__ __forceinline__ void shade(const Params& P, Path& p, const Hit& h) {
+  if (!shade_emit(P, p, h)) return;
+  advance(P, p, h, sample_lobe(p.d, h, p.rng));
 }
 
 // One traced segment of the linear kernels: scan, decode, shade. `primary`
@@ -476,17 +514,23 @@ static __device__ __forceinline__ const float* stage_table(const float* table, i
   return smem_table;
 }
 
+// Dynamic shared memory for the table where P.smem says it fits, opting the
+// kernel in past 48 KB; 0 bytes when the table is read from global memory.
+template <typename Kernel>
+static inline cudaError_t table_smem(Kernel kernel, const Params& P, size_t* smem) {
+  *smem = P.smem ? (size_t)P.n_tris * TABLE_COLS * sizeof(float) : 0;
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
 // Launch a linear kernel: the table goes to shared memory when P.smem says it
-// fits (opting in past 48 KB), else the kernel reads it from global memory.
+// fits, else the kernel reads it from global memory.
 template <typename Kernel>
 static inline int launch_linear(Kernel kernel, const float* table, const Params& P, float* out,
                                 int* segs, void* stream) {
-  size_t smem = P.smem ? (size_t)P.n_tris * TABLE_COLS * sizeof(float) : 0;
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  size_t smem;
+  cudaError_t err = table_smem(kernel, P, &smem);
+  if (err != cudaSuccess) return (int)err;
   int grid = (P.n_rays + BLOCK - 1) / BLOCK;
   kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(table, P, out, segs);
   return (int)cudaGetLastError();

@@ -26,18 +26,20 @@ from typing import NamedTuple
 
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "build")
-SOURCES = ("megakernel.cu", "wavefront.cu", "bvh_megakernel.cu", "wide_bvh.cu")
+SOURCES = ("megakernel.cu", "wavefront.cu", "bvh_megakernel.cu", "wide_bvh.cu",
+           "grad_megakernel.cu")
 HEADERS = ("trace.cuh", "bvh.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Each entry point: its pointer arguments are the input tensors, the host float
-# and int arrays, out, segs and the stream, each a c_void_p.
+# Each entry point: (input tensors, output tensors). Its arguments are the inputs,
+# the host float and int arrays, the outputs and the stream, each a c_void_p.
 LAUNCHERS = {
-    "opt_megakernel_launch": 1,      # table
-    "opt_wavefront_launch": 1,       # table
-    "opt_bvh_megakernel_launch": 3,  # table, nodes_f, nodes_i
-    "opt_wide_bvh_launch": 3,        # table, wn_f, wn_i
+    "opt_megakernel_launch": (1, 2),       # table -> out, segs
+    "opt_wavefront_launch": (1, 2),        # table -> out, segs
+    "opt_bvh_megakernel_launch": (3, 2),   # table, nodes_f, nodes_i -> out, segs
+    "opt_wide_bvh_launch": (3, 2),         # table, wn_f, wn_i -> out, segs
+    "opt_grad_megakernel_launch": (3, 3),  # table, classes, weight -> out, segs, partials
 }
 
 
@@ -103,34 +105,39 @@ def load_library():
             os.replace(tmp, path)  # atomic: another process never loads half a file
         built = True
     lib = ctypes.CDLL(path)
-    for name, n_inputs in LAUNCHERS.items():
+    for name, (n_inputs, n_outputs) in LAUNCHERS.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * (n_inputs + 5)
+        fn.argtypes = [ctypes.c_void_p] * (n_inputs + n_outputs + 3)
         fn.restype = ctypes.c_int
     lib.opt_error_string.argtypes = [ctypes.c_int]
     lib.opt_error_string.restype = ctypes.c_char_p
     return lib, BuildInfo(path, built, time.perf_counter() - t0, log)
 
 
-def launch(fn_name: str, inputs: tuple, host_f, host_i, out, segs) -> None:
+def launch(fn_name: str, inputs: tuple, host_f, host_i, *outputs) -> None:
     """Launch one kernel on the current stream of the inputs' device; raise if the
-    launch is refused (cudaGetLastError is not 0)."""
+    launch is refused (cudaGetLastError is not 0). An input or output given as None
+    passes a null pointer (an optional buffer the kernel then does not touch)."""
     import torch
 
-    if len(inputs) != LAUNCHERS[fn_name]:
-        raise ValueError(f"{fn_name} takes {LAUNCHERS[fn_name]} input tensors")
+    if (len(inputs), len(outputs)) != LAUNCHERS[fn_name]:
+        raise ValueError(f"{fn_name} takes (inputs, outputs) = {LAUNCHERS[fn_name]} tensors")
     device = inputs[0].device
-    for t in (*inputs, out, segs):
+    tensors = [t for t in (*inputs, *outputs) if t is not None]
+    for t in tensors:
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{fn_name}: every tensor must be contiguous on {device}")
     lib, _ = load_library()
     f_arr = (ctypes.c_float * len(host_f))(*host_f)
     i_arr = (ctypes.c_int * len(host_i))(*host_i)
+
+    def ptrs(ts):
+        return [None if t is None else t.data_ptr() for t in ts]
+
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*(t.data_ptr() for t in inputs), ctypes.addressof(f_arr),
-                                    ctypes.addressof(i_arr), out.data_ptr(), segs.data_ptr(),
-                                    stream)
+        err = getattr(lib, fn_name)(*ptrs(inputs), ctypes.addressof(f_arr),
+                                    ctypes.addressof(i_arr), *ptrs(outputs), stream)
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {err}: "
                            f"{lib.opt_error_string(err).decode()}")

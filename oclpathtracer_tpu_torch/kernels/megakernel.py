@@ -77,30 +77,33 @@ TP_ORIGIN_FACTOR = 64.0
 LAUNCHES = 0
 
 
-# ---- scene packing (numpy, exactly as the JAX package builds it) -------------
+# ---- scene packing (bit for bit as the JAX package builds it in numpy) --------
 
 def pack_scene(scene: Scene) -> torch.Tensor:
-    """Flatten the scene into the kernel's (T, 24) table (on the scene's device)."""
+    """Flatten the scene into the kernel's (T, 24) table, in torch on the scene's
+    tensors and device: the same f32 operations in numpy's order, so parameter
+    values that live on the card are packed there without a copy to the host."""
     g, m = scene.geometry, scene.materials
-    p1 = g.p1.cpu().numpy().astype(np.float32)
-    e1 = g.p2.cpu().numpy().astype(np.float32) - p1
-    e2 = g.p3.cpu().numpy().astype(np.float32) - p1
-    n = np.cross(e2, e1)
-    n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
-    mid = g.mat_id.cpu().numpy()
-    emissive = m.emissive.cpu().numpy()
-    tbl = np.zeros((p1.shape[0], TABLE_COLS), np.float32)
-    tbl[:, 0:3] = p1
-    tbl[:, 3:6] = e1
-    tbl[:, 6:9] = e2
-    tbl[:, 9:12] = n
-    tbl[:, 12:15] = m.albedo.cpu().numpy()[mid]
-    tbl[:, 15:18] = emissive[mid]
-    tbl[:, 18] = m.roughness.cpu().numpy()[mid]
-    tbl[:, 19] = m.mtype.cpu().numpy()[mid].astype(np.float32)
-    is_emit = (emissive[mid] != 0.0).any(axis=-1)
-    tbl[:, 23] = tbl[:, 18] + 4.0 * tbl[:, 19] + 16.0 * is_emit
-    return torch.from_numpy(tbl).to(g.p1.device)
+    p1 = g.p1.to(torch.float32)
+    e1 = g.p2.to(torch.float32) - p1
+    e2 = g.p3.to(torch.float32) - p1
+    n = torch.stack([e2[:, 1] * e1[:, 2] - e2[:, 2] * e1[:, 1],
+                     e2[:, 2] * e1[:, 0] - e2[:, 0] * e1[:, 2],
+                     e2[:, 0] * e1[:, 1] - e2[:, 1] * e1[:, 0]], dim=1)
+    # numpy's sqrtf is correctly rounded and torch's CPU sqrt can miss by an ulp;
+    # the square root of the f32 sum taken in f64 rounds back to numpy's bits.
+    sq = n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1] + n[:, 2] * n[:, 2]
+    norm = torch.sqrt(sq.double()).float()
+    n = n / torch.clamp(norm, min=1e-20)[:, None]
+    mid = g.mat_id.long()
+    emissive = m.emissive.to(torch.float32)[mid]
+    rough = m.roughness.to(torch.float32)[mid]
+    mty = m.mtype[mid].to(torch.float32)
+    is_emit = (emissive != 0.0).any(dim=1).to(torch.float32)
+    pad = torch.zeros((p1.shape[0], 3), dtype=torch.float32, device=p1.device)
+    return torch.cat([p1, e1, e2, n, m.albedo.to(torch.float32)[mid], emissive,
+                      rough[:, None], mty[:, None], pad,
+                      (rough + 4.0 * mty + 16.0 * is_emit)[:, None]], dim=1)
 
 
 def fast_scan_supported(scene: Scene) -> bool:
@@ -430,9 +433,11 @@ def _cols(rows: torch.Tensor, c: int):
 
 
 class _PlainScene:
-    """The table plus the gather sources for the winners."""
+    """The table plus the gather sources for the winners. tp's `classes` is the
+    class tuple of pack_scene_tp or a (C, 8) class-table tensor on the table's
+    device (the adjoint kernel's dynamic classes)."""
 
-    def __init__(self, table: torch.Tensor, classes: tuple, scan: str,
+    def __init__(self, table: torch.Tensor, classes, scan: str,
                  emi_const: tuple = NO_EMI):
         self.n_tris = table.shape[0]
         self.scan = scan
@@ -442,8 +447,12 @@ class _PlainScene:
                                                    device=table.device)])
         if scan == "tp":
             # Row 0 is decode_tp_tc's default (no class selected): zeros, diffuse.
-            cls = [[0.0] * 7 + [1.0]] + [[*a, *e, r, m] for a, e, r, m in classes]
-            self.classes = torch.tensor(cls, dtype=torch.float32, device=table.device)
+            if not isinstance(classes, torch.Tensor):
+                classes = torch.tensor([[*a, *e, r, m] for a, e, r, m in classes],
+                                       dtype=torch.float32, device=table.device)
+            default = torch.tensor([[0.0] * 7 + [1.0]], dtype=torch.float32,
+                                   device=table.device)
+            self.classes = torch.cat([default, classes.reshape(-1, CLASS_COLS)])
 
     @functools.cached_property
     def rows(self) -> list:
@@ -552,14 +561,19 @@ def _decode(ps: _PlainScene, best):
             cls[:, 7])
 
 
-def _scan_linear(ps: _PlainScene, o, d):
-    """The first-min scan over every row in order (csrc/trace.cuh scan_linear)."""
+def _scan_best(ps: _PlainScene, o, d):
+    """The first-min scan over every row in order: the best (num, den, row)."""
     best = _fresh_best(ps, d[0].shape[0], d[0].device)
     m = _cross3(o, d) if ps.scan == "tp" else None
     test = TRI_TESTS[ps.scan]
     for j, r in enumerate(ps.rows):
         best = _take(*test(r.__getitem__, o, d, m), j, best)
-    return _decode(ps, best)
+    return best
+
+
+def _scan_linear(ps: _PlainScene, o, d):
+    """The first-min scan, decoded (csrc/trace.cuh scan_linear)."""
+    return _decode(ps, _scan_best(ps, o, d))
 
 
 def _scan_tp0(ps: _PlainScene, d):
@@ -575,18 +589,11 @@ def _scan_tp0(ps: _PlainScene, d):
     return _decode(ps, best)
 
 
-def _shade(k: _Consts, path, hit):
-    """Post-scan part of one bounce (megakernel.py shade_one)."""
-    o, d, mask, rad, active, state = path
-    best_t, bn, balb, bemi, brough, bmty = hit
-    hit_mask = best_t < T_MAX
-
-    miss = active & ~hit_mask
-    rad = tuple(rad[c] + torch.where(miss, mask[c] * k.bg[c], 0.0) for c in range(3))
-    active = active & hit_mask
-    rad = tuple(rad[c] + torch.where(active, mask[c] * bemi[c] * k.eboost, 0.0)
-                for c in range(3))
-
+def _sample_lobe(state, d, bn, brough, bmty):
+    """The sampled BRDF lobe at the hits (csrc/trace.cuh sample_lobe): (state, n, wi,
+    pdf, q), with n the normal flipped against the ray and q the albedo-free part of
+    the BRDF (f = albedo * q): 1/pi diffuse, the GGX term specular, 0 where wi leaves
+    the hemisphere."""
     n = _where3(_dot3(bn, d) < 0.0, bn, _neg3(bn))
     wo = _neg3(d)
 
@@ -609,7 +616,6 @@ def _shade(k: _Consts, path, hit):
     wi_d = _normalize3(_add3(_add3(_scale3(ss, cphi * sin_d), _scale3(tt, sphi * sin_d)),
                              _scale3(n, cos_d)))
     pdf_d = _dot3(wi_d, n) * INV_PI
-    f_d = _scale3(balb, INV_PI)
 
     r2 = brough * brough
     cos_h = torch.sqrt((1.0 - ud2) / torch.clamp(ud2 * (r2 - 1.0) + 1.0, min=1e-12))
@@ -621,32 +627,51 @@ def _shade(k: _Consts, path, hit):
     denom_ndf = cos_h * cos_h * (r2 - 1.0) + 1.0
     d_ndf = r2 * INV_PI / torch.clamp(denom_ndf * denom_ndf, min=1e-12)
     pdf_s = d_ndf * cos_h / _safe_denom(4.0 * _dot3(wo, wh))
-    fs_scalar = d_ndf / _safe_denom(4.0 * _dot3(wi_s, n) * _dot3(wo, n)) * 2.0  # ×2 :217
-    f_s = _scale3(balb, fs_scalar)
+    q_s = d_ndf / _safe_denom(4.0 * _dot3(wi_s, n) * _dot3(wo, n)) * 2.0  # ×2 :217
     pdf_s = torch.where(same_hemi, pdf_s, 0.0)
-    f_s = _where3(same_hemi, f_s, (zero, zero, zero))
+    q_s = torch.where(same_hemi, q_s, 0.0)
 
     bspec = bmty >= 1.5
     wi = _where3(bspec, wi_s, wi_d)
     pdf = torch.where(bspec, pdf_s, pdf_d)
-    f = _where3(bspec, f_s, f_d)
+    q = torch.where(bspec, q_s, INV_PI)
+    return state, n, wi, pdf, q
 
+
+def _advance(k: _Consts, o, d, mask, best_t, balb, n, wi, pdf, q, active):
+    """Carry the paths along their lobes (csrc/trace.cuh advance): (o, d, mask,
+    alive). A dead lane's f = albedo * q is never used."""
     alive = active & (pdf > 0.0)
     factor = _dot3(wi, n) / torch.where(pdf > 0.0, pdf, 1.0)
+    f = _scale3(balb, q)
     mask = tuple(torch.where(alive, mask[c] * f[c] * factor, mask[c]) for c in range(3))
 
     hitp = _add3(o, _scale3(d, best_t))
     o = _add3(hitp, _scale3(wi, k.roffset))
     d = _where3(alive, wi, d)
+    return o, d, mask, alive
+
+
+def _shade(k: _Consts, path, hit):
+    """Post-scan part of one bounce (megakernel.py shade_one)."""
+    o, d, mask, rad, active, state = path
+    best_t, bn, balb, bemi, brough, bmty = hit
+    hit_mask = best_t < T_MAX
+
+    miss = active & ~hit_mask
+    rad = tuple(rad[c] + torch.where(miss, mask[c] * k.bg[c], 0.0) for c in range(3))
+    active = active & hit_mask
+    rad = tuple(rad[c] + torch.where(active, mask[c] * bemi[c] * k.eboost, 0.0)
+                for c in range(3))
+
+    state, n, wi, pdf, q = _sample_lobe(state, d, bn, brough, bmty)
+    o, d, mask, alive = _advance(k, o, d, mask, best_t, balb, n, wi, pdf, q, active)
     return o, d, mask, rad, alive, state
 
 
-def _trace_sample_plain(cfg: RenderConfig, pid: torch.Tensor, frame: int, nearest):
-    """One 1-spp frame for pixels `pid`: (max(rad, 0) (N, 3), segments (N,) int32).
-
-    `nearest(bounce, o, d, active)` returns the decoded best hit of every ray; rays
-    whose `active` is False may get any hit (the shading ignores them)."""
-    k = _Consts.of(cfg)
+def _camera_path(k: _Consts, cfg: RenderConfig, pid: torch.Tensor, frame: int):
+    """Seed and camera ray of one frame (csrc/trace.cuh camera_path): the path state
+    (o, d, mask, rad, active, rng state)."""
     px = (pid % cfg.width).to(torch.float32)
     py = (pid // cfg.width).to(torch.float32)
 
@@ -660,8 +685,17 @@ def _trace_sample_plain(cfg: RenderConfig, pid: torch.Tensor, frame: int, neares
     d = _normalize3(tuple(sx * k.hol[c] - sy * k.upd[c] + k.view[c] for c in range(3)))
     zero = torch.zeros_like(px)
     o = tuple(zero + k.eye[c] for c in range(3))
-    path = (o, d, (zero + 1.0, zero + 1.0, zero + 1.0), (zero, zero, zero),
+    return (o, d, (zero + 1.0, zero + 1.0, zero + 1.0), (zero, zero, zero),
             torch.ones_like(px, dtype=torch.bool), state)
+
+
+def _trace_sample_plain(cfg: RenderConfig, pid: torch.Tensor, frame: int, nearest):
+    """One 1-spp frame for pixels `pid`: (max(rad, 0) (N, 3), segments (N,) int32).
+
+    `nearest(bounce, o, d, active)` returns the decoded best hit of every ray; rays
+    whose `active` is False may get any hit (the shading ignores them)."""
+    k = _Consts.of(cfg)
+    path = _camera_path(k, cfg, pid, frame)
     segs = torch.zeros_like(pid, dtype=torch.int32)
 
     for b in range(cfg.bounces):

@@ -8,6 +8,10 @@ agree and by the segment counts, not by the worst pixel:
   * |segments(kernel) − segments(plain)| ≤ max(2, 1e-5 · segments);
   * at least 99.9% of pixels allclose at rtol = atol = 1e-4.
 
+The adjoint kernel (grad_checks) is held to its plain version more tightly: image
+and segments bit for bit, each class row of the gradients within GRAD_REL_TOL of its
+largest entry (see compare_grads).
+
 Scenes: the Cornell box with its own camera; sphere_field(3, 1, seed=2) (244
 triangles, tp-capable), sphere_field() (5,124 triangles, 18 material classes, so
 the fast scan) and sphere_field(80, 3) (102,404 triangles) with the JAX package's
@@ -26,6 +30,7 @@ import torch
 
 from oclpathtracer_tpu_torch.config import CameraConfig, RenderConfig
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
+from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import wavefront as wf
 from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
@@ -126,6 +131,11 @@ class Tables:
         """(table, emi_const, classes) of prepare_scan."""
         _, table, emi, classes = mk.prepare_scan(self.scene(name), scan)
         return table, emi, classes
+
+    @functools.lru_cache(maxsize=None)
+    def grad(self, name: str):
+        """(table, class_table, n_classes, mat_class) of prepare_grad_scene."""
+        return gk.prepare_grad_scene(self.scene(name))
 
     @functools.lru_cache(maxsize=None)
     def bvh(self, name: str, scan: str, leaf: int):
@@ -271,4 +281,131 @@ def bvh_matches_linear(tables: Tables, width, height, scene="spheres5k", scan="f
     for kernel in ("bvh", "widebvh"):
         got = run(Case(kernel, scan, width, height, bounces, scene=scene), tables)
         out[kernel] = compare(got[0], got[1], *lin)
+    return out
+
+
+# ---- the adjoint kernel (kernels/grad_megakernel.py) ----------------------------
+
+# Block sums add in another order than torch's. Each class row (C, 6) is held to
+# its own largest entry, with a floor of GRAD_FLOOR_TOL · max|g| for rows near 0:
+# walls see about 100× the gradient of small faces, so one bound set by the
+# largest entry would pass a zeroed small class.
+GRAD_REL_TOL = 1e-4
+GRAD_FLOOR_TOL = 1e-6
+
+
+def grad_points(tables: Tables) -> dict:
+    """Class tables of the Cornell box to differentiate at: the true classes (zero
+    attributes on the boundary), an interior point (albedo in [0.12, 0.95],
+    emissive + 0.3) and a point where max(rad, 0) binds (class 0's albedo < 0)."""
+    ct = tables.grad("cornell")[1]
+    interior = ct.clone()
+    interior[:, 0:3] = interior[:, 0:3].clamp(0.12, 0.95)
+    interior[:, 3:6] += 0.3
+    clamped = ct.clone()
+    clamped[0, 0:3] = torch.tensor([-0.4, -0.3, -0.35])
+    return {"true": ct, "interior": interior, "clamp binds": clamped}
+
+
+def grad_weight(n: int, device) -> torch.Tensor:
+    """A seeded (n, 3) loss weight."""
+    w = np.random.default_rng(0).normal(size=(n, 3)).astype(np.float32)
+    return torch.from_numpy(w).to(device)
+
+
+def run_grad(tables: Tables, cfg: RenderConfig, ct: torch.Tensor, weight, plain=False,
+             start: int = START_SAMPLE, n: int = 2):
+    """(img, grads or None, segments) of the adjoint kernel, or of its plain
+    version, on the Cornell box; weight None is the forward alone."""
+    table, _, n_classes, _ = tables.grad("cornell")
+    kw = dict(with_grads=weight is not None, weight=weight)
+    if plain:
+        return gk._render_grads_plain(table, ct, cfg, start, n, n_classes, **kw)
+    return gk.render_grads_pallas_stats(table, ct, cfg, start, n, n_classes, **kw)
+
+
+def compare_grads(got, want) -> dict:
+    """Kernel vs plain: image and segments bit for bit; the (C, 6) gradients (when
+    there are any) with each class row c within GRAD_REL_TOL · max|g_c| +
+    GRAD_FLOOR_TOL · max|g|. `grad_worst_row` is the largest row error over its
+    bound (≤ 1 passes)."""
+    img_k, g_k, s_k = got
+    img_p, g_p, s_p = want
+    out = {"image_bitwise": bool(torch.equal(img_k, img_p)), "segments": int(s_k),
+           "segments_equal": int(s_k) == int(s_p),
+           "max_abs_err": float((img_k - img_p).abs().max())}
+    ok = out["image_bitwise"] and out["segments_equal"]
+    if g_p is not None:
+        scale = float(g_p.abs().max())
+        row_err = (g_k - g_p).abs().amax(dim=1)
+        bound = GRAD_REL_TOL * g_p.abs().amax(dim=1) + GRAD_FLOOR_TOL * scale
+        if scale > 0:
+            worst = float((row_err / bound).max())
+        else:
+            worst = 0.0 if float(row_err.max()) == 0.0 else float("inf")
+        out.update(grad_max_abs_err=float(row_err.max()), grad_max_abs=scale,
+                   grad_worst_row=worst, grad_finite=bool(torch.isfinite(g_k).all()))
+        ok = ok and worst <= 1.0 and out["grad_finite"]
+    return {**out, "ok": bool(ok)}
+
+
+def hybrid_forward_check(tables: Tables, width, height, bounces=4, n_samples=8) -> dict:
+    """The hybrid renderer's forward (diff/fast.make_fast_renderer) on the Cornell
+    box: pack_scene on the card gives the host's table bit for bit, and the forward
+    (the parity megakernel on that table) against the megakernel's plain version on
+    the same table under compare's rule, and bit for bit against the kernel."""
+    from oclpathtracer_tpu_torch.diff import fast, inverse
+
+    scene = tables.scene("cornell")
+    cfg = RenderConfig(width=width, height=height, bounces=bounces)
+    table = mk.pack_scene(scene)
+    host = mk.pack_scene(scene.to("cpu"))
+    render, _ = fast.make_fast_renderer(scene, cfg, n_samples)
+    img = render(inverse.extract_params(scene, albedo=True, emissive=True), 0)
+    img_k, segs_k = mk.render_samples_pallas_stats(table, cfg, 0, n_samples, scan="parity")
+    img_p, segs_p = mk._render_samples_stats_plain(table, cfg, 0, n_samples, 0, cfg.n_pixels,
+                                                   "parity", (), True)
+    r = compare(img, segs_k, img_p / n_samples, segs_p)
+    table_ok = bool(torch.equal(table.cpu(), host) and table.device == img.device)
+    kernel_ok = bool(torch.equal(img, img_k / n_samples))
+    return {**r, "table_on_card_bitwise_host": table_ok, "forward_bitwise_kernel": kernel_ok,
+            "ok": bool(r["ok"] and table_ok and kernel_ok)}
+
+
+def grad_checks(tables: Tables, width, height, bounces=4, n_samples=2) -> dict:
+    """The adjoint kernel on the card: the forward bit for bit against its plain
+    version and against the tp megakernel (tp0 off); the adjoint against its plain
+    version at the true, interior and clamp-binding points; two launches of the
+    adjoint give the same bits."""
+    cfg = RenderConfig(width=width, height=height, bounces=bounces)
+    points = grad_points(tables)
+    w = grad_weight(cfg.n_pixels, tables.device)
+    out = {"forward vs plain": compare_grads(
+        run_grad(tables, cfg, points["true"], None, n=n_samples),
+        run_grad(tables, cfg, points["true"], None, plain=True, n=n_samples))}
+    img, _, segs = run_grad(tables, cfg, points["true"], None, n=n_samples)
+    table, _, classes = tables.linear("cornell", "tp")
+    img2, segs2 = mk.render_samples_pallas_stats(table, cfg, START_SAMPLE, n_samples, scan="tp",
+                                                 classes=classes, tp0=False)
+    out["forward vs tp megakernel (tp0 off)"] = {
+        "ok": bool(torch.equal(img, img2) and int(segs) == int(segs2))}
+    for name, ct in points.items():
+        out[f"adjoint vs plain at the {name} point"] = compare_grads(
+            run_grad(tables, cfg, ct, w, n=n_samples),
+            run_grad(tables, cfg, ct, w, plain=True, n=n_samples))
+    first = run_grad(tables, cfg, points["interior"], w, n=n_samples)
+    again = run_grad(tables, cfg, points["interior"], w, n=n_samples)
+    out["adjoint rerun, same bits"] = {"ok": bool(torch.equal(first[0], again[0])
+                                                  and torch.equal(first[1], again[1]))}
+    # The table padded with zero rows (never hit) past shared memory: the kernel
+    # reads it from global memory, with the same bits.
+    table, ct, n_classes, _ = tables.grad("cornell")
+    rows = mk.SMEM_TABLE_MAX_BYTES // (4 * mk.TABLE_COLS) + 1 - table.shape[0]
+    big = torch.cat([table, torch.zeros((rows, mk.TABLE_COLS), device=table.device)])
+    assert gk.grad_table_in_shared(table) and not gk.grad_table_in_shared(big)
+    far = gk.render_grads_pallas_stats(big, points["interior"], cfg, START_SAMPLE, n_samples,
+                                       n_classes, weight=w)
+    out["table in global memory, same bits"] = {
+        "ok": bool(torch.equal(far[0], first[0]) and torch.equal(far[1], first[1])
+                   and int(far[2]) == int(first[2]))}
     return out

@@ -1,8 +1,10 @@
 """Progressive render driver (counterpart of `oclpathtracer_tpu.render.driver`).
 
-The host loops over S-sample chunks; each chunk is one kernel launch that returns the
-chunk's per-pixel sum, folded into a linear accumulator on the device. The
-accumulator plus the next sample index is the checkpoint.
+The host loops over S-sample chunks, folded into a linear accumulator on the device.
+On the kernel backends each chunk is one kernel launch that returns the chunk's
+per-pixel sum; on the "jnp" backend (the JAX default) a chunk is S samples of the
+batched torch integrator on threefry streams. The accumulator plus the next sample
+index is the checkpoint.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from typing import Callable, Optional
 import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
+from oclpathtracer_tpu_torch.core import rng
+from oclpathtracer_tpu_torch.integrators.path import render_sample
 from oclpathtracer_tpu_torch.render import checkpoint as ckpt
 from oclpathtracer_tpu_torch.render.accumulate import Accumulator
 from oclpathtracer_tpu_torch.scene.types import Scene
@@ -31,13 +35,24 @@ MEGAKERNEL_MAX_BOUNCES = 8
 # The skip-link walk's leaf size on the driver's "bvh" backend (the JAX driver's).
 BVH_LEAF = 32
 
-_NOT_PORTED = {
-    "jnp": "ROADMAP queue 1 item 3 (the threefry render_sample path)",
-}
 
+def make_render_step(cfg: RenderConfig, samples_per_step: int,
+                     sample_fn: Optional[Callable] = None):
+    """Build a step (Accumulator, Scene, start_sample, key) → Accumulator.
 
-def _not_ported(backend: str) -> NotImplementedError:
-    return NotImplementedError(f"backend {backend!r} is not ported yet: {_NOT_PORTED[backend]}")
+    `sample_fn(scene, cfg, sample_idx, key) -> (radiance, stats)` defaults to the
+    threefry path integrator (`integrators/path.render_sample`), one sample at a time
+    in sample order.
+    """
+    fn = sample_fn or render_sample
+
+    def step(acc: Accumulator, scene: Scene, start_sample: int, key: torch.Tensor):
+        for s in range(start_sample, start_sample + samples_per_step):
+            radiance, _ = fn(scene, cfg, s, key)
+            acc = acc.add(radiance)
+        return acc
+
+    return step
 
 
 def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: int,
@@ -119,8 +134,6 @@ def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: i
                                               samples_per_step, max_leaf=BVH_LEAF,
                                               scan=scan, emi_const=emi, classes=classes)
             return img
-    elif backend in _NOT_PORTED:
-        raise _not_ported(backend)
     else:
         raise ValueError(f"unknown kernel backend {backend!r}")
 
@@ -142,16 +155,14 @@ def render_progressive(scene: Scene, cfg: RenderConfig, total_spp: int,
     on the scene's device.
 
     Resumes from `checkpoint_path` if it exists (the JAX package's format).
-    backend: "auto", "pallas", "wavefront", "bvh" or "widebvh"
-    (make_kernel_render_step). The JAX default "jnp" (threefry streams, `seed`) and
-    `sample_fn` are not ported yet and raise NotImplementedError, so callers pass
-    `backend` explicitly.
+    backend: "jnp" (the default; the batched torch integrator `integrators/path.py`
+    on threefry streams keyed by `seed`, else `cfg.seed`) or a kernel, "auto",
+    "pallas", "wavefront", "bvh" or "widebvh" (make_kernel_render_step; reference
+    RNG streams, `seed` ignored). `sample_fn` forces the "jnp" path.
     """
-    if sample_fn is not None or backend == "jnp":
-        raise _not_ported("jnp")
-    del seed  # the kernel backends use the reference's streams; no seed
     spb = samples_per_step or max(cfg.samples_per_batch, 1)
     device = scene.geometry.p1.device
+    key = rng.make_key(cfg.seed if seed is None else seed, device)
 
     start = 0
     acc = Accumulator.zeros(cfg.n_pixels, device)
@@ -159,7 +170,14 @@ def render_progressive(scene: Scene, cfg: RenderConfig, total_spp: int,
         loaded = ckpt.load(checkpoint_path, device)
         if loaded is not None:
             acc, start = loaded
-    step = make_kernel_render_step(scene, cfg, spb, backend, scan=scan)
+    use_kernel = sample_fn is None and backend != "jnp"
+    if use_kernel:
+        step = make_kernel_render_step(scene, cfg, spb, backend, scan=scan)
+    else:
+        jnp_step = make_render_step(cfg, spb, sample_fn)
+
+        def step(acc, s):
+            return jnp_step(acc, scene, s, key)
 
     s = start
     while s < total_spp:

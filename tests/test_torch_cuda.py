@@ -76,3 +76,66 @@ def test_kernel_with_render_made_tp0_table_is_bitwise_the_same(cuda_tables):
     given = mk.render_samples_pallas_stats(table, cfg, 3, 4, scan="tp", classes=classes,
                                            tp0_table=mk.tp0_table_for(table, cfg, "tp"))
     assert torch.equal(own[0], given[0]) and int(own[1]) == int(given[1])
+
+
+# ---- the adjoint kernel: chip_smoke.py's phase-3 grad checks at 64×64 ----------
+
+@pytest.fixture(scope="module")
+def grad_results(cuda_tables):
+    return selfcheck.grad_checks(cuda_tables, SIZE, SIZE)
+
+
+def test_grad_kernel_forward_is_plain_and_tp_megakernel_bitwise(grad_results):
+    assert grad_results["forward vs plain"]["ok"], grad_results["forward vs plain"]
+    assert grad_results["forward vs tp megakernel (tp0 off)"]["ok"]
+
+
+@pytest.mark.parametrize("point", ["true", "interior", "clamp binds"])
+def test_grad_kernel_adjoint_matches_plain(grad_results, point):
+    result = grad_results[f"adjoint vs plain at the {point} point"]
+    assert result["ok"], result
+
+
+def test_grad_kernel_rerun_gives_the_same_bits(grad_results):
+    assert grad_results["adjoint rerun, same bits"]["ok"]
+
+
+def test_grad_kernel_table_in_global_memory_gives_the_same_bits(grad_results):
+    assert grad_results["table in global memory, same bits"]["ok"]
+
+
+def test_kernel_train_step_launches_the_grad_kernel_four_times(cuda_tables):
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.diff import fast
+    from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
+
+    scene = cuda_tables.scene("cornell")
+    cfg = RenderConfig(width=SIZE, height=SIZE, bounces=4)
+    step = fast.make_kernel_train_step(scene, cfg, spp=2, lr=1e-3)
+    params = fast.extract_class_params(scene)
+    before = gk.LAUNCHES
+    params, loss = step(params, torch.zeros((cfg.n_pixels, 3), device="cuda"), 0)
+    assert gk.LAUNCHES - before == 4
+    assert bool(torch.isfinite(loss)) and params.albedo.device.type == "cuda"
+
+
+def test_hybrid_forward_matches_the_plain_megakernel_on_a_card_packed_table(cuda_tables):
+    result = selfcheck.hybrid_forward_check(cuda_tables, SIZE, SIZE, bounces=4, n_samples=2)
+    assert result["ok"], result
+
+
+def test_hybrid_loss_launches_the_megakernel_twice_a_step(cuda_tables):
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.diff import fast, inverse
+    from oclpathtracer_tpu_torch.kernels import megakernel as mk
+
+    scene = cuda_tables.scene("cornell")
+    cfg = RenderConfig(width=SIZE, height=SIZE, bounces=4)
+    loss_fn = fast.make_fast_loss_fn(scene, cfg, spp=2)
+    params = inverse.extract_params(scene, albedo=True, emissive=True)
+    before = mk.LAUNCHES
+    loss, grads = inverse.value_and_grad(loss_fn, params,
+                                         torch.zeros((cfg.n_pixels, 3), device="cuda"), 0)
+    assert mk.LAUNCHES - before == 2
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in inverse.params_leaves(grads))

@@ -86,15 +86,11 @@ def test_auto_deep_bounces_matches_jax(scene, port_scene):
 
 @pytest.mark.parametrize("backend", ["jnp", "bvh", "widebvh"])
 def test_unported_backends_raise(scene, port_scene, backend):
-    """"jnp" is not ported and raises. "bvh" and "widebvh" raised until the BVH
-    kernels were ported; those cases now render the Cornell box and match JAX's
-    render through the same backend (its kernels in interpret mode), allclose at
+    """Each of these backends raised until it was ported: "bvh" and "widebvh" with
+    the BVH kernels, "jnp" with the threefry streams. Each case now renders the
+    Cornell box and matches JAX's render through the same backend (the BVH kernels
+    in interpret mode; "jnp" the batched integrator, the JAX default), allclose at
     rtol = atol = 1e-4 (the JAX package's contract for the BVH kernels)."""
-    if backend == "jnp":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            driver.render_progressive(port_scene, RenderConfig(8, 8, bounces=1), 1,
-                                      backend=backend)
-        return
     img_j = jdriver.render_progressive(scene, JCfg(width=8, height=8, bounces=2), 2,
                                        samples_per_step=2, backend=backend)
     img_t = driver.render_progressive(port_scene, RenderConfig(8, 8, bounces=2), 2,
@@ -161,6 +157,9 @@ def test_port_never_imports_jax():
             "import oclpathtracer_tpu_torch.kernels.wide_bvh, oclpathtracer_tpu_torch.core.bvh\n"
             "import oclpathtracer_tpu_torch.scene.procgen\n"
             "import oclpathtracer_tpu_torch.integrators, oclpathtracer_tpu_torch.core\n"
+            "import oclpathtracer_tpu_torch.diff, oclpathtracer_tpu_torch.diff.fast\n"
+            "import oclpathtracer_tpu_torch.kernels.grad_megakernel\n"
+            "import oclpathtracer_tpu_torch.convert\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'oclpathtracer_tpu' or m.startswith('oclpathtracer_tpu.')]\n"
             "assert not bad, bad\n")
