@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build: compile the five CUDA kernels from kernels/csrc with nvcc, one process
+  2. build: compile the six CUDA kernels from kernels/csrc with nvcc, one process
      per source, all at once;
   3. kernel vs plain PyTorch version on the card (kernels/selfcheck.py): the
      linear kernels on the Cornell box in parity, fast and tp form, wavefront k=1
@@ -22,7 +22,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      clamp-binding point, and two launches of the adjoint giving the same bits;
      the hybrid renderer's forward (diff/fast.make_fast_renderer) at 256², 4
      bounces, 8 spp: pack_scene on the card bit for bit as on the host, and the
-     forward against the megakernel's plain version on that table;
+     forward against the megakernel's plain version on that table; the
+     arbitrary-ray kernel (trace_rays.cu, kernels/selfcheck.py trace_rays_checks)
+     on 65,536 rows (half camera rays through diff/edge.rays_at, half from inside the
+     box), rows from 7, samples from 2^20, 4 bounces, 4 spp: bit for bit against its
+     plain version in parity, fast and tp, a rerun the same bits, and a table past
+     shared memory the same bits. Every megakernel case must be bit for bit (the
+     loop it shares with trace_rays changed shape, its bits must not);
   4. main path, with every launch counter set to 0 first:
      render_progressive(backend="auto") at 512², 16 bounces on the Cornell box
      (16384 spp, wavefront kernel), on sphere_field() (5,124 tris) and on
@@ -48,6 +54,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      megakernel's launches in this phase being those 6; render_progressive(backend="jnp")
      at 128², 4 bounces, 16 spp, whose mean must agree with the megakernel's
      render of as many samples within 5 % (other streams, same estimator);
+  4c. vertex training on the Cornell box and the occluder scene (tests/test_diff.py),
+     with every launch counter set to 0 first: examples/train_vertices.py's
+     recovery run through make_vertex_train_step (64², 2 bounces, 8 spp, 100 steps,
+     the light moved +0.3 in x), once with the example's Adam 1e-2 (reported: its
+     error ends above where it started, in the JAX package's step too,
+     tests/vertex_recovery_vs_jax.py) and once with SGD 2e-4,
+     whose light-vertex error must fall below 0.6× the initial; each step must
+     launch the megakernel exactly 2 times and trace_rays 4 times, and the losses
+     stay finite; on the occluder, the edge-aware
+     gradient (make_edge_aware_loss_fn, 32², 2 bounces, 64 spp, 256 samples per
+     edge) of the 3 largest silhouette movers against central differences of the
+     loss (eps 0.08, rtol 0.1), and the primary boundary term with kernel probes
+     against twin probes (128 samples per edge, 8 spp, rtol 0.1); 3 steps each of
+     make_vertex_train_step and of make_edge_aware_loss_fn with SGD 1e-4 at
+     bench_train.py's vertex shape (256², 4 bounces, 8 spp, 64 samples per edge,
+     rim 16 per edge at pixel stride 4), whose losses must be finite;
   5. timing with CUDA events (warm-up, median of 5 for kernels; one run for plain
      versions) of each kernel and its plain version at the main path's launch
      shape (512², 64 samples per launch; the BVH kernels' plain versions at 1
@@ -60,10 +82,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (kernel, hybrid, twin) in ms/step (host clock around synchronize, median) and
      Mrays/s counted as bench_train.py:12-18 counts: 4 × the segments of one spp
      window for the kernel and hybrid steps, 2 × for the twin; one more step of each
-     under torch.profiler gives its device time and busy share.
+     under torch.profiler gives its device time and busy share. trace_rays against
+     its plain version at the rim probes' full-width shape (1,572,864 rows, 3
+     bounces, 2 spp, parity), and the two vertex steps of phase 4c (kernel probes,
+     twin probes) in ms/step with one profiled step each.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels as JSON.
+kernels as JSON, each with its bound (kernels/bounds.py: the larger of its FP32
+operations over 67 TFLOP/s and its bytes over 3.35 TB/s, from this run's segment
+counts and, for the BVH walks, the boxes and leaf triangles their plain versions
+tested, per segment, at the timed shape), `library_ms` null (no PyTorch call
+computes a path trace) and its launches on each path.
 """
 
 from __future__ import annotations
@@ -101,6 +130,16 @@ TARGET_SPP = 64
 JNP_MEAN_REL_MAX = 0.05
 GRAD_TIME_CALLS = 20  # launches per timed run of the adjoint kernel (about 0.5 ms each)
 RENDER_KERNELS = ("megakernel", "wavefront", "bvh_megakernel", "wide_bvh")
+VERTEX_SIZE = 64           # examples/train_vertices.py's recovery run
+VERTEX_STEPS = 100
+VERTEX_LIGHT_TRIS = (10, 11)
+VERTEX_SHIFT = 0.3
+VERTEX_RECOVERY_RATIO = 0.6  # the example's own threshold (train_vertices.py:94)
+FD_RTOL = 0.1                # tests/test_diff.py:171, tests/test_diff_fast.py:83
+PROBE_ROWS = 65_536
+RIM_PIXEL_STRIDE = 4         # bench_train.py's vertex shape
+VERTEX_KW = dict(samples_per_edge=64, edge_spp=4, secondary_samples_per_edge=16,
+                 secondary_spp=2, secondary_pixel_stride=RIM_PIXEL_STRIDE)
 
 
 def log(msg: str) -> None:
@@ -214,7 +253,10 @@ def phase_checks(tables):
     failed = []
     for case in selfcheck.cases(SMOKE_SIZE, SMOKE_SIZE) + selfcheck.bvh_cases(SMOKE_SIZE,
                                                                                 SMOKE_SIZE):
-        report(f"{case.name} {case.n_samples}spp", selfcheck.check_case(case, tables), failed)
+        r = selfcheck.check_case(case, tables)
+        if case.kernel == "megakernel":  # its loop now takes a path-start functor
+            r["ok"] = r["ok"] and r["bitwise"]
+        report(f"{case.name} {case.n_samples}spp", r, failed)
     for name, fn in (("wavefront k=1 == megakernel (tp0 off), bit for bit",
                       selfcheck.wavefront_k1_equals_megakernel),
                      ("table in global memory == in shared memory, bit for bit",
@@ -237,6 +279,11 @@ def phase_checks(tables):
         log(f"[check] grad_megakernel {SMOKE_SIZE}x{SMOKE_SIZE} b4 2spp, {name}: {r}")
         if not r["ok"]:
             failed.append(f"grad_megakernel {name}")
+    for name, r in selfcheck.trace_rays_checks(tables, PROBE_ROWS, bounces=4,
+                                               n_samples=4).items():
+        log(f"[check] trace_rays {PROBE_ROWS} rows b4 4spp, {name}: {r}")
+        if not r["ok"]:
+            failed.append(f"trace_rays {name}")
     r = selfcheck.hybrid_forward_check(tables, TRAIN_SIZE, TRAIN_SIZE, bounces=4,
                                        n_samples=TRAIN_SPP)
     log(f"[check] hybrid make_fast_renderer forward, Cornell {TRAIN_SIZE}x{TRAIN_SIZE} b4 "
@@ -247,6 +294,7 @@ def phase_checks(tables):
 
 
 def counters():
+    """Each kernel's launch counter: name → (module, attribute)."""
     from oclpathtracer_tpu_torch.kernels import (
         bvh_megakernel,
         grad_megakernel,
@@ -255,8 +303,19 @@ def counters():
         wide_bvh,
     )
 
-    return {"megakernel": megakernel, "wavefront": wavefront, "bvh_megakernel": bvh_megakernel,
-            "wide_bvh": wide_bvh, "grad_megakernel": grad_megakernel}
+    return {"megakernel": (megakernel, "LAUNCHES"), "wavefront": (wavefront, "LAUNCHES"),
+            "bvh_megakernel": (bvh_megakernel, "LAUNCHES"), "wide_bvh": (wide_bvh, "LAUNCHES"),
+            "grad_megakernel": (grad_megakernel, "LAUNCHES"),
+            "trace_rays": (megakernel, "TRACE_RAYS_LAUNCHES")}
+
+
+def reset_counts() -> None:
+    for module, attr in counters().values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(module, attr) for name, (module, attr) in counters().items()}
 
 
 def check_image(name, img):
@@ -276,9 +335,7 @@ def phase_main_path(tables):
     from oclpathtracer_tpu_torch.kernels.selfcheck import PROCGEN_EYE
     from oclpathtracer_tpu_torch.render.driver import render_progressive
 
-    mods = counters()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    reset_counts()
     cornell = tables.scene("cornell")
     b16 = RenderConfig(512, 512, bounces=16)
     reference = read_png_rgb8(ARTIFACT)
@@ -303,18 +360,18 @@ def phase_main_path(tables):
     procgen_cfg = b16.with_(camera=CameraConfig(eye=PROCGEN_EYE))
     for label, scene in (("sphere_field() 5124 tris", tables.scene("spheres5k")),
                          ("sphere_field(80, 3) 102404 tris", tables.scene("spheres102k"))):
-        before = mods["wide_bvh"].LAUNCHES
+        before = read_counts()["wide_bvh"]
         timed(f"{label} 512x512 b16 {BVH_MAIN_SPP}spp auto",
               lambda: render_progressive(scene, procgen_cfg, total_spp=BVH_MAIN_SPP,
                                          samples_per_step=MAIN_STEP, backend="auto"))
-        require(mods["wide_bvh"].LAUNCHES > before, f"{label}: auto did not launch wide_bvh")
+        require(read_counts()["wide_bvh"] > before, f"{label}: auto did not launch wide_bvh")
     with tempfile.TemporaryDirectory() as tmp:
         for argv in ([], ["--integrator", "widebvh"], ["--integrator", "bvh"]):
             png = os.path.join(tmp, "cli.png")
             rc = cli.main(["render", "--spp", "16", "--bounces", "16", *argv, "-o", png])
             require(rc == 0 and os.path.getsize(png) > 0, f"CLI render {argv} failed (rc {rc})")
             os.remove(png)
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    launches = read_counts()
     log(f"[main] launches {launches}")
     require(all(launches[n] > 0 for n in RENDER_KERNELS), f"a kernel was not launched: {launches}")
     for name in (f"Cornell 512x512 b16 {MAIN_SPP}spp auto (wavefront)",
@@ -353,9 +410,7 @@ def phase_train(tables):
     cornell = tables.scene("cornell")
     jnp_cfg = RenderConfig(RECOVERY_SIZE, RECOVERY_SIZE, bounces=4)
     jnp_ref = megakernel.render_pallas(cornell, jnp_cfg, 16)  # a comparison: not counted
-    mods = counters()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    reset_counts()
     table, ct, n_classes, _ = gk.prepare_grad_scene(cornell)
     true = fast.extract_class_params(cornell)
 
@@ -431,10 +486,215 @@ def phase_train(tables):
             "render_progressive(backend='jnp'): shape, or non-finite or < 0 values")
     require(rel < JNP_MEAN_REL_MAX, f"jnp render mean off the megakernel's by {rel}")
 
-    launches = {name: m.LAUNCHES for name, m in mods.items()}
+    launches = read_counts()
     log(f"[train] launches {launches}")
     require(launches["grad_megakernel"] > 0 and launches["megakernel"] == 2 * 3,
             f"the training path did not launch its kernels as counted: {launches}")
+    return launches
+
+
+def light_error(params, true_vertices) -> float:
+    """examples/train_vertices.py's light-vertex error: mean |Δ| over the light
+    triangles' corners, averaged over p1, p2, p3."""
+    rows = list(VERTEX_LIGHT_TRIS)
+    return float(np.mean([float((v[rows] - t[rows]).abs().mean())
+                          for v, t in zip(params.vertices, true_vertices)]))
+
+
+def shifted_light(scene):
+    """Vertex params with the light quad moved +VERTEX_SHIFT in x (both triangles of
+    each corner: the vertices are per-triangle soup rows)."""
+    import torch
+
+    from oclpathtracer_tpu_torch.diff import extract_params
+
+    params = extract_params(scene, albedo=False, vertices=True)
+    sel = torch.zeros((scene.num_triangles, 1), device=scene.geometry.p1.device)
+    sel[list(VERTEX_LIGHT_TRIS)] = 1.0
+    shift = torch.tensor([VERTEX_SHIFT, 0.0, 0.0], device=sel.device)
+    return params._replace(vertices=tuple(v + sel * shift for v in params.vertices))
+
+
+def vertex_steps(cornell, cfg):
+    """bench_train.py's two vertex steps at `cfg` (8 spp, target zeros, key 0, step
+    index 0, SGD 1e-4): {name: (run(params) → (params, loss), params)}. "kernel" is
+    make_vertex_train_step (interior_spp 2); "twin" is jax.grad of
+    make_edge_aware_loss_fn, all of it through the twin."""
+    import torch
+
+    from oclpathtracer_tpu_torch.core import rng
+    from oclpathtracer_tpu_torch.diff import edge, extract_params, inverse, vertex
+
+    device = cornell.geometry.p1.device
+    target = torch.zeros((cfg.n_pixels, 3), device=device)
+    key = rng.make_key(0, device)
+    params = extract_params(cornell, albedo=False, vertices=True)
+    kstep, init = vertex.make_vertex_train_step(
+        cornell, cfg, TRAIN_SPP, functools.partial(torch.optim.SGD, lr=1e-4),
+        interior_spp=max(TRAIN_SPP // 4, 1), **VERTEX_KW)
+    state = [init(params)]
+
+    def kernel(p):
+        p, state[0], loss = kstep(p, state[0], target, 0, key)
+        return p, loss
+
+    eloss = edge.make_edge_aware_loss_fn(cornell, cfg, TRAIN_SPP, **VERTEX_KW)
+
+    def twin(p):
+        loss, g = inverse.value_and_grad(eloss, p, target, key)
+        return p._replace(vertices=tuple(a - 1e-4 * b for a, b in zip(p.vertices, g.vertices))), loss
+
+    return {"kernel": (kernel, params), "twin": (twin, params)}
+
+
+def recovery_run(cornell, factory, device):
+    """examples/train_vertices.py's run with the optimizer `factory` makes: (initial
+    and final light-vertex error, losses, the set of (megakernel, trace_rays)
+    launches a step, seconds)."""
+    import torch
+
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.core import rng
+    from oclpathtracer_tpu_torch.diff import extract_params, make_vertex_train_step
+    from oclpathtracer_tpu_torch.kernels import megakernel as mk
+
+    cfg = RenderConfig(VERTEX_SIZE, VERTEX_SIZE, bounces=2)
+    target, _ = mk.render_samples_pallas_stats(mk.pack_scene(cornell), cfg, 0, 2 * TRAIN_SPP,
+                                               scan="parity")
+    target = target / (2 * TRAIN_SPP)
+    true_v = extract_params(cornell, albedo=False, vertices=True).vertices
+    params = shifted_light(cornell)
+    err0 = light_error(params, true_v)
+    step, init = make_vertex_train_step(
+        cornell, cfg, TRAIN_SPP, factory, interior_spp=0, samples_per_edge=48, edge_spp=4,
+        secondary=True, secondary_samples_per_edge=16, secondary_spp=2,
+        secondary_pixel_stride=RIM_PIXEL_STRIDE)
+    state, key = init(params), rng.make_key(7, device)
+    losses, per_step, errs = [], set(), []
+    t0 = time.perf_counter()
+    for i in range(VERTEX_STEPS):
+        before = read_counts()
+        params, state, loss = step(params, state, target, i, key)
+        after = read_counts()
+        per_step.add((after["megakernel"] - before["megakernel"],
+                      after["trace_rays"] - before["trace_rays"]))
+        losses.append(loss)
+        if (i + 1) % 10 == 0:
+            errs.append(light_error(params, true_v))
+    secs = time.perf_counter() - t0
+    return err0, errs, torch.stack(losses).cpu().numpy(), per_step, secs
+
+
+def phase_vertex(tables):
+    """Vertex training through diff/vertex.py and diff/edge.py, its own counters."""
+    import torch
+
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.convert import scene_from_numpy
+    from oclpathtracer_tpu_torch.core import rng
+    from oclpathtracer_tpu_torch.diff import (
+        boundary_vertex_grads,
+        extract_params,
+        inverse,
+        make_edge_aware_loss_fn,
+    )
+    from oclpathtracer_tpu_torch.diff.edge import rays_at
+    from oclpathtracer_tpu_torch.kernels import megakernel as mk
+    from oclpathtracer_tpu_torch.kernels.selfcheck import occluder_arrays
+
+    reset_counts()
+    cornell = tables.scene("cornell")
+    # examples/train_vertices.py: recover the moved light. With the example's Adam
+    # 1e-2 the error falls to about 0.064 by step 40 and then drifts back above 0.1,
+    # here and in the JAX package's own step (tests/vertex_recovery_vs_jax.py), so
+    # that run is reported and held to its launches and finite losses; the same run
+    # with SGD 2e-4 must bring the error below VERTEX_RECOVERY_RATIO×.
+    device = cornell.geometry.p1.device
+    for name, factory, required in (
+            ("Adam 1e-2", functools.partial(torch.optim.Adam, lr=1e-2), False),
+            ("SGD 2e-4", functools.partial(torch.optim.SGD, lr=2e-4), True)):
+        err0, errs, losses, per_step, secs = recovery_run(cornell, factory, device)
+        err1 = errs[-1]
+        log(f"[vertex] recovery {VERTEX_SIZE}x{VERTEX_SIZE} b2 {TRAIN_SPP}spp {VERTEX_STEPS} "
+            f"{name} steps: {secs:.2f} s, loss {losses[0]:.6f} -> {losses[-1]:.6f}, light-vertex "
+            f"error {err0:.4f} -> {err1:.4f} (limit {VERTEX_RECOVERY_RATIO * err0:.4f}, "
+            f"{'required' if required else 'reported'}), every 10 steps {[round(e, 4) for e in errs]}, "
+            f"(megakernel, trace_rays) launches a step {per_step}")
+        require(per_step == {(2, 4)},
+                f"vertex step launches {per_step}, not 2 megakernel + 4 trace_rays")
+        require(bool(np.isfinite(losses).all()), f"recovery run {name}: a loss is not finite")
+        require(not required or err1 < VERTEX_RECOVERY_RATIO * err0,
+                f"recovery run {name}: light-vertex error {err0} -> {err1}, not below "
+                f"{VERTEX_RECOVERY_RATIO}x")
+
+    # The occluder: edge-aware gradients against central differences (tests/test_diff.py).
+    occ = scene_from_numpy(*occluder_arrays(), device=device)
+    cfg = RenderConfig(32, 32, bounces=2)
+    key = rng.make_key(3, device)
+    zeros = torch.zeros((cfg.n_pixels, 3), device=device)
+    loss_plain = inverse.make_loss_fn(occ, cfg, 64)
+    params = extract_params(occ, albedo=False, vertices=True)
+    _, grads = inverse.value_and_grad(
+        make_edge_aware_loss_fn(occ, cfg, 64, samples_per_edge=256, edge_spp=8, delta=0.03),
+        params, zeros, key)
+
+    def fd(leaf, comp, eps=0.08):
+        def moved(h):
+            vs = list(params.vertices)
+            vs[leaf] = vs[leaf].clone()
+            vs[leaf][2, comp] += h
+            return float(loss_plain(params._replace(vertices=tuple(vs)), zeros, key))
+        return (moved(eps) - moved(-eps)) / (2 * eps)
+
+    movers = sorted(((leaf, comp) for leaf in range(3) for comp in range(2)),
+                    key=lambda lc: -abs(float(grads.vertices[lc[0]][2, lc[1]])))[:3]
+    fd_rows = []
+    for leaf, comp in movers:
+        g, f = float(grads.vertices[leaf][2, comp]), fd(leaf, comp)
+        fd_rows.append((f"p{leaf + 1}[2,{comp}]", g, f))
+        require(bool(np.isclose(g, f, rtol=FD_RTOL)), f"occluder p{leaf + 1}[2,{comp}]: "
+                f"edge-aware {g} vs FD {f}")
+    log(f"[vertex] occluder 32x32 b2 64spp, edge-aware vs central FD (eps 0.08, rtol "
+        f"{FD_RTOL}): {fd_rows}")
+
+    # Kernel probes against twin probes (tests/test_diff_fast.py).
+    img = inverse.render_spp(occ, cfg, 16, key)
+    weight = 2.0 * img / cfg.n_pixels
+    g_twin = boundary_vertex_grads(occ, cfg, weight, key, samples_per_edge=128, spp=8,
+                                   delta=0.03)
+    table = mk.pack_scene(occ)
+
+    def probe(coords):
+        o, d = rays_at(coords, cfg)
+        out, _ = mk.trace_rays_pallas_stats(table, o.contiguous(), d, cfg, 8, scan="parity")
+        return out / 8
+
+    g_ker = boundary_vertex_grads(occ, cfg, weight, key, samples_per_edge=128, spp=8,
+                                  delta=0.03, probe_fn=probe)
+    top = torch.argsort(g_twin[0].abs().flatten(), descending=True)[:3].tolist()
+    pairs = [(float(g_twin[0].flatten()[i]), float(g_ker[0].flatten()[i])) for i in top]
+    log(f"[vertex] occluder boundary term p1, 3 largest, twin vs kernel probes: {pairs}")
+    require(all(bool(np.isclose(a, b, rtol=FD_RTOL)) for a, b in pairs),
+            f"kernel probes vs twin probes: {pairs}")
+
+    # bench_train.py's vertex shape: 3 steps of each.
+    cfg = RenderConfig(TRAIN_SIZE, TRAIN_SIZE, bounces=4)
+    for name, (run, params) in vertex_steps(cornell, cfg).items():
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(3):
+            params, loss = run(params)
+            losses.append(float(loss))
+        log(f"[vertex] full width {name} step {TRAIN_SIZE}x{TRAIN_SIZE} b4 {TRAIN_SPP}spp, 3 "
+            f"steps in {time.perf_counter() - t0:.2f} s: losses {losses}")
+        require(bool(np.isfinite(losses).all()) and
+                all(bool(torch.isfinite(v).all()) for v in params.vertices),
+                f"full-width {name} vertex step: a loss or a vertex is not finite")
+
+    launches = read_counts()
+    log(f"[vertex] launches {launches}")
+    require(launches["trace_rays"] > 0 and launches["megakernel"] > 0,
+            f"the vertex path did not launch its kernels: {launches}")
     return launches
 
 
@@ -466,17 +726,20 @@ def twin_step(scene, cfg, lr=1e-3):
 def time_pair(label, kern, plain, n_kernel, n_plain, rows, failed, **info):
     """Time kern(n_kernel) (warm-up, median of 5) and plain(n_plain) (one run), and
     hold kern(n_plain) against plain(n_plain) by phase 3's rule."""
-    from oclpathtracer_tpu_torch.kernels import selfcheck
+    from oclpathtracer_tpu_torch.kernels import bvh_megakernel, selfcheck
 
     ms, (img_k, segs) = cuda_time_ms(lambda: kern(n_kernel), lambda: kern(n_kernel))
+    bvh_megakernel.WALK_COUNTS.update(boxes=0, tris=0)
     plain_ms, (img_p, segs_p) = cuda_time_ms(lambda: plain(n_plain), lambda: None, reps=1)
+    walk = dict(bvh_megakernel.WALK_COUNTS)
     segs_k = segs
     if n_plain != n_kernel:
         img_k, segs_k = kern(n_plain)
     r = selfcheck.compare(img_k, segs_k, img_p, segs_p)
     row = {"name": label, **info, "spp": n_kernel, "ms": ms, "segments": int(segs),
            "mrays": int(segs) / (ms * 1e3), "plain_spp": n_plain, "plain_ms": plain_ms,
-           "plain_mrays": int(segs_p) / (plain_ms * 1e3),
+           "plain_mrays": int(segs_p) / (plain_ms * 1e3), "plain_segments": int(segs_p),
+           "walk": walk,
            "pixel_fraction": r["pixel_fraction"], "max_abs_err": r["max_abs_err"],
            "bitwise": r["bitwise"]}
     rows.append(row)
@@ -564,6 +827,63 @@ def phase_grad_timing(tables):
         if not r["ok"]:
             failed.append(mode)
     require(not failed, f"grad kernel vs plain at {TRAIN_SIZE}x{TRAIN_SIZE} failed: {failed}")
+    return rows
+
+
+def phase_trace_rays_timing(tables):
+    """trace_rays against its plain version at the rim probes' full-width shape: one
+    row per (strided prefix pixel, rim sample) of bench_train.py's vertex step,
+    65,536 / 4 × 96 = 1,572,864 rows, 3 bounces, 2 spp, parity; held bit for bit."""
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.kernels import selfcheck
+
+    n = (TRAIN_SIZE * TRAIN_SIZE // RIM_PIXEL_STRIDE) * 3 * len(VERTEX_LIGHT_TRIS) * 16
+    cfg = RenderConfig(TRAIN_SIZE, TRAIN_SIZE, bounces=3)
+    o, d = selfcheck.probe_rays(tables.scene("cornell"), n, cfg, seed=1)
+
+    def run(plain=False):
+        return selfcheck.run_trace_rays(tables, "parity", o, d, cfg, 2, plain=plain)
+
+    ms, got = cuda_time_ms(run, run)
+    plain_ms, want = cuda_time_ms(lambda: run(plain=True), lambda: None, reps=1)
+    r = selfcheck.compare(*got, *want)
+    segs = int(got[1])
+    row = {"rows": n, "bounces": 3, "spp": 2, "ms": ms, "segments": segs,
+           "mrays": segs / (ms * 1e3), "plain_ms": plain_ms, "plain_mrays": segs / (plain_ms * 1e3),
+           "max_abs_err": r["max_abs_err"], "bitwise": r["bitwise"]}
+    log(f"[time] trace_rays parity {n} rows b3 2spp: kernel {ms:.3f} ms ({row['mrays']:.1f} "
+        f"Mrays/s, {segs} segments), plain {plain_ms:.1f} ms ({row['plain_mrays']:.3f} "
+        f"Mrays/s); {r}")
+    require(r["ok"] and r["bitwise"], f"trace_rays vs plain at the rim shape: {r}")
+    return row
+
+
+def phase_vertex_timing(tables):
+    """ms per vertex step (host clock around synchronize, median of 3 after a
+    warm-up) at bench_train.py's vertex shape, kernel probes and twin probes, and one
+    profiled step each for device time and busy share."""
+    import torch
+
+    from oclpathtracer_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(TRAIN_SIZE, TRAIN_SIZE, bounces=4)
+    rows = {}
+    for name, (run, params) in vertex_steps(tables.scene("cornell"), cfg).items():
+        params, loss = run(params)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            params, loss = run(params)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = statistics.median(times) * 1e3
+        device_ms, top = profile_device_ms(lambda: run(params))
+        rows[name] = {"ms_per_step": ms, "loss": float(loss), "reps": 3, "device_ms": device_ms,
+                      "device_busy": device_ms / ms, "top_device_ops": top}
+        log(f"[time] vertex step {name} probes Cornell {TRAIN_SIZE}x{TRAIN_SIZE} b4 "
+            f"{TRAIN_SPP}spp: {ms:.3f} ms/step (median of 3), loss {float(loss):.6f}; profiled "
+            f"step: device {device_ms:.3f} ms, busy share {device_ms / ms:.4f}, top {top}")
     return rows
 
 
@@ -659,6 +979,54 @@ def phase_crossover(tables):
     return rows
 
 
+def kernel_bounds(tables, main_rows) -> dict:
+    """name → (bound_ms, "operations" | "bytes") of each kernel at its timed shape
+    (kernels/bounds.py), from the segments of this run and, for the BVH walks, the
+    boxes and leaf triangles per segment that their plain versions tested."""
+    import torch
+
+    from oclpathtracer_tpu_torch.kernels import bounds
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    table, _, classes = tables.linear("cornell", "tp")
+    n_tris, n_cls = table.shape[0], len(classes)
+    out = {}
+    r = main_rows["megakernel"]  # tp with the tp0 peel, 512² b4
+    n = 512 * 512
+    out["megakernel"] = bounds.bound_ms(
+        bounds.linear_ops("tp", n_tris, r["segments"], paths=n * r["spp"], tp0=True,
+                          n_classes=n_cls), 2 * nbytes(table) + 16 * n)  # and the tp0 table
+    r = main_rows["wavefront"]
+    out["wavefront"] = bounds.bound_ms(bounds.linear_ops("tp", n_tris, r["segments"],
+                                                         n_classes=n_cls),
+                                       nbytes(table) + 16 * n)
+    for name, key in (("bvh_megakernel", "bvh"), ("wide_bvh", "wide")):
+        r = main_rows[name]
+        per_seg = r["segments"] / r["plain_segments"]
+        packed = getattr(tables, key)("spheres5k", "fast", 32)
+        out[name] = bounds.bound_ms(
+            bounds.bvh_ops("fast", r["walk"]["boxes"] * per_seg, r["walk"]["tris"] * per_seg,
+                           r["segments"]),
+            nbytes(*(t for t in packed if isinstance(t, torch.Tensor))) + 16 * n)
+    r = main_rows["grad_megakernel"]
+    n = TRAIN_SIZE * TRAIN_SIZE
+    gtable, ct, _, _ = tables.grad("cornell")
+    out["grad_megakernel"] = bounds.bound_ms(
+        bounds.linear_ops("tp", n_tris, r["segments"], n_classes=n_cls)
+        + bounds.adjoint_ops(n_cls, r["segments"]),
+        nbytes(gtable, ct) + n * (12 + 12 + 4) + (n // 128) * n_cls * 6 * 4)
+    r = main_rows["trace_rays"]
+    ptable, _, _ = tables.linear("cornell", "parity")
+    out["trace_rays"] = bounds.bound_ms(bounds.linear_ops("parity", n_tris, r["segments"]),
+                                        nbytes(ptable) + r["rows"] * (24 + 16))
+    for name, (ms, by) in out.items():
+        log(f"[bound] {name}: {ms:.4f} ms ({by}); kernel {main_rows[name]['ms']:.3f} ms, "
+            f"roofline share {ms / main_rows[name]['ms']:.3f}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -676,9 +1044,13 @@ def main() -> int:
     log(f"[done] main path at {time.perf_counter() - t0:.1f} s")
     train_launches = phase_train(tables)
     log(f"[done] training path at {time.perf_counter() - t0:.1f} s")
+    vertex_launches = phase_vertex(tables)
+    log(f"[done] vertex path at {time.perf_counter() - t0:.1f} s")
     rows = phase_timing(tables)
     grad_rows = phase_grad_timing(tables)
     train_rows = phase_train_timing(tables)
+    rays_row = phase_trace_rays_timing(tables)
+    vertex_rows = phase_vertex_timing(tables)
     crossover = phase_crossover(tables)
     by_name = {r["name"]: r for r in rows}
     # What the main path runs: the tp megakernel at 4 bounces, the tp wavefront at 16,
@@ -692,29 +1064,35 @@ def main() -> int:
                "bvh_megakernel": ("bvh_megakernel.cu",
                                   "oclpathtracer_tpu/kernels/bvh_megakernel.py:746"),
                "wide_bvh": ("wide_bvh.cu", "oclpathtracer_tpu/kernels/wide_bvh.py:335")}
-    # Each path is counted in its own window (counts set to 0 just before it):
-    # `launches` sums the render path's and the training path's counts.
-    kernels = [{"name": name, "route": "cuda",
-                "source": f"oclpathtracer_tpu_torch/kernels/csrc/{src}", "replaces": tpu,
-                "launches": launches[name] + train_launches[name],
-                "launches_by_path": {"render": launches[name], "train": train_launches[name]},
-                "max_abs_err": main_rows[name]["max_abs_err"],
-                "ms": main_rows[name]["ms"], "plain_ms": main_rows[name]["plain_ms"],
-                "spp": main_rows[name]["spp"], "plain_spp": main_rows[name]["plain_spp"]}
-               for name, (src, tpu) in sources.items()]
     adj, fwd = grad_rows["adjoint"], grad_rows["forward"]
-    kernels.append({"name": "grad_megakernel", "route": "cuda",
-                    "source": "oclpathtracer_tpu_torch/kernels/csrc/grad_megakernel.cu",
-                    "replaces": "oclpathtracer_tpu/kernels/grad_megakernel.py:455",
-                    "launches": launches["grad_megakernel"] + train_launches["grad_megakernel"],
-                    "launches_by_path": {"render": launches["grad_megakernel"],
-                                         "train": train_launches["grad_megakernel"]},
-                    "max_abs_err": max(adj["max_abs_err"], adj["grad_max_abs_err"]),
-                    "ms": adj["ms"], "plain_ms": adj["plain_ms"], "spp": TRAIN_SPP,
-                    "plain_spp": TRAIN_SPP, "forward_ms": fwd["ms"],
-                    "forward_plain_ms": fwd["plain_ms"]})
+    main_rows["grad_megakernel"] = {**adj, "max_abs_err": max(adj["max_abs_err"],
+                                                              adj["grad_max_abs_err"]),
+                                    "spp": TRAIN_SPP, "plain_spp": TRAIN_SPP,
+                                    "forward_ms": fwd["ms"], "forward_plain_ms": fwd["plain_ms"]}
+    main_rows["trace_rays"] = rays_row
+    sources["grad_megakernel"] = ("grad_megakernel.cu",
+                                  "oclpathtracer_tpu/kernels/grad_megakernel.py:455")
+    sources["trace_rays"] = ("trace_rays.cu", "oclpathtracer_tpu/kernels/megakernel.py:1139")
+    bounds = kernel_bounds(tables, main_rows)
+    # Each path is counted in its own window (counts set to 0 just before it):
+    # `launches` sums the render, training and vertex paths' counts.
+    paths = {"render": launches, "train": train_launches, "vertex": vertex_launches}
+    kernels = []
+    for name, (src, tpu) in sources.items():
+        row = main_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"oclpathtracer_tpu_torch/kernels/csrc/{src}", "replaces": tpu,
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {path: c[name] for path, c in paths.items()},
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+            **{k: row[k] for k in ("spp", "plain_spp", "forward_ms", "forward_plain_ms", "rows")
+               if k in row}})
     log(f"[done] {card}; all phases passed in {time.perf_counter() - t0:.1f} s")
+    print(card)  # nvidia-smi's name and power limit, as it gives them
     print(json.dumps({"timing": rows, "grad_timing": grad_rows, "train_timing": train_rows,
+                      "trace_rays_timing": rays_row, "vertex_timing": vertex_rows,
                       "crossover": crossover}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

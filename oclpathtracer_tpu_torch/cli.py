@@ -64,7 +64,7 @@ def _cmd_render(args) -> int:
         print("render: no CUDA device (pass --device cpu for the plain versions)",
               file=sys.stderr)
         return 2
-    scene = load_cornell_box(args.scene).to(device)
+    scene = load_cornell_box(args.scene, device=device)
     cfg = RenderConfig(width=args.width, height=args.height, bounces=args.bounces,
                        seed=args.seed)
 

@@ -126,3 +126,22 @@ def sample_brdf(wo: torch.Tensor, n: torch.Tensor, albedo: torch.Tensor,
     pdf = torch.where(is_spec, pdf_s, pdf_d)
     f = torch.where(is_spec[..., None], f_s, f_d)
     return BrdfSample(wi=wi, pdf=pdf, f=f)
+
+
+def eval_brdf(wo: torch.Tensor, wi: torch.Tensor, n: torch.Tensor, albedo: torch.Tensor,
+              roughness: torch.Tensor, mtype: torch.Tensor) -> torch.Tensor:
+    """f(wo, wi) for a GIVEN wi (the boundary estimators' rim directions, NEE): the
+    diffuse lobe, or the GGX lobe with its ×2 quirk, 0 where wi is below n. Every
+    argument broadcasts; returns (..., 3)."""
+    cos_i = _dot(wi, n)
+    f_d = albedo * INV_PI
+
+    wh = _normalize(wo + wi)
+    cos_h = _dot(wh, n)
+    d_ndf = distribution_ggx(cos_h, roughness)
+    denom = 4.0 * torch.clamp(_dot(wi, n) * _dot(wo, n), min=1e-8)
+    f_s = (d_ndf / denom)[..., None] * albedo * 2.0
+
+    is_spec = mtype == SPECULAR
+    f = torch.where(is_spec[..., None], f_s, f_d)
+    return torch.where((cos_i > 0.0)[..., None], f, torch.zeros_like(f))

@@ -63,13 +63,16 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
-def make_key(seed: int, device=None) -> torch.Tensor:
+def make_key(seed: int, device="cuda") -> torch.Tensor:
     """jax.random.key(seed) without x64: (0, seed mod 2^32), for any seed that fits
-    in int64 (JAX raises OverflowError past that, and so does this)."""
+    in int64 (JAX raises OverflowError past that, and so does this), on `device`
+    (the card by default; it raises without one: pass "cpu")."""
+    from oclpathtracer_tpu_torch.convert import resolve_device
+
     seed = int(seed)
     if not -2**63 <= seed < 2**63:
         raise OverflowError(f"seed {seed} does not fit in int64")
-    return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
+    return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=resolve_device(device))
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:

@@ -34,6 +34,10 @@ from oclpathtracer_tpu_torch.scene.types import Scene
 # Kernel launches made by render_samples_bvh_stats on CUDA tensors.
 LAUNCHES = 0
 
+# Work the plain walks (skip-link and 8-wide) did: boxes tested and leaf triangles
+# tested by rays that were walking. chip_smoke.py reads it for the kernels' bounds.
+WALK_COUNTS = {"boxes": 0, "tris": 0}
+
 
 # ---- packing (numpy, exactly as the JAX package builds it) ---------------------
 
@@ -149,6 +153,7 @@ def scan_leaves(ps, start, count, todo, o, d, m, best):
         return best
     rays = todo.nonzero().squeeze(1)
     cnt = count[rays]
+    WALK_COUNTS["tris"] += int(cnt.sum())
     ks = torch.arange(int(cnt.max()), device=cnt.device)
     valid = ks[None, :] < cnt[:, None]
     j = torch.where(valid, start[rays][:, None] + ks[None, :], 0)
@@ -181,6 +186,7 @@ def _skip_walk_nearest(ps, nodes_f, nodes_i):
             if not bool(walking.any()):
                 break
             nd = torch.clamp(node, max=n_nodes - 1)
+            WALK_COUNTS["boxes"] += int(walking.sum())
             hit = walking & box_hit(nodes_f[nd], o, inv_d, best, ps.scan)
             leaf = count[nd] > 0
             best = scan_leaves(ps, start[nd], count[nd], hit & leaf, o, d, m, best)

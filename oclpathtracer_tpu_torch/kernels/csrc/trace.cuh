@@ -169,6 +169,20 @@ static __device__ __forceinline__ Path camera_path(const Params& P, int pid, flo
   return p;
 }
 
+// Seed + a given ray (trace_rays, the JAX kernel's rays_input mode) for sample s
+// of row `row`: no camera draws, so the stream's first two draws are bounce 0's.
+static __device__ __forceinline__ Path ray_path(const Params& P, int row, float3 o, float3 d,
+                                                int s) {
+  Path p;
+  p.rng = seed_from((uint32_t)row, (uint32_t)P.start_sample + (uint32_t)s);
+  p.o = o;
+  p.d = d;
+  p.mask = v3(1.0f, 1.0f, 1.0f);
+  p.rad = v3(0.0f, 0.0f, 0.0f);
+  p.active = true;
+  return p;
+}
+
 // ---- one triangle of each scan form ----------------------------------------
 
 // min(min(a, b), c) >= 0 without fminf, whose NaN rule differs from jnp.minimum.
@@ -477,21 +491,19 @@ static __device__ __forceinline__ void trace_segment(const Params& P, const floa
   shade(P, p, h);
 }
 
-// The per-sample bounce loop of one pixel: n 1-spp frames, each at most
+// The per-sample bounce loop of one thread: n 1-spp samples, each at most
 // `bounces` segments, max(rad, 0) added in sample order, segments counted.
+// `start(s)` makes sample s's path (camera_path or ray_path);
 // `segment(path, bounce)` traces one segment. A dead path leaves the loop: it
 // adds no radiance and is not counted, so this is exact.
-template <typename Segment>
-static __device__ __forceinline__ void render_pixel(const Params& P, int idx, Segment segment,
-                                                    float* __restrict__ out,
-                                                    int* __restrict__ segs) {
-  int pid = P.pid_base + idx;
-  float px = (float)(pid % P.width);
-  float py = (float)(pid / P.width);
+template <typename Start, typename Segment>
+static __device__ __forceinline__ void trace_samples(const Params& P, int idx, Start start,
+                                                     Segment segment, float* __restrict__ out,
+                                                     int* __restrict__ segs) {
   float3 acc = v3(0.0f, 0.0f, 0.0f);
   int sg = 0;
   for (int s = 0; s < P.n_samples; ++s) {
-    Path p = camera_path(P, pid, px, py, s);
+    Path p = start(s);
     for (int b = 0; b < P.bounces; ++b) {
       if (!p.active) break;
       sg += 1;
@@ -503,6 +515,18 @@ static __device__ __forceinline__ void render_pixel(const Params& P, int idx, Se
   out[3 * idx + 1] = acc.y;
   out[3 * idx + 2] = acc.z;
   segs[idx] = sg;
+}
+
+// trace_samples over the camera paths of pixel P.pid_base + idx.
+template <typename Segment>
+static __device__ __forceinline__ void render_pixel(const Params& P, int idx, Segment segment,
+                                                    float* __restrict__ out,
+                                                    int* __restrict__ segs) {
+  int pid = P.pid_base + idx;
+  float px = (float)(pid % P.width);
+  float py = (float)(pid / P.width);
+  trace_samples(
+      P, idx, [&](int s) { return camera_path(P, pid, px, py, s); }, segment, out, segs);
 }
 
 // Copy the scene table into dynamic shared memory; every thread of the block

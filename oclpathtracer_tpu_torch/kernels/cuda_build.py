@@ -27,7 +27,7 @@ from typing import NamedTuple
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "build")
 SOURCES = ("megakernel.cu", "wavefront.cu", "bvh_megakernel.cu", "wide_bvh.cu",
-           "grad_megakernel.cu")
+           "grad_megakernel.cu", "trace_rays.cu")
 HEADERS = ("trace.cuh", "bvh.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,6 +40,7 @@ LAUNCHERS = {
     "opt_bvh_megakernel_launch": (3, 2),   # table, nodes_f, nodes_i -> out, segs
     "opt_wide_bvh_launch": (3, 2),         # table, wn_f, wn_i -> out, segs
     "opt_grad_megakernel_launch": (3, 3),  # table, classes, weight -> out, segs, partials
+    "opt_trace_rays_launch": (3, 2),       # table, o, d -> out, segs
 }
 
 

@@ -25,6 +25,8 @@ ulp comparison boundaries; images are allclose (the JAX package's contract).
 `render_samples_pallas_stats` keeps the JAX name so readers find it. For a CUDA
 table it launches the kernel, or raises; for a CPU table it runs the plain version
 `_render_samples_stats_plain`, which has the same arithmetic vectorized over pixels.
+`trace_rays_pallas_stats` is the same trace from given rays (`csrc/trace_rays.cu`,
+plain version `_trace_rays_stats_plain`): the boundary estimators' radiance probes.
 """
 
 from __future__ import annotations
@@ -73,8 +75,10 @@ TP_ORIGIN_FACTOR = 64.0
 #  17:24 pad, UNLESS the tp0 peel is on: augment_table_tp0 fills them with
 #  17:20 U | 20:23 V | 23 t0 (the collapsed bounce-0 scan constants)
 
-# Kernel launches made by render_samples_pallas_stats on CUDA tensors.
+# Kernel launches made by render_samples_pallas_stats on CUDA tensors, and by
+# trace_rays_pallas_stats (csrc/trace_rays.cu).
 LAUNCHES = 0
+TRACE_RAYS_LAUNCHES = 0
 
 
 # ---- scene packing (bit for bit as the JAX package builds it in numpy) --------
@@ -689,14 +693,27 @@ def _camera_path(k: _Consts, cfg: RenderConfig, pid: torch.Tensor, frame: int):
             torch.ones_like(px, dtype=torch.bool), state)
 
 
+def _ray_path(o: torch.Tensor, d: torch.Tensor, rows: torch.Tensor, sample: int):
+    """Seed and given rays (N, 3) of one sample (csrc/trace.cuh ray_path): no camera
+    draws, so the stream's first two draws are bounce 0's."""
+    zero = torch.zeros_like(o[:, 0])
+    return (_cols(o, 0), _cols(d, 0), (zero + 1.0, zero + 1.0, zero + 1.0),
+            (zero, zero, zero), torch.ones_like(zero, dtype=torch.bool),
+            krng.seed_from(rows, sample))
+
+
 def _trace_sample_plain(cfg: RenderConfig, pid: torch.Tensor, frame: int, nearest):
-    """One 1-spp frame for pixels `pid`: (max(rad, 0) (N, 3), segments (N,) int32).
+    """One 1-spp frame for pixels `pid`: (max(rad, 0) (N, 3), segments (N,) int32)."""
+    k = _Consts.of(cfg)
+    return _trace_path_plain(k, cfg, _camera_path(k, cfg, pid, frame), nearest)
+
+
+def _trace_path_plain(k: _Consts, cfg: RenderConfig, path, nearest):
+    """Trace started paths to their end: (max(rad, 0) (N, 3), segments (N,) int32).
 
     `nearest(bounce, o, d, active)` returns the decoded best hit of every ray; rays
     whose `active` is False may get any hit (the shading ignores them)."""
-    k = _Consts.of(cfg)
-    path = _camera_path(k, cfg, pid, frame)
-    segs = torch.zeros_like(pid, dtype=torch.int32)
+    segs = torch.zeros_like(path[4], dtype=torch.int32)
 
     for b in range(cfg.bounces):
         active = path[4]
@@ -814,3 +831,64 @@ def render_pallas(scene: Scene, cfg: RenderConfig, total_spp: int,
                                           tp0_table=tp0_table, emi_const=emi)
         s += n
     return acc / total_spp
+
+
+# ---- arbitrary rays: the boundary estimators' probes ------------------------------
+
+def _trace_rays_stats_plain(table: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                            cfg: RenderConfig, n_samples: int, row_base: int = 0,
+                            start_sample: int = 0, scan: str = "parity", classes: tuple = (),
+                            emi_const: tuple = NO_EMI):
+    """trace_rays' plain PyTorch version: (radiance sum (N, 3) f32, segments int64)."""
+    ps = _PlainScene(table, classes, scan, emi_const)
+    k = _Consts.of(cfg)
+    nearest = linear_nearest(ps)
+    n = o.shape[0]
+    rows = torch.arange(row_base, row_base + n, dtype=torch.int64, device=o.device)
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
+    segs = torch.zeros((n,), dtype=torch.int32, device=o.device)
+    for s in range(n_samples):
+        rad, sg = _trace_path_plain(k, cfg, _ray_path(o, d, rows, int(start_sample) + s),
+                                    nearest)
+        acc = acc + rad
+        segs = segs + sg
+    return acc, segs.sum(dtype=torch.int64)
+
+
+def trace_rays_pallas_stats(table: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                            cfg: RenderConfig, n_samples: int, row_base: int = 0,
+                            start_sample: int = 0, scan: str = "parity", classes: tuple = (),
+                            emi_const: tuple = NO_EMI):
+    """SUM of `n_samples` path traces along ARBITRARY rays (o, d) (N, 3) f32.
+
+    Returns (radiance_sum (N, 3) f32, segments () int64). Sample s of row i keys the
+    reference RNG on (row_base + i, start_sample + s), with no camera draws: two calls
+    with equal row counts and the same row_base share their streams row for row (the
+    CRN pairing of the ± edge probes). `cfg.width`/`height` are not read; bounces,
+    background, boost and offset are. No tp0 peel. The JAX knobs `interleave`,
+    `scan_chunks` and `tri_unroll` schedule the TPU and are not taken.
+
+    A CUDA table launches `csrc/trace_rays.cu`; a CPU table runs the plain version,
+    which equals the twin `trace_paths` on `ref_uniforms(rows, s, 2 * bounces)`.
+    """
+    global TRACE_RAYS_LAUNCHES
+    n = o.shape[0]
+    check_call(table, cfg, n_samples, scan, classes, n)
+    check_table("o", o, 3)
+    check_table("d", d, 3)
+    if o.shape != d.shape or o.device != table.device or d.device != table.device:
+        raise ValueError("o and d must be (N, 3) on the table's device")
+    if table.device.type == "cpu":
+        return _trace_rays_stats_plain(table, o, d, cfg, n_samples, row_base, start_sample,
+                                       scan, classes, emi_const)
+    from oclpathtracer_tpu_torch.kernels import cuda_build
+
+    # The launch's pid_base carries row_base.
+    floats, ints = host_params(cfg, scan, classes, False, table.shape[0], start_sample,
+                               n_samples, row_base, n, emi_const=emi_const,
+                               smem=table_in_shared(table))
+    out = torch.empty((n, 3), dtype=torch.float32, device=table.device)
+    segs = torch.empty((n,), dtype=torch.int32, device=table.device)
+    cuda_build.launch("opt_trace_rays_launch", (table, o, d), floats, ints, out, segs)
+    TRACE_RAYS_LAUNCHES += 1
+    return out, segs.sum(dtype=torch.int64)

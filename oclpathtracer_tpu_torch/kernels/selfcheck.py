@@ -12,6 +12,10 @@ The adjoint kernel (grad_checks) is held to its plain version more tightly: imag
 and segments bit for bit, each class row of the gradients within GRAD_REL_TOL of its
 largest entry (see compare_grads).
 
+The arbitrary-ray kernel (trace_rays_checks) is held to its plain version bit for
+bit, images and segments, in each scan form, as is a rerun and a table read from
+global memory.
+
 Scenes: the Cornell box with its own camera; sphere_field(3, 1, seed=2) (244
 triangles, tp-capable), sphere_field() (5,124 triangles, 18 material classes, so
 the fast scan) and sphere_field(80, 3) (102,404 triangles) with the JAX package's
@@ -124,7 +128,7 @@ class Tables:
 
     @functools.lru_cache(maxsize=None)
     def scene(self, name: str):
-        return self.scenes[name]().to(self.device)
+        return self.scenes[name](device=self.device)
 
     @functools.lru_cache(maxsize=None)
     def linear(self, name: str, scan: str):
@@ -408,4 +412,89 @@ def grad_checks(tables: Tables, width, height, bounces=4, n_samples=2) -> dict:
     out["table in global memory, same bits"] = {
         "ok": bool(torch.equal(far[0], first[0]) and torch.equal(far[1], first[1])
                    and int(far[2]) == int(first[2]))}
+    return out
+
+
+# ---- the arbitrary-ray kernel (megakernel.trace_rays_pallas_stats) ---------------
+
+def occluder_arrays():
+    """The JAX package's occluder scene (tests/test_diff.py) as numpy leaves for
+    convert.scene_from_numpy: a black triangle at z = −2 in front of an emissive
+    backdrop quad at z = −5, both facing the camera. The loss's finite differences
+    in the occluder's vertices are pure primary boundary term."""
+    a, b, c, d = [-4, -1, -5], [4, -1, -5], [4, 6.5, -5], [-4, 6.5, -5]
+    o1, o2, o3 = [-1.0, 1.6, -2.0], [1.2, 2.0, -2.0], [0.1, 4.0, -2.0]
+    f32, i32 = np.float32, np.int32
+    geometry = (np.array([a, c, o1], f32), np.array([b, d, o2], f32),
+                np.array([c, a, o3], f32), np.array([0, 0, 1], i32))
+    materials = (np.array([[1, 1, 1], [0, 0, 0]], f32), np.array([[5, 5, 5], [0, 0, 0]], f32),
+                 np.array([0, 0], f32), np.array([1, 1], i32))
+    lights = (np.array([0], i32), np.array([30.0], f32), np.array([[0, 0, 1]], f32))
+    return geometry, materials, lights
+
+
+PROBE_START = 1 << 20  # the vertex step's probe sample range
+PROBE_ROW_BASE = 7
+
+
+def probe_rays(scene, n: int, cfg: RenderConfig, seed: int = 0):
+    """(o, d) (n, 3) on the scene's device: the first half through seeded continuous
+    pixel coords of `cfg`'s camera (diff/edge.rays_at, the edge probes' rays), the
+    rest from seeded points inside the scene's bounding box (shrunk by 10 %) in
+    seeded directions (the rim probes' rays start on surfaces inside the box)."""
+    from oclpathtracer_tpu_torch.diff.edge import rays_at
+
+    g = np.random.default_rng(seed)
+    dev = scene.geometry.p1.device
+    half = n // 2
+    coords = g.uniform((0.0, 0.0), (cfg.width, cfg.height), (half, 2)).astype(np.float32)
+    o_cam, d_cam = rays_at(torch.from_numpy(coords).to(dev), cfg)
+    verts = torch.cat([scene.geometry.p1, scene.geometry.p2, scene.geometry.p3]).cpu().numpy()
+    lo, hi = verts.min(0), verts.max(0)
+    mid, ext = (lo + hi) / 2, (hi - lo) / 2 * 0.9
+    o_in = g.uniform(mid - ext, mid + ext, (n - half, 3)).astype(np.float32)
+    d_in = g.normal(size=(n - half, 3)).astype(np.float32)
+    d_in /= np.linalg.norm(d_in, axis=1, keepdims=True)
+    o = torch.cat([o_cam, torch.from_numpy(o_in).to(dev)]).contiguous()
+    d = torch.cat([d_cam, torch.from_numpy(d_in).to(dev)]).contiguous()
+    return o, d
+
+
+def run_trace_rays(tables: Tables, scan: str, o, d, cfg: RenderConfig, n_samples: int,
+                   plain: bool = False, table=None, scene: str = "cornell"):
+    """(img, segments) of trace_rays, or of its plain version, on the scene's table for
+    `scan` (or on `table`, e.g. a padded one), rows from PROBE_ROW_BASE, samples from
+    PROBE_START."""
+    own, emi, classes = tables.linear(scene, scan)
+    table = own if table is None else table
+    fn = mk._trace_rays_stats_plain if plain else mk.trace_rays_pallas_stats
+    return fn(table, o, d, cfg, n_samples, row_base=PROBE_ROW_BASE, start_sample=PROBE_START,
+              scan=scan, classes=classes, emi_const=emi)
+
+
+def trace_rays_checks(tables: Tables, n_rows: int, bounces: int = 4, n_samples: int = 4,
+                      camera: int = 256) -> dict:
+    """The arbitrary-ray kernel on the Cornell box: against its plain version in each
+    scan form, bit for bit (images and segments, compare's dict with `ok` requiring
+    `bitwise`); a rerun giving the same bits; and the table padded with zero rows past
+    shared memory (read from global memory) giving the same bits."""
+    scene = tables.scene("cornell")
+    cfg = RenderConfig(width=camera, height=camera, bounces=bounces)
+    o, d = probe_rays(scene, n_rows, cfg)
+    out = {}
+    for scan in ("parity", "fast", "tp"):
+        got = run_trace_rays(tables, scan, o, d, cfg, n_samples)
+        torch.cuda.synchronize()
+        want = run_trace_rays(tables, scan, o, d, cfg, n_samples, plain=True)
+        r = compare(*got, *want)
+        out[f"kernel vs plain, {scan}"] = {**r, "ok": r["ok"] and r["bitwise"]}
+    first = run_trace_rays(tables, "parity", o, d, cfg, n_samples)
+    again = run_trace_rays(tables, "parity", o, d, cfg, n_samples)
+    out["rerun, same bits"] = {"ok": _same(first, again)}
+    table, _, _ = tables.linear("cornell", "parity")
+    rows = mk.SMEM_TABLE_MAX_BYTES // (4 * mk.TABLE_COLS) + 1 - table.shape[0]
+    big = torch.cat([table, torch.zeros((rows, mk.TABLE_COLS), device=table.device)])
+    assert mk.table_in_shared(table) and not mk.table_in_shared(big)
+    far = run_trace_rays(tables, "parity", o, d, cfg, n_samples, table=big)
+    out["table in global memory, same bits"] = {"ok": _same(far, first)}
     return out

@@ -66,13 +66,16 @@ def _wide_walk_nearest(ps, wn_f, wn_i):
     kind, child_a, child_b = wi[:, 0], wi[:, 1], wi[:, 2]
     lowest = _LOWEST_BIT.to(wn_f.device)
 
-    def expand(g, o, inv_d):
-        """csrc/bvh.cuh expand: the hit mask of group g's real children, per ray."""
+    def expand(g, o, inv_d, who):
+        """csrc/bvh.cuh expand: the hit mask of group g's real children for the rays
+        in `who` (0 for the others)."""
         mask = torch.zeros_like(g)
         for c in range(WIDE):
             child = g * WIDE + c
+            real = (kind[child] != 0) & who
+            bk.WALK_COUNTS["boxes"] += int(real.sum())
             met, _ = bk.slab(wf[child], o, inv_d)
-            mask = mask | torch.where((kind[child] != 0) & met, 1 << c, 0)
+            mask = mask | torch.where(real & met, 1 << c, 0)
         return mask
 
     def nearest(b, o, d, active):
@@ -84,7 +87,7 @@ def _wide_walk_nearest(ps, wn_f, wn_i):
         rows = torch.arange(n, device=dev)
         masks = torch.zeros((n, WIDE_MAX_DEPTH), dtype=torch.int64, device=dev)
         groups = torch.zeros_like(masks)
-        masks[:, 0] = torch.where(active, expand(torch.zeros_like(rows), o, inv_d), 0)
+        masks[:, 0] = expand(torch.zeros_like(rows), o, inv_d, active)
         level = torch.where(masks[:, 0] != 0, 0, -1)
         while True:
             walking = level >= 0
@@ -94,13 +97,14 @@ def _wide_walk_nearest(ps, wn_f, wn_i):
             top = masks[rows, lv]
             masks[rows, lv] = torch.where(walking, top & (top - 1), top)
             child = torch.where(walking, groups[rows, lv] * WIDE + lowest[top], 0)
+            bk.WALK_COUNTS["boxes"] += int(walking.sum())
             hit = walking & bk.box_hit(wf[child], o, inv_d, best, ps.scan)
             a = child_a[child]
             best = bk.scan_leaves(ps, a, child_b[child], hit & (kind[child] == 2), o, d, m,
                                   best)
             inner = hit & (kind[child] == 1)
             if bool(inner.any()):
-                cm = torch.where(inner, expand(torch.where(inner, a, 0), o, inv_d), 0)
+                cm = expand(torch.where(inner, a, 0), o, inv_d, inner)
                 push = (cm != 0) & (level + 1 < WIDE_MAX_DEPTH)
                 level = torch.where(push, level + 1, level)
                 lv = torch.clamp(level, min=0)

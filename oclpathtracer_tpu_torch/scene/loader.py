@@ -19,8 +19,8 @@ Semantics reproduced exactly:
     since the light is mesh 2 in cornellbox.bin — mesh 3 (.6,0,0), mesh 4 (0,.6,0),
     mesh 5 specular gold (.5,.35,.05) roughness .008.
 
-The parse and the scene build are numpy; the result is a Scene of CPU torch tensors
-(move it with `scene.to(device)`).
+The parse and the scene build are numpy on the host; the result is a Scene of torch
+tensors on `device`, the card by default (`convert.resolve_device`).
 """
 
 from __future__ import annotations
@@ -100,8 +100,9 @@ _SPECULAR_ROUGHNESS = 0.008
 _LIGHT_EMISSIVE = (30.0, 30.0, 30.0)
 
 
-def build_scene(meshes: List[MeshRecord]) -> Scene:
-    """Expand quads to triangles and build the SoA scene."""
+def build_scene(meshes: List[MeshRecord], device="cuda") -> Scene:
+    """Expand quads to triangles and build the SoA scene, on `device` (the numpy
+    build runs on the host; only the returned tensors move)."""
     p1s, p2s, p3s, mat_ids = [], [], [], []
     albedos, emissives, roughnesses, mtypes = [], [], [], []
 
@@ -145,7 +146,8 @@ def build_scene(meshes: List[MeshRecord]) -> Scene:
     materials = (np.asarray(albedos, dtype=np.float32), emi,
                  np.asarray(roughnesses, dtype=np.float32),
                  np.asarray(mtypes, dtype=np.int32))
-    return convert.scene_from_numpy(geometry, materials, _build_lights(p1, p2, p3, mid, emi))
+    return convert.scene_from_numpy(geometry, materials, _build_lights(p1, p2, p3, mid, emi),
+                                    device)
 
 
 def _build_lights(p1: np.ndarray, p2: np.ndarray, p3: np.ndarray,
@@ -163,6 +165,8 @@ def _build_lights(p1: np.ndarray, p2: np.ndarray, p3: np.ndarray,
     return idx, area.astype(np.float32), normal.astype(np.float32)
 
 
-def load_cornell_box(path: str | None = None) -> Scene:
-    """Load the canonical Cornell-box scene (36 tris, 18 materials, 1 area light)."""
-    return build_scene(parse_mesh_file(path or DEFAULT_SCENE_PATH))
+def load_cornell_box(path: str | None = None, device="cuda") -> Scene:
+    """Load the canonical Cornell-box scene (36 tris, 18 materials, 1 area light) onto
+    `device`: the card by default, where it raises without one (pass "cpu")."""
+    device = convert.resolve_device(device)
+    return build_scene(parse_mesh_file(path or DEFAULT_SCENE_PATH), device)

@@ -53,12 +53,15 @@ def icosphere(center, radius, subdivisions: int = 2) -> tuple[np.ndarray, np.nda
 
 
 def sphere_field(n_spheres: int = 16, subdivisions: int = 2, seed: int = 0,
-                 extent: float = 4.0, specular_fraction: float = 0.25) -> Scene:
-    """Random spheres above a ground quad with one area light (CPU tensors).
+                 extent: float = 4.0, specular_fraction: float = 0.25,
+                 device="cuda") -> Scene:
+    """Random spheres above a ground quad with one area light, built in numpy on the
+    host and returned on `device` (the card by default; pass "cpu" without one).
 
     n_spheres × 20·4^subdivisions triangles + 2 ground + 2 light: the defaults give
     5,124 triangles, `sphere_field(80, 3)` 102,404.
     """
+    device = convert.resolve_device(device)
     rs = np.random.RandomState(seed)
     tris_p1, tris_p2, tris_p3, mat_ids = [], [], [], []
     albedos, emissives, roughnesses, mtypes = [], [], [], []
@@ -109,12 +112,13 @@ def sphere_field(n_spheres: int = 16, subdivisions: int = 2, seed: int = 0,
     materials = (np.asarray(albedos, np.float32), emis,
                  np.asarray(roughnesses, np.float32), np.asarray(mtypes, np.int32))
     return convert.scene_from_numpy((p1, p2, p3, mat_id), materials,
-                                    _build_lights(p1, p2, p3, mat_id, emis))
+                                    _build_lights(p1, p2, p3, mat_id, emis), device)
 
 
 def random_triangles(n: int, seed: int = 0, extent: float = 2.0,
-                     tri_size: float = 0.4) -> Geometry:
-    """Triangle soup for intersection stress tests (no materials)."""
+                     tri_size: float = 0.4, device="cuda") -> Geometry:
+    """Triangle soup for intersection stress tests (no materials), on `device`."""
+    device = convert.resolve_device(device)
     rs = np.random.RandomState(seed)
     base = rs.uniform(-extent, extent, (n, 3))
     b = base + rs.uniform(-tri_size, tri_size, (n, 3))
@@ -122,4 +126,4 @@ def random_triangles(n: int, seed: int = 0, extent: float = 2.0,
     return Geometry(p1=torch.from_numpy(base.astype(np.float32)),
                     p2=torch.from_numpy(b.astype(np.float32)),
                     p3=torch.from_numpy(c.astype(np.float32)),
-                    mat_id=torch.zeros((n,), dtype=torch.int32))
+                    mat_id=torch.zeros((n,), dtype=torch.int32)).to(device)

@@ -32,7 +32,7 @@ EYE = (0.0, 3.0, 9.0)  # the JAX package's camera for procedural scenes
 
 
 def _port(jscene):
-    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in jscene])
+    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in jscene], device="cpu")
 
 
 def _port_geometry(jgeom):
@@ -68,7 +68,7 @@ def scenes(scene):
                                        specular_fraction=1.0)])
 def test_sphere_field_bitwise(args):
     ref = jprocgen.sphere_field(**args)
-    got = procgen.sphere_field(**args)
+    got = procgen.sphere_field(**args, device="cpu")
     for part_t, part_j in zip(got, ref):
         for t, j in zip(part_t, part_j):
             _assert_bitwise(t, j)
@@ -77,7 +77,7 @@ def test_sphere_field_bitwise(args):
 
 
 def test_random_triangles_and_icosphere_bitwise():
-    for t, j in zip(procgen.random_triangles(777, seed=3), jprocgen.random_triangles(777, seed=3)):
+    for t, j in zip(procgen.random_triangles(777, seed=3, device="cpu"), jprocgen.random_triangles(777, seed=3)):
         _assert_bitwise(t, j)
     for t, j in zip(procgen.icosphere((1.0, 2.0, 3.0), 0.5, 2),
                     jprocgen.icosphere((1.0, 2.0, 3.0), 0.5, 2)):
@@ -178,7 +178,7 @@ def test_auto_sends_large_scenes_to_widebvh_and_matches_jax(monkeypatch):
     interpret mode. Images allclose at rtol = atol = 1e-4, the JAX package's
     contract (the driver returns no segment count)."""
     jscene = jprocgen.sphere_field(7, 1)
-    tscene = procgen.sphere_field(7, 1)
+    tscene = procgen.sphere_field(7, 1, device="cpu")
     assert tscene.num_triangles == 564 > driver.LINEAR_KERNEL_MAX_TRIS
     calls = []
     real = wb.render_samples_wide_bvh_stats
@@ -202,7 +202,7 @@ def test_default_sphere_field_takes_the_fast_scan_on_widebvh(monkeypatch):
     """sphere_field() (5,124 triangles, 18 material classes): auto goes to widebvh
     with leaf 32 and the fast scan, as in the JAX driver. The render itself is not
     run here (the plain version at this size is the card's test)."""
-    scene = procgen.sphere_field()
+    scene = procgen.sphere_field(device="cpu")
     seen = {}
 
     def fake(table, wn_f, wn_i, cfg, start, n, **kw):

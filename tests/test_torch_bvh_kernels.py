@@ -39,7 +39,7 @@ SCANS = ["parity", "fast", "tp"]
 
 
 def _port(jscene):
-    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in jscene])
+    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in jscene], device="cpu")
 
 
 @pytest.fixture(scope="module")

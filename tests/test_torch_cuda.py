@@ -4,7 +4,8 @@ These need a CUDA device (marker `cuda`) and skip without one; on a machine with
 card run them with `python -m pytest --noconftest tests/test_torch_cuda.py -q` (this
 file needs no fixture of tests/conftest.py, which imports jax). They are
 chip_smoke.py's phase-3 checks at 64×64 (kernels/selfcheck.py holds the cases and
-the pass rule), for the linear and the BVH kernels. Whether there is a card is
+the pass rule), for the linear and the BVH kernels, the adjoint kernel and the
+arbitrary-ray kernel; and the vertex step's launches. Whether there is a card is
 decided inside the fixture, never at import.
 """
 
@@ -139,3 +140,53 @@ def test_hybrid_loss_launches_the_megakernel_twice_a_step(cuda_tables):
     assert mk.LAUNCHES - before == 2
     assert bool(torch.isfinite(loss))
     assert all(bool(torch.isfinite(g).all()) for g in inverse.params_leaves(grads))
+
+
+# ---- the arbitrary-ray kernel and the vertex path ---------------------------------
+
+@pytest.fixture(scope="module")
+def trace_rays_results(cuda_tables):
+    return selfcheck.trace_rays_checks(cuda_tables, 8192, bounces=4, n_samples=2)
+
+
+@pytest.mark.parametrize("scan", ["parity", "fast", "tp"])
+def test_trace_rays_kernel_matches_plain_bitwise(trace_rays_results, scan):
+    result = trace_rays_results[f"kernel vs plain, {scan}"]
+    assert result["ok"] and result["bitwise"], result
+
+
+@pytest.mark.parametrize("check", ["rerun, same bits", "table in global memory, same bits"])
+def test_trace_rays_kernel_gives_the_same_bits(trace_rays_results, check):
+    assert trace_rays_results[check]["ok"]
+
+
+def test_constructors_default_to_the_card(cuda_tables):
+    from oclpathtracer_tpu_torch.core import rng
+    from oclpathtracer_tpu_torch.scene import load_cornell_box
+    from oclpathtracer_tpu_torch.scene.procgen import random_triangles, sphere_field
+
+    assert load_cornell_box().geometry.p1.device.type == "cuda"
+    assert sphere_field(1, 0).materials.albedo.device.type == "cuda"
+    assert random_triangles(4).p1.device.type == "cuda"
+    assert rng.make_key(0).device.type == "cuda"
+
+
+def test_vertex_step_launches_the_megakernel_twice_and_trace_rays_four_times(cuda_tables):
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.core import rng
+    from oclpathtracer_tpu_torch.diff import extract_params, make_vertex_train_step
+    from oclpathtracer_tpu_torch.kernels import megakernel as mk
+
+    scene = cuda_tables.scene("cornell")
+    cfg = RenderConfig(width=32, height=32, bounces=2)
+    step, init = make_vertex_train_step(scene, cfg, 2, lambda ts: torch.optim.SGD(ts, lr=1e-4),
+                                        interior_spp=0, samples_per_edge=8, edge_spp=2,
+                                        secondary_samples_per_edge=4)
+    params = extract_params(scene, albedo=False, vertices=True)
+    state = init(params)
+    before = (mk.LAUNCHES, mk.TRACE_RAYS_LAUNCHES)
+    params, state, loss = step(params, state, torch.zeros((cfg.n_pixels, 3), device="cuda"), 0,
+                               rng.make_key(1))
+    assert (mk.LAUNCHES - before[0], mk.TRACE_RAYS_LAUNCHES - before[1]) == (2, 4)
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v).all())
+                                              for v in params.vertices)

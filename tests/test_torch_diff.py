@@ -34,7 +34,7 @@ GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 
 @pytest.fixture(scope="module")
 def port_scene(scene):
-    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene])
+    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene], device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +47,7 @@ def _both_params(scene, **kw):
     jp = jinv.extract_params(scene, **kw)
     leaves = [None if x is None else (tuple(np.asarray(v) for v in x) if isinstance(x, tuple)
                                       else np.asarray(x)) for x in jp]
-    return jp, scene_params_from_numpy(*leaves)
+    return jp, scene_params_from_numpy(*leaves, device="cpu")
 
 
 def _assert_params_close(got, want, **tol):
@@ -86,7 +86,7 @@ def test_twin_gradients_match_jax_grad(scene, port_scene, target, loss_name):
     l_j, g_j = jax.value_and_grad(getattr(jinv, loss_name)(scene, JCFG, SPP))(
         jp, jnp.asarray(target), jrng.make_key(7))
     l_t, g_t = inverse.value_and_grad(getattr(inverse, loss_name)(port_scene, CFG, SPP), tp,
-                                       torch.tensor(target), rng.make_key(7))
+                                       torch.tensor(target), rng.make_key(7, device="cpu"))
     np.testing.assert_allclose(float(l_t), float(l_j), rtol=1e-5)
     _assert_params_close(g_t, g_j, **GRAD_TOL)
 
@@ -95,10 +95,10 @@ def test_train_step_matches_jax_and_reduces_loss(scene, port_scene):
     """One SGD step equals JAX's (new params at 1e-4); ten cut the CRN loss below 0.7×
     its first value. The target is the true scene on the training key's own
     samples, so the loss can fall to 0."""
-    key_j, key_t = jrng.make_key(11), rng.make_key(11)
+    key_j, key_t = jrng.make_key(11), rng.make_key(11, device="cpu")
     target = np.asarray(jinv.render_spp(scene, JCFG, SPP, jax.random.fold_in(key_j, 0)))
     jp = jinv.SceneParams(albedo=jnp.clip(jinv.extract_params(scene).albedo + 0.2, 0.0, 1.0))
-    tp = scene_params_from_numpy(np.asarray(jp.albedo))
+    tp = scene_params_from_numpy(np.asarray(jp.albedo), device="cpu")
     p_j, l_j = jinv.make_train_step(scene, JCFG, SPP, lr=3e-3)(jp, jnp.asarray(target),
                                                                jnp.int32(0), key_j)
     step = inverse.make_train_step(port_scene, CFG, SPP, lr=3e-3)
@@ -118,8 +118,8 @@ def test_optax_train_step_reduces_loss(scene, port_scene):
     its first value, and the projection holds albedo in [0, 1]. The target is the
     true scene on the first of the step's two sample sets, so the loss is 0 there."""
     tp = scene_params_from_numpy(
-        np.clip(np.asarray(jinv.extract_params(scene).albedo) + 0.2, 0.0, 1.0))
-    key = rng.make_key(11)
+        np.clip(np.asarray(jinv.extract_params(scene).albedo) + 0.2, 0.0, 1.0), device="cpu")
+    key = rng.make_key(11, device="cpu")
     target = inverse.render_spp(port_scene, CFG, SPP, rng.split(rng.fold_in(key, 0))[0])
     step, opt_init = inverse.make_optax_train_step(
         port_scene, CFG, SPP, functools.partial(torch.optim.Adam, lr=5e-2))

@@ -41,7 +41,7 @@ TOL = dict(rtol=5e-3, atol=5e-3)  # tests/test_grad_kernel.py's
 
 @pytest.fixture(scope="module")
 def port_scene(scene):
-    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene])
+    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene], device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -92,7 +92,7 @@ def test_prepare_grad_scene_bitwise(scene, grad_scene):
     np.testing.assert_array_equal(ct.numpy(), np.asarray(jct))
     np.testing.assert_array_equal(mat_class.numpy(), np.asarray(jmc))
     classes = mk.material_classes(scene_from_numpy(
-        *[[np.asarray(x) for x in part] for part in scene]))[0]
+        *[[np.asarray(x) for x in part] for part in scene], device="cpu"))[0]
     np.testing.assert_array_equal(gk.pack_class_table(classes).numpy(),
                                   np.asarray(jgk.pack_class_table(classes)))
 
@@ -268,7 +268,8 @@ def test_kernel_sgd_step_matches_jax_step(scene, port_scene, grad_scene):
     want = jfast._project_class(jfast.ClassParams(albedo=jparams.albedo - lr * g_j.albedo,
                                                   emissive=jparams.emissive - lr * g_j.emissive))
 
-    params = class_params_from_numpy(np.asarray(jparams.albedo), np.asarray(jparams.emissive))
+    params = class_params_from_numpy(np.asarray(jparams.albedo), np.asarray(jparams.emissive),
+                                     device="cpu")
     step = fast.make_kernel_train_step(port_scene, CFG, spp, lr)
     got, l_t = step(params, torch.from_numpy(target), step_idx)
     np.testing.assert_allclose(float(l_t), float(l_j), rtol=1e-4)

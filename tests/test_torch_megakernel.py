@@ -29,7 +29,7 @@ CFG = RenderConfig(width=W, height=H, bounces=B)
 
 @pytest.fixture(scope="module")
 def port_scene(scene):
-    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene])
+    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene], device="cpu")
 
 
 @pytest.fixture(scope="module")

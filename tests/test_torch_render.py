@@ -26,7 +26,7 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 @pytest.fixture(scope="module")
 def port_scene(scene):
-    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene])
+    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene], device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -160,6 +160,8 @@ def test_port_never_imports_jax():
             "import oclpathtracer_tpu_torch.diff, oclpathtracer_tpu_torch.diff.fast\n"
             "import oclpathtracer_tpu_torch.kernels.grad_megakernel\n"
             "import oclpathtracer_tpu_torch.convert\n"
+            "import oclpathtracer_tpu_torch.diff.edge, oclpathtracer_tpu_torch.diff.secondary\n"
+            "import oclpathtracer_tpu_torch.diff.vertex\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'oclpathtracer_tpu' or m.startswith('oclpathtracer_tpu.')]\n"
             "assert not bad, bad\n")

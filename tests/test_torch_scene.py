@@ -6,9 +6,14 @@ import torch
 
 from oclpathtracer_tpu.kernels import megakernel as jmk
 from oclpathtracer_tpu.scene import loader as jloader
-from oclpathtracer_tpu_torch.convert import scene_from_numpy
+from oclpathtracer_tpu_torch.convert import (
+    class_params_from_numpy,
+    scene_from_numpy,
+    scene_params_from_numpy,
+)
+from oclpathtracer_tpu_torch.core import rng
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
-from oclpathtracer_tpu_torch.scene import loader
+from oclpathtracer_tpu_torch.scene import loader, procgen
 from oclpathtracer_tpu_torch.scene import load_cornell_box
 
 torch.set_num_threads(1)
@@ -20,7 +25,7 @@ def _numpy_leaves(scene):
 
 @pytest.fixture(scope="module")
 def port_scene():
-    return load_cornell_box()
+    return load_cornell_box(device="cpu")
 
 
 def test_scene_data_bytes_equal():
@@ -88,7 +93,7 @@ def test_prepare_scan(port_scene):
 
 
 def test_scene_from_numpy_round_trips(scene, port_scene):
-    converted = scene_from_numpy(*_numpy_leaves(scene))
+    converted = scene_from_numpy(*_numpy_leaves(scene), device="cpu")
     for part_c, part_p, part_j in zip(converted, port_scene, scene):
         for c, p, j in zip(part_c, part_p, part_j):
             assert torch.equal(c, p)
@@ -96,4 +101,27 @@ def test_scene_from_numpy_round_trips(scene, port_scene):
     moved = converted.to("cpu")
     assert torch.equal(moved.geometry.p1, converted.geometry.p1)
     with pytest.raises(ValueError):
-        scene_from_numpy(*_numpy_leaves(scene)[:2], [np.zeros(1)])
+        scene_from_numpy(*_numpy_leaves(scene)[:2], [np.zeros(1)], device="cpu")
+
+
+_DEFAULT_DEVICE_CONSTRUCTORS = {
+    "load_cornell_box": lambda: load_cornell_box(),
+    "sphere_field": lambda: procgen.sphere_field(1, 0),
+    "random_triangles": lambda: procgen.random_triangles(4),
+    "scene_from_numpy": lambda: scene_from_numpy(*_numpy_leaves(jloader.load_cornell_box())),
+    "scene_params_from_numpy": lambda: scene_params_from_numpy(albedo=np.ones((2, 3))),
+    "class_params_from_numpy": lambda: class_params_from_numpy(np.ones((2, 3)),
+                                                               np.zeros((2, 3))),
+    "make_key": lambda: rng.make_key(0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_DEFAULT_DEVICE_CONSTRUCTORS))
+def test_constructors_default_to_the_card_and_raise_without_one(name):
+    """Every constructor a caller starts from defaults to device="cuda"; without a
+    card that default raises instead of quietly running the plain versions (with a
+    card, tests/test_torch_cuda.py checks that the tensors land on it)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default lands on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _DEFAULT_DEVICE_CONSTRUCTORS[name]()

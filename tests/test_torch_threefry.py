@@ -33,12 +33,12 @@ def _key_data(k) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def port_scene(scene):
-    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene])
+    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene], device="cpu")
 
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_make_key_sample_key_and_split_bitwise(seed):
-    kj, kt = jrng.make_key(seed), rng.make_key(seed)
+    kj, kt = jrng.make_key(seed), rng.make_key(seed, device="cpu")
     np.testing.assert_array_equal(kt.numpy(), _key_data(kj))
     np.testing.assert_array_equal(rng.split(kt).numpy(), _key_data(jax.random.split(kj)))
     for s in SAMPLES:
@@ -51,7 +51,7 @@ def test_make_key_sample_key_and_split_bitwise(seed):
 def test_pixel_uniforms_bitwise(seed, sample):
     """Ids up to 2^31 - 1 (past 2^16, where a 16-bit slip would show), 10 draws."""
     sj = jrng.sample_key(jrng.make_key(seed), jnp.int32(sample))
-    st = rng.sample_key(rng.make_key(seed), sample)
+    st = rng.sample_key(rng.make_key(seed, device="cpu"), sample)
     uj = np.asarray(jrng.pixel_uniforms(sj, jnp.asarray(PIDS), 10))
     ut = rng.pixel_uniforms(st, torch.from_numpy(PIDS.astype(np.int64)), 10)
     assert ut.dtype == torch.float32
@@ -68,7 +68,7 @@ def test_make_key_rejects_seeds_jax_cannot_hold():
     with pytest.raises(OverflowError):
         jrng.make_key(2**64)
     with pytest.raises(OverflowError):
-        rng.make_key(2**64)
+        rng.make_key(2**64, device="cpu")
 
 
 @pytest.mark.parametrize("sample", [0, 5])
@@ -76,14 +76,14 @@ def test_render_sample_matches_jax(scene, port_scene, sample):
     cfg_j = JCfg(width=SIZE, height=SIZE, bounces=BOUNCES)
     rad_j, st_j = jpath.render_sample(scene, cfg_j, jnp.int32(sample), jrng.make_key(3))
     rad_t, st_t = path.render_sample(port_scene, RenderConfig(SIZE, SIZE, bounces=BOUNCES),
-                                     sample, rng.make_key(3))
+                                     sample, rng.make_key(3, device="cpu"))
     np.testing.assert_allclose(rad_t.numpy(), np.asarray(rad_j), rtol=1e-4, atol=1e-4)
     assert int(st_t["segments"]) == int(st_j["segments"])
 
 
 def test_render_sample_on_a_pixel_subset_matches_the_full_image(port_scene):
     cfg = RenderConfig(SIZE, SIZE, bounces=BOUNCES)
-    key = rng.make_key(2)
+    key = rng.make_key(2, device="cpu")
     full, _ = path.render_sample(port_scene, cfg, 1, key)
     ids = torch.arange(37, 201, dtype=torch.int64)
     part, _ = path.render_sample(port_scene, cfg, 1, key, pixel_ids=ids)
@@ -92,7 +92,7 @@ def test_render_sample_on_a_pixel_subset_matches_the_full_image(port_scene):
 
 def test_count_segments_matches_jax(scene, port_scene):
     got = path.count_segments(port_scene, RenderConfig(SIZE, SIZE, bounces=BOUNCES),
-                              torch.arange(3), rng.make_key(4))
+                              torch.arange(3), rng.make_key(4, device="cpu"))
     want = jpath.count_segments(scene, JCfg(width=SIZE, height=SIZE, bounces=BOUNCES),
                                 jnp.arange(3, dtype=jnp.int32), jrng.make_key(4))
     assert int(got) == int(want)

@@ -24,7 +24,7 @@ CFG = RenderConfig(width=24, height=20, bounces=5)
 
 @pytest.fixture(scope="module")
 def port_scene(scene):
-    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene])
+    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene], device="cpu")
 
 
 @pytest.mark.parametrize("scan", ["parity", "tp"])
