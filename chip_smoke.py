@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build: compile the six CUDA kernels from kernels/csrc with nvcc, one process
+  2. build: compile the eight CUDA sources from kernels/csrc with nvcc, one process
      per source, all at once;
   3. kernel vs plain PyTorch version on the card (kernels/selfcheck.py): the
      linear kernels on the Cornell box in parity, fast and tp form, wavefront k=1
@@ -27,8 +27,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      on 65,536 rows (half camera rays through diff/edge.rays_at, half from inside the
      box), rows from 7, samples from 2^20, 4 bounces, 4 spp: bit for bit against its
      plain version in parity, fast and tp, a rerun the same bits, and a table past
-     shared memory the same bits. Every megakernel case must be bit for bit (the
-     loop it shares with trace_rays changed shape, its bits must not);
+     shared memory the same bits. Every linear and BVH kernel case must be bit for
+     bit against its plain version (the device code they share with the newer
+     kernels was factored into helpers; no bit of theirs may move). The AO and
+     direct-NEE kernels (fast_integrators.cu, kernels/selfcheck.py
+     fast_integrator_checks) on the Cornell box at 128², 4 spp: bit for bit against
+     their plain versions on the whole image, on a ragged range (pid_base 1000,
+     5,001 pixels; also the whole image's rows) and with the table in global memory.
+     The sorted wavefront's bounce kernel (sorted_wavefront.cu, sorted_checks) on the
+     Cornell box and sphere_field(), leaf 32, 4 bounces, 2 spp, sort off and on: bit
+     for bit against its plain version and against the skip-link kernel;
   4. main path, with every launch counter set to 0 first:
      render_progressive(backend="auto") at 512², 16 bounces on the Cornell box
      (16384 spp, wavefront kernel), on sphere_field() (5,124 tris) and on
@@ -70,8 +78,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      make_vertex_train_step and of make_edge_aware_loss_fn with SGD 1e-4 at
      bench_train.py's vertex shape (256², 4 bounces, 8 spp, 64 samples per edge,
      rim 16 per edge at pixel stride 4), whose losses must be finite;
+  4d. the integrator ladder's lower rungs and the sorted wavefront, with every
+     launch counter set to 0 first: the CLI `render` (Cornell 512², its default 64
+     spp and 16 bounces) with primary, ao, ao-pallas, direct, direct-pallas and
+     sorted, and render_sorted on sphere_field() at 512², 16 bounces, 64 spp. Each
+     must exit 0 with a finite positive mean (a NaN or inf pixel makes the mean so);
+     the AO and direct kernels must launch once each (one launch of 64 spp), the
+     bounce kernel 16 times a call of 8 spp, and no other kernel at all; the
+     ao-pallas mean must be within 5 % of ao's and direct-pallas's of direct's
+     (same estimator, other streams);
   5. timing with CUDA events (warm-up, median of 5 for kernels; one run for plain
-     versions) of each kernel and its plain version at the main path's launch
+     versions; each run queued behind a 0.1 s spin kernel, so that the events time
+     the device's work and not the host's launch work between kernels) of each
+     kernel and its plain version at the main path's launch
      shape (512², 64 samples per launch; the BVH kernels' plain versions at 1
      sample, against the kernel at 1 sample), as Mrays/s = traced segments per
      second; the two results of each pair are held against each other by phase
@@ -85,14 +104,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
      under torch.profiler gives its device time and busy share. trace_rays against
      its plain version at the rim probes' full-width shape (1,572,864 rows, 3
      bounces, 2 spp, parity), and the two vertex steps of phase 4c (kernel probes,
-     twin probes) in ms/step with one profiled step each.
+     twin probes) in ms/step with one profiled step each. The AO and direct kernels
+     against their plain versions at the CLI's shape (Cornell 512², 64 spp in one
+     launch), bit for bit, as Mrays/s of the rays they cast (camera rays, and the
+     second rays where cast, counted by the plain versions). The sorted wavefront at
+     render_sorted's shape (512², 16 bounces, 8 spp a call, leaf 32) on sphere_field()
+     and the Cornell box: its 16 bounce launches, whole calls with the sort off and
+     on (and the bounce kernels' own device time in each, from events around each
+     launch, which says whether the sort buys kernel time), and the skip-link kernel at the same
+     samples (whose image it must equal bit for bit); the plain version at 1 spp
+     against the kernel at 1 spp, bit for bit.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
 kernels as JSON, each with its bound (kernels/bounds.py: the larger of its FP32
 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, from this run's segment
-counts and, for the BVH walks, the boxes and leaf triangles their plain versions
-tested, per segment, at the timed shape), `library_ms` null (no PyTorch call
-computes a path trace) and its launches on each path.
+counts and, for the BVH walks (the sorted wavefront's too), the boxes and leaf
+triangles their plain versions tested, per segment, at the timed shape, and for AO
+and direct the rays and any-hit triangles theirs counted), `library_ms` null (no
+PyTorch call computes a path trace, AO or NEE) and its launches on each path.
 """
 
 from __future__ import annotations
@@ -128,6 +157,14 @@ RECOVERY_STEPS = 80
 TARGET_START = 1_000_000
 TARGET_SPP = 64
 JNP_MEAN_REL_MAX = 0.05
+# The spin ahead of each timed run, about 0.1 s at the H100's 1.98 GHz boost clock:
+# longer than the host takes to enqueue the run.
+QUEUE_CYCLES = 200_000_000
+NEW_INTEGRATORS = ("primary", "ao", "ao-pallas", "direct", "direct-pallas", "sorted")
+FULL_SIZE = 512      # the CLI's default width and height
+CLI_SPP = 64         # the CLI's default --spp
+SORTED_CALL_SPP = 8  # render_sorted's samples a call
+SORTED_MAIN_SPP = 64
 GRAD_TIME_CALLS = 20  # launches per timed run of the adjoint kernel (about 0.5 ms each)
 RENDER_KERNELS = ("megakernel", "wavefront", "bvh_megakernel", "wide_bvh")
 VERTEX_SIZE = 64           # examples/train_vertices.py's recovery run
@@ -189,11 +226,22 @@ def downsampled_rel_l2(img: np.ndarray, ref_u8: np.ndarray) -> float:
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
+def queue_behind_spin() -> None:
+    """Keep the stream busy for QUEUE_CYCLES (a spin kernel) so that the host enqueues
+    the work that follows while the card waits: events recorded around that work then
+    time it on the device, back to back, without the host's launch work between the
+    kernels (work that synchronises inside, as the plain versions do, is timed end to
+    end)."""
+    import torch
+
+    torch.cuda._sleep(QUEUE_CYCLES)
+
+
 def cuda_time_ms(fn, warmup, reps: int = 5, calls: int = 1):
-    """Median ms of `fn()` over `reps` runs (CUDA events), after one `warmup()`;
-    returns (ms, the last result). With calls > 1 each run makes that many calls
-    back to back and counts their mean, so that a short kernel's time is not its
-    host-side launch work."""
+    """Median device ms of `fn()` over `reps` runs (CUDA events, each run queued
+    behind a spin kernel: queue_behind_spin), after one `warmup()`; returns (ms, the
+    last result). With calls > 1 each run makes that many calls back to back and
+    counts their mean."""
     import torch
 
     warmup()
@@ -202,6 +250,7 @@ def cuda_time_ms(fn, warmup, reps: int = 5, calls: int = 1):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        queue_behind_spin()
         start.record()
         for _ in range(calls):
             out = fn()
@@ -254,8 +303,7 @@ def phase_checks(tables):
     for case in selfcheck.cases(SMOKE_SIZE, SMOKE_SIZE) + selfcheck.bvh_cases(SMOKE_SIZE,
                                                                                 SMOKE_SIZE):
         r = selfcheck.check_case(case, tables)
-        if case.kernel == "megakernel":  # its loop now takes a path-start functor
-            r["ok"] = r["ok"] and r["bitwise"]
+        r["ok"] = r["ok"] and r["bitwise"]
         report(f"{case.name} {case.n_samples}spp", r, failed)
     for name, fn in (("wavefront k=1 == megakernel (tp0 off), bit for bit",
                       selfcheck.wavefront_k1_equals_megakernel),
@@ -284,6 +332,15 @@ def phase_checks(tables):
         log(f"[check] trace_rays {PROBE_ROWS} rows b4 4spp, {name}: {r}")
         if not r["ok"]:
             failed.append(f"trace_rays {name}")
+    for name, r in selfcheck.fast_integrator_checks(tables, SMOKE_SIZE, SMOKE_SIZE).items():
+        log(f"[check] {name}, Cornell {SMOKE_SIZE}x{SMOKE_SIZE} 4spp: {r}")
+        if not r["ok"]:
+            failed.append(name)
+    for name, r in selfcheck.sorted_checks(tables, SMOKE_SIZE, SMOKE_SIZE).items():
+        log(f"[check] sorted wavefront {name}, leaf {selfcheck.SORTED_LEAF} "
+            f"{SMOKE_SIZE}x{SMOKE_SIZE} b4 2spp: {r}")
+        if not r["ok"]:
+            failed.append(f"sorted {name}")
     r = selfcheck.hybrid_forward_check(tables, TRAIN_SIZE, TRAIN_SIZE, bounces=4,
                                        n_samples=TRAIN_SPP)
     log(f"[check] hybrid make_fast_renderer forward, Cornell {TRAIN_SIZE}x{TRAIN_SIZE} b4 "
@@ -297,8 +354,10 @@ def counters():
     """Each kernel's launch counter: name → (module, attribute)."""
     from oclpathtracer_tpu_torch.kernels import (
         bvh_megakernel,
+        fast_integrators,
         grad_megakernel,
         megakernel,
+        sorted_wavefront,
         wavefront,
         wide_bvh,
     )
@@ -306,7 +365,10 @@ def counters():
     return {"megakernel": (megakernel, "LAUNCHES"), "wavefront": (wavefront, "LAUNCHES"),
             "bvh_megakernel": (bvh_megakernel, "LAUNCHES"), "wide_bvh": (wide_bvh, "LAUNCHES"),
             "grad_megakernel": (grad_megakernel, "LAUNCHES"),
-            "trace_rays": (megakernel, "TRACE_RAYS_LAUNCHES")}
+            "trace_rays": (megakernel, "TRACE_RAYS_LAUNCHES"),
+            "ao": (fast_integrators, "AO_LAUNCHES"),
+            "direct": (fast_integrators, "DIRECT_LAUNCHES"),
+            "sorted_bounce": (sorted_wavefront, "LAUNCHES")}
 
 
 def reset_counts() -> None:
@@ -698,6 +760,70 @@ def phase_vertex(tables):
     return launches
 
 
+def run_cli(argv):
+    """cli.main(argv) with its standard output captured and logged: (rc, the image
+    mean it printed)."""
+    import contextlib
+    import io
+
+    from oclpathtracer_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        log(f"[cli] {line}")
+    mean = float(text.split("mean=")[1].split()[0]) if "mean=" in text else float("nan")
+    return rc, mean
+
+
+def phase_integrators(tables):
+    """The CLI's lower integrator rungs and the sorted wavefront, their own counters."""
+    import torch
+
+    from oclpathtracer_tpu_torch.config import CameraConfig, RenderConfig
+    from oclpathtracer_tpu_torch.kernels.selfcheck import PROCGEN_EYE
+    from oclpathtracer_tpu_torch.kernels.sorted_wavefront import render_sorted
+
+    reset_counts()
+    means = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in NEW_INTEGRATORS:
+            png = os.path.join(tmp, "cli.png")
+            t0 = time.perf_counter()
+            rc, mean = run_cli(["render", "--integrator", name, "--width", str(FULL_SIZE),
+                                "--height", str(FULL_SIZE), "--spp", str(CLI_SPP),
+                                "--bounces", "16", "-o", png])
+            log(f"[integrators] CLI {name} {FULL_SIZE}x{FULL_SIZE} {CLI_SPP}spp b16: "
+                f"{time.perf_counter() - t0:.2f} s, rc {rc}, mean {mean}")
+            require(rc == 0 and os.path.getsize(png) > 0, f"CLI render {name} failed (rc {rc})")
+            require(bool(np.isfinite(mean) and mean > 0.0), f"CLI {name}: mean {mean}")
+            means[name] = mean
+            os.remove(png)
+    cfg = RenderConfig(FULL_SIZE, FULL_SIZE, bounces=16, camera=CameraConfig(eye=PROCGEN_EYE))
+    t0 = time.perf_counter()
+    img = render_sorted(tables.scene("spheres5k"), cfg, SORTED_MAIN_SPP)
+    torch.cuda.synchronize()
+    log(f"[integrators] render_sorted sphere_field() {FULL_SIZE}x{FULL_SIZE} b16 "
+        f"{SORTED_MAIN_SPP}spp: "
+        f"{time.perf_counter() - t0:.2f} s")
+    check_image("render_sorted sphere_field()", img)
+    for kernel, twin in (("ao-pallas", "ao"), ("direct-pallas", "direct")):
+        rel = abs(means[kernel] / means[twin] - 1.0)
+        log(f"[integrators] {kernel} mean {means[kernel]} vs {twin} {means[twin]}: rel {rel:.5f} "
+            f"(limit {JNP_MEAN_REL_MAX})")
+        require(rel < JNP_MEAN_REL_MAX, f"{kernel} mean off {twin}'s by {rel}")
+    launches = read_counts()
+    log(f"[integrators] launches {launches}")
+    # 16 bounce launches a call of 8 spp: the CLI's 64 spp and render_sorted's.
+    calls = -(-CLI_SPP // SORTED_CALL_SPP) - (-SORTED_MAIN_SPP // SORTED_CALL_SPP)
+    want = {"ao": 1, "direct": 1, "sorted_bounce": 16 * calls}
+    require(all(launches[n] == want.get(n, 0) for n in launches),
+            f"the integrator path's launches {launches}, not {want} and no other")
+    return launches
+
+
 def hybrid_step(scene, cfg, lr=1e-3):
     """bench_train.py's hybrid step: value_and_grad of make_fast_loss_fn, plain SGD."""
     from oclpathtracer_tpu_torch.diff import fast, inverse
@@ -887,6 +1013,138 @@ def phase_vertex_timing(tables):
     return rows
 
 
+def phase_fast_timing(tables):
+    """The AO and direct kernels against their plain versions at the CLI's shape
+    (Cornell 512², 64 spp in one launch, from sample TIME_START), held bit for bit;
+    Mrays/s of the rays they cast, counted by the plain version."""
+    import torch
+
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.kernels import fast_integrators as fi
+    from oclpathtracer_tpu_torch.kernels import selfcheck
+
+    cfg = RenderConfig(FULL_SIZE, FULL_SIZE)
+    rows = {}
+    for kind in ("ao", "direct"):
+        counts = fi._new_counts()
+
+        def kern(kind=kind):
+            return selfcheck.run_fast(kind, tables, cfg, TIME_START, MAIN_STEP)
+
+        def plain(kind=kind, counts=counts):
+            return selfcheck.run_fast(kind, tables, cfg, TIME_START, MAIN_STEP, plain=True,
+                                      counts=counts)
+
+        ms, got = cuda_time_ms(kern, kern)
+        plain_ms, want = cuda_time_ms(plain, lambda: None, reps=1)
+        rays = counts["camera"] + counts["rays"]
+        rows[kind] = {"ms": ms, "plain_ms": plain_ms, "spp": MAIN_STEP, "plain_spp": MAIN_STEP,
+                      "rays": rays, "mrays": rays / (ms * 1e3),
+                      "plain_mrays": rays / (plain_ms * 1e3), "counts": counts,
+                      "mean": float(got.mean()) / MAIN_STEP,
+                      "max_abs_err": float((got - want).abs().max()),
+                      "bitwise": bool(torch.equal(got, want))}
+        log(f"[time] {kind} Cornell {FULL_SIZE}x{FULL_SIZE} {MAIN_STEP}spp: kernel {ms:.3f} ms "
+            f"({rows[kind]['mrays']:.1f} Mrays/s of {rays} rays cast, {counts}), plain "
+            f"{plain_ms:.1f} ms ({rows[kind]['plain_mrays']:.3f} Mrays/s); bitwise "
+            f"{rows[kind]['bitwise']} max|diff| {rows[kind]['max_abs_err']:.3g}")
+        require(rows[kind]["bitwise"], f"{kind} kernel vs plain at the CLI's shape: not bitwise")
+    return rows
+
+
+def phase_sorted_timing(tables):
+    """The sorted wavefront at render_sorted's shape (512², 16 bounces, 8 spp a call,
+    leaf 32) on sphere_field() and the Cornell box: its 16 bounce launches alone
+    (median of 5 after a warm-up), whole calls with the sort off and on, and the
+    skip-link kernel at the same samples, whose image and segments it must equal bit
+    for bit; the plain version at 1 spp held bit for bit against the kernel at 1 spp,
+    its walk counted for the bound."""
+    from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
+    from oclpathtracer_tpu_torch.kernels import selfcheck
+    from oclpathtracer_tpu_torch.kernels import sorted_wavefront as sw
+
+    leaf, n = selfcheck.SORTED_LEAF, SORTED_CALL_SPP
+    rows = {}
+    for scene in ("spheres5k", "cornell"):
+        cfg = selfcheck.scene_cfg(scene, FULL_SIZE, FULL_SIZE, 16)
+        tb, nf, ni, _, _ = tables.bvh(scene, "parity", leaf)
+
+        def launches(tb=tb, nf=nf, ni=ni, cfg=cfg):
+            return sw._trace_sorted(sw._bounce_step, tb, nf, ni, cfg, TIME_START, n, False)
+
+        def call(sort, scene=scene, cfg=cfg):
+            return selfcheck.run_sorted(tables, scene, cfg, TIME_START, n, sort)
+
+        def skip(tb=tb, nf=nf, ni=ni, cfg=cfg):
+            return bk.render_samples_bvh_stats(tb, nf, ni, cfg, TIME_START, n, max_leaf=leaf)
+
+        def plain(scene=scene, cfg=cfg):
+            return selfcheck.run_sorted(tables, scene, cfg, TIME_START, 1, plain=True)
+
+        ms, (_, _, segs) = cuda_time_ms(launches, launches)
+        off_ms, got = cuda_time_ms(lambda: call(False), lambda: call(False))
+        on_ms, got_on = cuda_time_ms(lambda: call(True), lambda: call(True))
+        bounce_ms = {f"sort {'on' if sort else 'off'}": bounce_device_ms(tb, nf, ni, cfg, sort)
+                     for sort in (False, True)}
+        skip_ms, ref = cuda_time_ms(skip, skip)
+        same = {"sort off": selfcheck._same(got, ref), "sort on": selfcheck._same(got_on, ref)}
+        bk.WALK_COUNTS.update(boxes=0, tris=0)
+        plain_ms, want = cuda_time_ms(plain, lambda: None, reps=1)
+        walk = dict(bk.WALK_COUNTS)
+        one = selfcheck.run_sorted(tables, scene, cfg, TIME_START, 1)
+        r = selfcheck.compare(*one, *want)
+        segs = int(segs)
+        rows[scene] = {"ms": ms, "launches": cfg.bounces, "segments": segs,
+                       "mrays": segs / (ms * 1e3), "call_ms_sort_off": off_ms,
+                       "call_ms_sort_on": on_ms, "bounce_device_ms": bounce_ms,
+                       "skip_link_ms": skip_ms,
+                       "sorted_over_skip_link": ms / skip_ms, "spp": n, "plain_spp": 1,
+                       "plain_ms": plain_ms, "plain_segments": int(want[1]), "walk": walk,
+                       "rays": cfg.n_pixels * n, "max_abs_err": r["max_abs_err"],
+                       "bitwise": r["bitwise"], "equals_skip_link": same}
+        log(f"[time] sorted wavefront {scene} {FULL_SIZE}x{FULL_SIZE} b16 {n}spp leaf {leaf}: "
+            f"16 bounce launches {ms:.3f} ms ({rows[scene]['mrays']:.1f} Mrays/s, {segs} segments); "
+            f"call sort off {off_ms:.3f} ms, sort on {on_ms:.3f} ms (the bounce kernels' own "
+            f"time in a call {bounce_ms}); skip-link kernel "
+            f"{skip_ms:.3f} ms (launches / skip-link {ms / skip_ms:.3f}); image == skip-link "
+            f"{same}; plain {plain_ms:.1f} ms at 1spp, kernel vs plain at 1spp bitwise "
+            f"{r['bitwise']}")
+        require(all(same.values()) and r["bitwise"],
+                f"sorted wavefront {scene}: not bit for bit ({same}, plain {r})")
+    return rows
+
+
+def bounce_device_ms(tb, nf, ni, cfg, sort: bool) -> float:
+    """The bounce kernels' own device time (ms) in one render_samples_sorted_stats
+    call of SORTED_CALL_SPP samples from TIME_START: events around each launch, the
+    call queued behind a spin, so the sort between launches is left out. Median of
+    3 calls after a warm-up."""
+    import torch
+
+    from oclpathtracer_tpu_torch.kernels import selfcheck
+    from oclpathtracer_tpu_torch.kernels import sorted_wavefront as sw
+
+    def run():
+        marks = []
+
+        def step(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            sw._bounce_step(*args)
+            b.record()
+            marks.append((a, b))
+
+        queue_behind_spin()
+        sw._render_sorted_stats(step, tb, nf, ni, cfg, TIME_START, SORTED_CALL_SPP,
+                                selfcheck.SORTED_LEAF, sort)
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in marks)
+
+    run()
+    return statistics.median(run() for _ in range(3))
+
+
 def profile_device_ms(fn, top: int = 3):
     """Device time of one fn() under torch.profiler: (the sum of the kernels' time
     in ms, the `top` kernels by that time as (name, ms, calls)). Only the kernels'
@@ -1021,6 +1279,20 @@ def kernel_bounds(tables, main_rows) -> dict:
     ptable, _, _ = tables.linear("cornell", "parity")
     out["trace_rays"] = bounds.bound_ms(bounds.linear_ops("parity", n_tris, r["segments"]),
                                         nbytes(ptable) + r["rows"] * (24 + 16))
+    for kind in ("ao", "direct"):
+        r = main_rows[kind]
+        lights = tables.lights("cornell")[0]
+        out[kind] = bounds.bound_ms(
+            bounds.fast_ops(kind, n_tris, r["counts"], lights.shape[0]),
+            nbytes(ptable) + (nbytes(lights) if kind == "direct" else 0)
+            + 12 * FULL_SIZE * FULL_SIZE)
+    r = main_rows["sorted_bounce"]
+    per_seg = r["segments"] / r["plain_segments"]
+    tb, nf, ni, _, _ = tables.bvh("spheres5k", "parity", 32)
+    out["sorted_bounce"] = bounds.bound_ms(
+        bounds.bvh_ops("parity", r["walk"]["boxes"] * per_seg, r["walk"]["tris"] * per_seg,
+                       r["segments"]) + r["rays"] * bounds.CAMERA_OPS,
+        nbytes(tb, nf, ni) + bounds.RAY_STATE_BYTES * (2 * r["segments"] - r["rays"]))
     for name, (ms, by) in out.items():
         log(f"[bound] {name}: {ms:.4f} ms ({by}); kernel {main_rows[name]['ms']:.3f} ms, "
             f"roofline share {ms / main_rows[name]['ms']:.3f}")
@@ -1046,11 +1318,15 @@ def main() -> int:
     log(f"[done] training path at {time.perf_counter() - t0:.1f} s")
     vertex_launches = phase_vertex(tables)
     log(f"[done] vertex path at {time.perf_counter() - t0:.1f} s")
+    integrator_launches = phase_integrators(tables)
+    log(f"[done] integrator path at {time.perf_counter() - t0:.1f} s")
     rows = phase_timing(tables)
     grad_rows = phase_grad_timing(tables)
     train_rows = phase_train_timing(tables)
     rays_row = phase_trace_rays_timing(tables)
     vertex_rows = phase_vertex_timing(tables)
+    fast_rows = phase_fast_timing(tables)
+    sorted_rows = phase_sorted_timing(tables)
     crossover = phase_crossover(tables)
     by_name = {r["name"]: r for r in rows}
     # What the main path runs: the tp megakernel at 4 bounces, the tp wavefront at 16,
@@ -1073,10 +1349,18 @@ def main() -> int:
     sources["grad_megakernel"] = ("grad_megakernel.cu",
                                   "oclpathtracer_tpu/kernels/grad_megakernel.py:455")
     sources["trace_rays"] = ("trace_rays.cu", "oclpathtracer_tpu/kernels/megakernel.py:1139")
+    main_rows.update(ao=fast_rows["ao"], direct=fast_rows["direct"],
+                     sorted_bounce=sorted_rows["spheres5k"])
+    sources["ao"] = ("fast_integrators.cu", "oclpathtracer_tpu/kernels/fast_integrators.py:231")
+    sources["direct"] = ("fast_integrators.cu",
+                         "oclpathtracer_tpu/kernels/fast_integrators.py:351")
+    sources["sorted_bounce"] = ("sorted_wavefront.cu",
+                                "oclpathtracer_tpu/kernels/sorted_wavefront.py:154")
     bounds = kernel_bounds(tables, main_rows)
     # Each path is counted in its own window (counts set to 0 just before it):
-    # `launches` sums the render, training and vertex paths' counts.
-    paths = {"render": launches, "train": train_launches, "vertex": vertex_launches}
+    # `launches` sums the render, training, vertex and integrator paths' counts.
+    paths = {"render": launches, "train": train_launches, "vertex": vertex_launches,
+             "integrators": integrator_launches}
     kernels = []
     for name, (src, tpu) in sources.items():
         row = main_rows[name]
@@ -1093,6 +1377,7 @@ def main() -> int:
     print(card)  # nvidia-smi's name and power limit, as it gives them
     print(json.dumps({"timing": rows, "grad_timing": grad_rows, "train_timing": train_rows,
                       "trace_rays_timing": rays_row, "vertex_timing": vertex_rows,
+                      "fast_timing": fast_rows, "sorted_timing": sorted_rows,
                       "crossover": crossover}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

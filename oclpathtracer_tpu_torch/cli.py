@@ -6,11 +6,13 @@ Counterpart of `oclpathtracer_tpu.cli`, with the same commands and flags:
   render               progressive render → PPM/PNG
   bench                not ported yet (ROADMAP queue 1 item 8)
 
-`render --integrator pallas|wavefront|bvh|widebvh` run the ported kernels on the
-Cornell box, as the JAX CLI does, and `--integrator path` the batched torch
-integrator on threefry streams keyed by `--seed`; the other choices, and a non-zero
-`--scan-chunks` (a scheduling knob of the JAX package's kernels), exit 2 with "not
-yet ported".
+`render --integrator` takes every choice of the JAX CLI, on the Cornell box, with
+the JAX CLI's calls: `pallas`, `wavefront`, `bvh`, `widebvh` and `sorted` (8 spp a
+call) run the path-trace kernels; `ao-pallas` and `direct-pallas` the AO and
+direct-NEE kernels, all `--spp` samples in one launch; `path`, `ao` and `direct`
+the batched torch integrators on threefry streams keyed by `--seed`; `primary` the
+centred primary cast. A non-zero `--scan-chunks` (a scheduling knob of the JAX
+package's kernels) exits 2.
 
 `render --device` is where the render runs, a deployment setting: the JAX CLI takes
 it from JAX's platform setting (`JAX_PLATFORMS`), and torch has no such global.
@@ -27,7 +29,6 @@ import time
 
 INTEGRATORS = ["pallas", "wavefront", "bvh", "widebvh", "sorted", "path", "primary",
                "ao", "ao-pallas", "direct", "direct-pallas"]
-PORTED_INTEGRATORS = ("pallas", "wavefront", "bvh", "widebvh", "path")
 
 
 def _cmd_info(args) -> int:
@@ -51,10 +52,6 @@ def _cmd_render(args) -> int:
     from oclpathtracer_tpu_torch.render.image import write_png, write_ppm
     from oclpathtracer_tpu_torch.scene import load_cornell_box
 
-    if args.integrator not in PORTED_INTEGRATORS:
-        print(f"integrator {args.integrator!r}: not yet ported "
-              f"(ported: {', '.join(PORTED_INTEGRATORS)})", file=sys.stderr)
-        return 2
     if args.scan_chunks:
         print("--scan-chunks: not yet ported (the kernels here have no such knob; "
               "pass 0)", file=sys.stderr)
@@ -98,11 +95,41 @@ def _cmd_render(args) -> int:
         img = render_progressive(scene, cfg, args.spp, samples_per_step=min(args.spp, 16),
                                  checkpoint_path=args.checkpoint,
                                  checkpoint_every=args.checkpoint_every)
-    else:
+    elif args.integrator == "widebvh":
         from oclpathtracer_tpu_torch.render.driver import render_progressive
 
         img = render_progressive(scene, cfg, args.spp, samples_per_step=min(args.spp, 64),
                                  backend="widebvh", scan=args.scan)
+    elif args.integrator == "sorted":
+        from oclpathtracer_tpu_torch.kernels.sorted_wavefront import render_sorted
+
+        img = render_sorted(scene, cfg, args.spp, samples_per_call=min(args.spp, 8))
+    elif args.integrator == "ao":
+        from oclpathtracer_tpu_torch.core import rng
+        from oclpathtracer_tpu_torch.integrators.ao import render_ao
+
+        img = render_ao(scene, cfg, rng.make_key(cfg.seed, device), spp=args.spp)
+    elif args.integrator == "ao-pallas":
+        from oclpathtracer_tpu_torch.kernels.fast_integrators import render_ao_pallas
+        from oclpathtracer_tpu_torch.kernels.megakernel import pack_scene
+
+        img = render_ao_pallas(pack_scene(scene), cfg, 0, args.spp) / args.spp
+    elif args.integrator == "direct-pallas":
+        from oclpathtracer_tpu_torch.kernels.fast_integrators import (
+            pack_lights, render_direct_pallas)
+        from oclpathtracer_tpu_torch.kernels.megakernel import pack_scene
+
+        lt, area = pack_lights(scene)
+        img = render_direct_pallas(pack_scene(scene), lt, area, cfg, 0, args.spp) / args.spp
+    elif args.integrator == "direct":
+        from oclpathtracer_tpu_torch.core import rng
+        from oclpathtracer_tpu_torch.integrators.direct import render_direct
+
+        img = render_direct(scene, cfg, rng.make_key(cfg.seed, device), spp=args.spp)
+    else:
+        from oclpathtracer_tpu_torch.integrators.primary import render_primary
+
+        img = render_primary(scene, cfg)
     img = img.cpu().numpy()
     dt = time.perf_counter() - t0
     if profiler is not None:

@@ -80,3 +80,13 @@ def intersect_world(o: torch.Tensor, d: torch.Tensor, geom: Geometry,
     point = o + d * t[:, None]
     return HitRecord(hit=hit, t=t, point=point, normal=nrm, tri_idx=tri,
                      mat_id=geom.mat_id[tri])
+
+
+def occluded(o: torch.Tensor, d: torch.Tensor, geom: Geometry, t_max) -> torch.Tensor:
+    """Any-hit query for shadow rays (N,) bool. `t_max` may be scalar or (N,).
+
+    Not present in the reference (no NEE); uses the same cull semantics so shadow
+    tests agree with what the camera can see."""
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+    valid, _ = intersect_tris(o, d, geom, torch.broadcast_to(t_max, (o.shape[0],))[:, None])
+    return valid.any(dim=-1)

@@ -12,6 +12,14 @@ as two, and the kernels are built with -fmad=false, so the bound is optimistic b
 to 2×: a lower bound either way. The shading count is that of a hit (a miss does
 less), which overstates at most about 10 % of a segment's operations at the Cornell
 box's 36 triangles, where the scan dominates.
+
+The AO and direct kernels (csrc/fast_integrators.cu) are counted as they cast rays:
+every camera ray with its full scan, and the second ray (AO's cosine ray, direct's
+shadow ray) only where the kernel casts it, its any-hit scan up to and including
+the first blocker; the plain versions count these at the timed shape. The sorted
+wavefront's bounce kernel is counted as the skip-link walk (`bvh_ops`, parity), the
+camera of each ray on the first launch, and RAY_STATE_BYTES written per live ray
+per launch and read per live ray per launch after the first.
 """
 
 from __future__ import annotations
@@ -33,6 +41,23 @@ SHADE_OPS = 216
 # t_far >= max(t_near, 0) test) plus the nearer-than-best test; 1/d once a segment.
 BOX_OPS = 25
 INV_DIR_OPS = 9
+# trace.cuh camera_path: two draws' conversions, the jitter, the screen coordinates,
+# the direction and its normalize.
+CAMERA_OPS = 42
+# fast_integrators.cu. AO at a hit: the flipped normal, two draws, cosine_dir, the
+# hit point and the offset origin. Direct at a hit: the flipped normal, hit point,
+# emission, three draws, the point on the light, the direction, distance and
+# cosines (plus one compare a light); a shadow ray cast: its origin and t_max; an
+# unblocked one: the diffuse lobe's BRDF (the specular lobe adds about 40), the
+# geometry term and the radiance update.
+AO_RAY_OPS = 88
+DIRECT_HIT_OPS = 76
+SHADOW_RAY_OPS = 8
+DIRECT_LIT_OPS = 22
+# sorted_wavefront.cu: o, d, mask, rad (12 bytes each), live and rng (4 each) of a
+# live ray, written by each launch and read by each but the first (which starts
+# the rays from the camera).
+RAY_STATE_BYTES = 56
 # grad_megakernel.cu, per segment with gradients: 7, plus 21 per material class.
 ADJOINT_SEG_OPS = 7
 ADJOINT_CLASS_OPS = 21
@@ -70,3 +95,15 @@ def bvh_ops(scan: str, boxes: float, tris: float, segments: int, n_classes: int 
 def adjoint_ops(n_classes: int, segments: int) -> float:
     """The adjoint kernel's FP32 operations beyond its forward."""
     return segments * (ADJOINT_SEG_OPS + ADJOINT_CLASS_OPS * n_classes)
+
+
+def fast_ops(kind: str, n_tris: int, counts: dict, n_lights: int = 0) -> float:
+    """FP32 operations of the AO ("ao") or direct ("direct") kernel for the work the
+    plain version counted (fast_integrators._new_counts): every camera ray scans every
+    triangle, and the second rays test `tris` triangles in all."""
+    per_camera = CAMERA_OPS + 1 + TRI_OPS["parity"] * n_tris + (1 if kind == "ao" else 3)
+    ops = counts["camera"] * per_camera + counts["tris"] * TRI_OPS["parity"]
+    if kind == "ao":
+        return ops + counts["rays"] * AO_RAY_OPS
+    return (ops + counts["hits"] * (DIRECT_HIT_OPS + n_lights)
+            + counts["rays"] * SHADOW_RAY_OPS + counts["lit"] * DIRECT_LIT_OPS)

@@ -191,10 +191,10 @@ static __device__ __forceinline__ bool inside3(float unum, float vnum, float det
 }
 
 // Parity (megakernel.py tri_body): the reference's Möller–Trumbore with its
-// per-triangle divide, u <= 1 tested, the backface cull det >= 1e-8, and a
-// strict t < best_t in table order.
-static __device__ __forceinline__ void test_parity(const float* r, int j, float3 o, float3 d,
-                                                   Best& b) {
+// per-triangle divide, u <= 1 tested and the backface cull det >= 1e-8. Returns
+// whether the triangle is met in front of the origin, and its t.
+static __device__ __forceinline__ bool parity_candidate(const float* r, float3 o, float3 d,
+                                                        float& t) {
   float3 p1 = row3(r, 0), e1 = row3(r, 3), e2 = row3(r, 6);
   float3 pvec = cross3(d, e2);
   float det = dot3(e1, pvec);
@@ -204,9 +204,15 @@ static __device__ __forceinline__ void test_parity(const float* r, int j, float3
   float u = dot3(tvec, pvec) * inv_det;
   float3 qvec = cross3(tvec, e1);
   float v = dot3(d, qvec) * inv_det;
-  float t = dot3(e2, qvec) * inv_det;
-  if (front && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
-      t < b.num) {
+  t = dot3(e2, qvec) * inv_det;
+  return front && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f;
+}
+
+// The parity candidate ordered by a strict t < best_t in table order.
+static __device__ __forceinline__ void test_parity(const float* r, int j, float3 o, float3 d,
+                                                   Best& b) {
+  float t;
+  if (parity_candidate(r, o, d, t) && t < b.num) {
     b.num = t;
     b.idx = j;
   }
@@ -404,38 +410,59 @@ struct Lobe {
   float pdf, q;
 };
 
+// The normal flipped against the ray (GenerateColors.cl:243).
+static __device__ __forceinline__ float3 face_forward(float3 n, float3 d) {
+  return dot3(n, d) < 0.0f ? n : neg3(n);
+}
+
+// Tangent frame (ss, tt) completing n (GenerateColors.cl:167-169).
+static __device__ __forceinline__ void tangent_frame(float3 n, float3& ss, float3& tt) {
+  bool use_y = fabsf(n.x) > 0.001f;
+  float3 axis = use_y ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+  tt = normalize3(cross3(axis, n));
+  ss = cross3(n, tt);
+}
+
+// normalize(ss cos(phi) sin(theta) + tt sin(phi) sin(theta) + n cos(theta)).
+static __device__ __forceinline__ float3 compose_dir(float3 ss, float3 tt, float3 n, float cphi,
+                                                     float sphi, float sin_t, float cos_t) {
+  return normalize3(
+      add3(add3(scale3(ss, cphi * sin_t), scale3(tt, sphi * sin_t)), scale3(n, cos_t)));
+}
+
+// The cosine-weighted hemisphere direction about n from the draws (phi, sin^2
+// theta) (GenerateColors.cl:161-172): sample_lobe's diffuse lobe.
+static __device__ __forceinline__ float3 cosine_dir(float3 n, float ud1, float ud2) {
+  float3 ss, tt;
+  tangent_frame(n, ss, tt);
+  float phi = TWO_PI * ud1;
+  return compose_dir(ss, tt, n, cosf(phi), sinf(phi), sqrtf(ud2), sqrtf(1.0f - ud2));
+}
+
 static __device__ __forceinline__ Lobe sample_lobe(float3 d, const Hit& h, uint32_t& rng) {
   Lobe l;
-  // flip the normal against the ray (GenerateColors.cl:243)
-  float3 n = dot3(h.n, d) < 0.0f ? h.n : neg3(h.n);
+  float3 n = face_forward(h.n, d);
   float3 wo = neg3(d);
 
   float ud1 = next_float(rng);  // phi
   float ud2 = next_float(rng);  // xi
 
-  // tangent frame (GenerateColors.cl:167-169)
-  bool use_y = fabsf(n.x) > 0.001f;
-  float3 axis = use_y ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
-  float3 tt = normalize3(cross3(axis, n));
-  float3 ss = cross3(n, tt);
+  float3 ss, tt;
+  tangent_frame(n, ss, tt);
 
   float phi = TWO_PI * ud1;
   float cphi = cosf(phi);
   float sphi = sinf(phi);
 
   // diffuse lobe (GenerateColors.cl:161-172, 197-204)
-  float sin_d = sqrtf(ud2);
-  float cos_d = sqrtf(1.0f - ud2);
-  float3 wi_d = normalize3(
-      add3(add3(scale3(ss, cphi * sin_d), scale3(tt, sphi * sin_d)), scale3(n, cos_d)));
+  float3 wi_d = compose_dir(ss, tt, n, cphi, sphi, sqrtf(ud2), sqrtf(1.0f - ud2));
   float pdf_d = dot3(wi_d, n) * INV_PI;
 
   // specular GGX lobe (GenerateColors.cl:174-192, 205-218)
   float r2 = h.rough * h.rough;
   float cos_h = sqrtf((1.0f - ud2) / fmaxf(ud2 * (r2 - 1.0f) + 1.0f, 1e-12f));
   float sin_h = sqrtf(fmaxf(0.0f, 1.0f - cos_h * cos_h));
-  float3 wh = normalize3(
-      add3(add3(scale3(ss, cphi * sin_h), scale3(tt, sphi * sin_h)), scale3(n, cos_h)));
+  float3 wh = compose_dir(ss, tt, n, cphi, sphi, sin_h, cos_h);
   float3 wi_s = add3(neg3(wo), scale3(wh, 2.0f * dot3(wo, wh)));
   bool same_hemi = dot3(wi_s, n) * dot3(wo, n) >= 0.0f;
   float denom_ndf = cos_h * cos_h * (r2 - 1.0f) + 1.0f;

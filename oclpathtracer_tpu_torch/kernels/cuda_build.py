@@ -27,7 +27,8 @@ from typing import NamedTuple
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(__file__), "build")
 SOURCES = ("megakernel.cu", "wavefront.cu", "bvh_megakernel.cu", "wide_bvh.cu",
-           "grad_megakernel.cu", "trace_rays.cu")
+           "grad_megakernel.cu", "trace_rays.cu", "fast_integrators.cu",
+           "sorted_wavefront.cu")
 HEADERS = ("trace.cuh", "bvh.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,6 +42,10 @@ LAUNCHERS = {
     "opt_wide_bvh_launch": (3, 2),         # table, wn_f, wn_i -> out, segs
     "opt_grad_megakernel_launch": (3, 3),  # table, classes, weight -> out, segs, partials
     "opt_trace_rays_launch": (3, 2),       # table, o, d -> out, segs
+    "opt_ao_launch": (1, 1),               # table -> out
+    "opt_direct_launch": (2, 1),           # table, light table -> out
+    # table, nodes_f, nodes_i -> the ray state in place (o, d, mask, rad, live, rng), segs
+    "opt_sorted_bounce_launch": (3, 7),
 }
 
 

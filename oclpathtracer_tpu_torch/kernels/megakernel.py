@@ -593,39 +593,51 @@ def _scan_tp0(ps: _PlainScene, d):
     return _decode(ps, best)
 
 
-def _sample_lobe(state, d, bn, brough, bmty):
-    """The sampled BRDF lobe at the hits (csrc/trace.cuh sample_lobe): (state, n, wi,
-    pdf, q), with n the normal flipped against the ray and q the albedo-free part of
-    the BRDF (f = albedo * q): 1/pi diffuse, the GGX term specular, 0 where wi leaves
-    the hemisphere."""
-    n = _where3(_dot3(bn, d) < 0.0, bn, _neg3(bn))
-    wo = _neg3(d)
+def _face_forward(n, d):
+    """The normal flipped against the ray (csrc/trace.cuh face_forward)."""
+    return _where3(_dot3(n, d) < 0.0, n, _neg3(n))
 
-    state, ud1 = krng.next_float(state)
-    state, ud2 = krng.next_float(state)
 
+def _tangent_frame(n):
+    """(ss, tt) completing n (csrc/trace.cuh tangent_frame)."""
     use_y = torch.abs(n[0]) > 0.001
     one = torch.ones_like(n[0])
     zero = torch.zeros_like(n[0])
     axis = _where3(use_y, (zero, one, zero), (one, zero, zero))
     tt = _normalize3(_cross3(axis, n))
-    ss = _cross3(n, tt)
+    return _cross3(n, tt), tt
+
+
+def _compose_dir(ss, tt, n, cphi, sphi, sin_t, cos_t):
+    """csrc/trace.cuh compose_dir."""
+    return _normalize3(_add3(_add3(_scale3(ss, cphi * sin_t), _scale3(tt, sphi * sin_t)),
+                             _scale3(n, cos_t)))
+
+
+def _sample_lobe(state, d, bn, brough, bmty):
+    """The sampled BRDF lobe at the hits (csrc/trace.cuh sample_lobe): (state, n, wi,
+    pdf, q), with n the normal flipped against the ray and q the albedo-free part of
+    the BRDF (f = albedo * q): 1/pi diffuse, the GGX term specular, 0 where wi leaves
+    the hemisphere."""
+    n = _face_forward(bn, d)
+    wo = _neg3(d)
+
+    state, ud1 = krng.next_float(state)
+    state, ud2 = krng.next_float(state)
+
+    ss, tt = _tangent_frame(n)
 
     phi = TWO_PI * ud1
     cphi = torch.cos(phi)
     sphi = torch.sin(phi)
 
-    sin_d = torch.sqrt(ud2)
-    cos_d = torch.sqrt(1.0 - ud2)
-    wi_d = _normalize3(_add3(_add3(_scale3(ss, cphi * sin_d), _scale3(tt, sphi * sin_d)),
-                             _scale3(n, cos_d)))
+    wi_d = _compose_dir(ss, tt, n, cphi, sphi, torch.sqrt(ud2), torch.sqrt(1.0 - ud2))
     pdf_d = _dot3(wi_d, n) * INV_PI
 
     r2 = brough * brough
     cos_h = torch.sqrt((1.0 - ud2) / torch.clamp(ud2 * (r2 - 1.0) + 1.0, min=1e-12))
     sin_h = torch.sqrt(torch.clamp(1.0 - cos_h * cos_h, min=0.0))
-    wh = _normalize3(_add3(_add3(_scale3(ss, cphi * sin_h), _scale3(tt, sphi * sin_h)),
-                           _scale3(n, cos_h)))
+    wh = _compose_dir(ss, tt, n, cphi, sphi, sin_h, cos_h)
     wi_s = _add3(_neg3(wo), _scale3(wh, 2.0 * _dot3(wo, wh)))
     same_hemi = _dot3(wi_s, n) * _dot3(wo, n) >= 0.0
     denom_ndf = cos_h * cos_h * (r2 - 1.0) + 1.0

@@ -14,7 +14,10 @@ largest entry (see compare_grads).
 
 The arbitrary-ray kernel (trace_rays_checks) is held to its plain version bit for
 bit, images and segments, in each scan form, as is a rerun and a table read from
-global memory.
+global memory. So are the AO and direct-NEE kernels (fast_integrator_checks), on
+the whole image, a ragged pixel range and a table in global memory, and the sorted
+wavefront (sorted_checks), which must also give the skip-link kernel's image and
+segments bit for bit, with its sort on and off.
 
 Scenes: the Cornell box with its own camera; sphere_field(3, 1, seed=2) (244
 triangles, tp-capable), sphere_field() (5,124 triangles, 18 material classes, so
@@ -34,8 +37,10 @@ import torch
 
 from oclpathtracer_tpu_torch.config import CameraConfig, RenderConfig
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
+from oclpathtracer_tpu_torch.kernels import fast_integrators as fi
 from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
+from oclpathtracer_tpu_torch.kernels import sorted_wavefront as sw
 from oclpathtracer_tpu_torch.kernels import wavefront as wf
 from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
 from oclpathtracer_tpu_torch.scene import load_cornell_box
@@ -74,13 +79,17 @@ class Case:
 
     @property
     def cfg(self) -> RenderConfig:
-        cam = CameraConfig() if self.scene == "cornell" else CameraConfig(eye=PROCGEN_EYE)
-        return RenderConfig(width=self.width, height=self.height, bounces=self.bounces,
-                            camera=cam)
+        return scene_cfg(self.scene, self.width, self.height, self.bounces)
 
     @property
     def n_samples(self) -> int:
         return N_SAMPLES if self.kernel in ("megakernel", "wavefront") else BVH_SAMPLES
+
+
+def scene_cfg(scene: str, width: int, height: int, bounces: int) -> RenderConfig:
+    """The scene's render config: the Cornell box's own camera, else PROCGEN_EYE."""
+    cam = CameraConfig() if scene == "cornell" else CameraConfig(eye=PROCGEN_EYE)
+    return RenderConfig(width=width, height=height, bounces=bounces, camera=cam)
 
 
 def cases(width: int, height: int, ragged=(100, 77)) -> list:
@@ -137,6 +146,11 @@ class Tables:
         return table, emi, classes
 
     @functools.lru_cache(maxsize=None)
+    def lights(self, name: str):
+        """(light_table, total_area) of pack_lights."""
+        return fi.pack_lights(self.scene(name))
+
+    @functools.lru_cache(maxsize=None)
     def grad(self, name: str):
         """(table, class_table, n_classes, mat_class) of prepare_grad_scene."""
         return gk.prepare_grad_scene(self.scene(name))
@@ -190,6 +204,15 @@ def run(case: Case, tables: Tables, plain: bool = False, start: int = START_SAMP
     return wb.render_samples_wide_bvh_stats(table, wn_f, wn_i, cfg, start, n,
                                             max_leaf=case.leaf, max_depth=depth,
                                             scan=case.scan, emi_const=emi, classes=classes)
+
+
+def padded_past_shared(table: torch.Tensor) -> torch.Tensor:
+    """The table with zero rows (never hit) appended until the linear kernels read it
+    from global memory instead of shared memory."""
+    rows = mk.SMEM_TABLE_MAX_BYTES // (4 * mk.TABLE_COLS) + 1 - table.shape[0]
+    big = torch.cat([table, torch.zeros((rows, mk.TABLE_COLS), device=table.device)])
+    assert mk.table_in_shared(table) and not mk.table_in_shared(big)
+    return big
 
 
 def compare(img_k, segs_k, img_p, segs_p) -> dict:
@@ -251,9 +274,7 @@ def global_table_matches_shared(tables: Tables, width, height) -> dict:
     out = {}
     for scan in ("parity", "fast", "tp"):
         table, emi, classes = tables.linear("cornell", scan)
-        rows = mk.SMEM_TABLE_MAX_BYTES // (4 * mk.TABLE_COLS) + 1 - table.shape[0]
-        big = torch.cat([table, torch.zeros((rows, mk.TABLE_COLS), device=table.device)])
-        assert mk.table_in_shared(table) and not mk.table_in_shared(big)
+        big = padded_past_shared(table)
         cfg = RenderConfig(width=width, height=height, bounces=4)
         for kernel, fn in (("megakernel", mk.render_samples_pallas_stats),
                            ("wavefront", wf.render_samples_wavefront_stats)):
@@ -491,10 +512,89 @@ def trace_rays_checks(tables: Tables, n_rows: int, bounces: int = 4, n_samples: 
     first = run_trace_rays(tables, "parity", o, d, cfg, n_samples)
     again = run_trace_rays(tables, "parity", o, d, cfg, n_samples)
     out["rerun, same bits"] = {"ok": _same(first, again)}
-    table, _, _ = tables.linear("cornell", "parity")
-    rows = mk.SMEM_TABLE_MAX_BYTES // (4 * mk.TABLE_COLS) + 1 - table.shape[0]
-    big = torch.cat([table, torch.zeros((rows, mk.TABLE_COLS), device=table.device)])
-    assert mk.table_in_shared(table) and not mk.table_in_shared(big)
+    big = padded_past_shared(tables.linear("cornell", "parity")[0])
     far = run_trace_rays(tables, "parity", o, d, cfg, n_samples, table=big)
     out["table in global memory, same bits"] = {"ok": _same(far, first)}
+    return out
+
+
+# ---- the AO and direct-NEE kernels (kernels/fast_integrators.py) ----------------
+
+def run_fast(kind: str, tables: Tables, cfg: RenderConfig, start: int, n: int,
+             plain: bool = False, pid_base: int = 0, n_rays: int | None = None, table=None,
+             counts: dict | None = None):
+    """The (n_rays, 3) SUM of the AO ("ao") or direct ("direct") kernel, or of its
+    plain version (which adds to `counts`), on the Cornell box's parity table (or on
+    `table`)."""
+    own, _, _ = tables.linear("cornell", "parity")
+    table = own if table is None else table
+    kw = dict(pid_base=pid_base, n_rays=n_rays)
+    if kind == "ao":
+        if plain:
+            return fi._render_ao_plain(table, cfg, start, n, counts=counts, **kw)
+        return fi.render_ao_pallas(table, cfg, start, n, **kw)
+    lt, area = tables.lights("cornell")
+    if plain:
+        return fi._render_direct_plain(table, lt, area, cfg, start, n, counts=counts, **kw)
+    return fi.render_direct_pallas(table, lt, area, cfg, start, n, **kw)
+
+
+def fast_integrator_checks(tables: Tables, width, height, n_samples: int = 4) -> dict:
+    """The AO and direct kernels on the Cornell box, bit for bit: against their plain
+    versions on the whole image; on pixels [1000, 1000 + 5001) (a ragged count from a
+    pid_base), against the plain version and against the whole image's rows; with the
+    table padded past shared memory (read from global memory), the same bits."""
+    cfg = RenderConfig(width=width, height=height)
+    out = {}
+    for kind in ("ao", "direct"):
+        full = run_fast(kind, tables, cfg, START_SAMPLE, n_samples)
+        torch.cuda.synchronize()
+        want = run_fast(kind, tables, cfg, START_SAMPLE, n_samples, plain=True)
+        out[f"{kind} kernel vs plain"] = {
+            "ok": bool(torch.equal(full, want)),
+            "max_abs_err": float((full - want).abs().max()),
+            "mean": float(full.mean()) / n_samples}
+        part = run_fast(kind, tables, cfg, START_SAMPLE, n_samples, pid_base=1000, n_rays=5001)
+        part_p = run_fast(kind, tables, cfg, START_SAMPLE, n_samples, plain=True,
+                          pid_base=1000, n_rays=5001)
+        out[f"{kind} pid_base 1000 n_rays 5001 vs plain and vs the image's rows"] = {
+            "ok": bool(torch.equal(part, part_p) and torch.equal(part, full[1000:6001]))}
+        big = padded_past_shared(tables.linear("cornell", "parity")[0])
+        far = run_fast(kind, tables, cfg, START_SAMPLE, n_samples, table=big)
+        out[f"{kind} table in global memory, same bits"] = {"ok": bool(torch.equal(far, full))}
+    return out
+
+
+# ---- the sorted wavefront (kernels/sorted_wavefront.py) -------------------------
+
+SORTED_LEAF = 32  # render_sorted's
+
+
+def run_sorted(tables: Tables, scene: str, cfg: RenderConfig, start: int, n: int,
+               sort: bool = False, plain: bool = False):
+    """(img, segments) of the sorted wavefront (bounce kernel or its plain version)
+    on the scene's parity BVH tables at leaf SORTED_LEAF."""
+    tb, nf, ni, _, _ = tables.bvh(scene, "parity", SORTED_LEAF)
+    fn = sw._render_samples_sorted_stats_plain if plain else sw.render_samples_sorted_stats
+    return fn(tb, nf, ni, cfg, start, n, max_leaf=SORTED_LEAF, sort=sort)
+
+
+def sorted_checks(tables: Tables, width, height, bounces: int = 4, n_samples: int = 2) -> dict:
+    """The sorted wavefront on the Cornell box and sphere_field(), sort off and on, bit
+    for bit (images and segments) against its plain version and against the skip-link
+    kernel (parity, the same leaf)."""
+    out = {}
+    for scene in ("cornell", "spheres5k"):
+        cfg = scene_cfg(scene, width, height, bounces)
+        tb, nf, ni, _, _ = tables.bvh(scene, "parity", SORTED_LEAF)
+        ref = bk.render_samples_bvh_stats(tb, nf, ni, cfg, START_SAMPLE, n_samples,
+                                          max_leaf=SORTED_LEAF)
+        for sort in (False, True):
+            got = run_sorted(tables, scene, cfg, START_SAMPLE, n_samples, sort)
+            torch.cuda.synchronize()
+            want = run_sorted(tables, scene, cfg, START_SAMPLE, n_samples, sort, plain=True)
+            out[f"{scene} sort={sort} kernel vs plain"] = {
+                "ok": _same(got, want), "segments": int(got[1]),
+                "max_abs_err": float((got[0] - want[0]).abs().max())}
+            out[f"{scene} sort={sort} vs the skip-link kernel"] = {"ok": _same(got, ref)}
     return out

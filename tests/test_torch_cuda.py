@@ -190,3 +190,47 @@ def test_vertex_step_launches_the_megakernel_twice_and_trace_rays_four_times(cud
     assert (mk.LAUNCHES - before[0], mk.TRACE_RAYS_LAUNCHES - before[1]) == (2, 4)
     assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v).all())
                                               for v in params.vertices)
+
+
+# ---- the AO, direct-NEE and sorted-wavefront kernels ------------------------------
+
+@pytest.fixture(scope="module")
+def fast_results(cuda_tables):
+    return selfcheck.fast_integrator_checks(cuda_tables, 96, 80, n_samples=2)
+
+
+@pytest.mark.parametrize("check", ["kernel vs plain", "pid_base 1000 n_rays 5001 vs plain and "
+                                   "vs the image's rows", "table in global memory, same bits"])
+@pytest.mark.parametrize("kind", ["ao", "direct"])
+def test_fast_integrator_kernels_are_their_plain_versions_bitwise(fast_results, kind, check):
+    result = fast_results[f"{kind} {check}"]
+    assert result["ok"], result
+
+
+@pytest.fixture(scope="module")
+def sorted_results(cuda_tables):
+    return selfcheck.sorted_checks(cuda_tables, SIZE, SIZE, bounces=4, n_samples=2)
+
+
+@pytest.mark.parametrize("check", ["kernel vs plain", "vs the skip-link kernel"])
+@pytest.mark.parametrize("sort", [False, True])
+@pytest.mark.parametrize("scene", ["cornell", "spheres5k"])
+def test_sorted_wavefront_kernel_is_bitwise(sorted_results, scene, sort, check):
+    result = sorted_results[f"{scene} sort={sort} {check}"]
+    assert result["ok"], result
+
+
+def test_integrator_wrappers_launch_their_kernels_once(cuda_tables):
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.kernels import fast_integrators as fi
+    from oclpathtracer_tpu_torch.kernels import sorted_wavefront as sw
+
+    cfg = RenderConfig(width=32, height=32, bounces=3)
+    before = (fi.AO_LAUNCHES, fi.DIRECT_LAUNCHES, sw.LAUNCHES)
+    for kind in ("ao", "direct"):
+        img = selfcheck.run_fast(kind, cuda_tables, cfg, 0, 4)
+        assert img.shape == (cfg.n_pixels, 3) and bool(torch.isfinite(img).all())
+    img = sw.render_sorted(cuda_tables.scene("cornell"), cfg, 4)
+    assert bool(torch.isfinite(img).all()) and img.device.type == "cuda"
+    assert (fi.AO_LAUNCHES - before[0], fi.DIRECT_LAUNCHES - before[1],
+            sw.LAUNCHES - before[2]) == (1, 1, 3)

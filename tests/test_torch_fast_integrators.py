@@ -1,0 +1,146 @@
+"""The AO and direct-NEE kernels' plain PyTorch versions (kernels 5 and 6) against
+the JAX package: its Pallas kernels in interpret mode and its twins.
+
+On CPU tensors `render_ao_pallas` and `render_direct_pallas` run the plain versions;
+the CUDA kernels are held against them on the card (tests/test_torch_cuda.py,
+chip_smoke.py). Tolerances are the JAX package's for its kernels against their twins
+(tests/test_kernels.py): 1e-5 for AO, 1e-4 for direct, whose kernel clamps the BRDF
+denominator after the ×4 where the twin's eval_brdf clamps before it.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from oclpathtracer_tpu import RenderConfig as JCfg
+from oclpathtracer_tpu.integrators.ao import render_ao_sample_ref as jao_ref
+from oclpathtracer_tpu.integrators.direct import render_direct_sample_ref as jdirect_ref
+from oclpathtracer_tpu.kernels import fast_integrators as jfi
+from oclpathtracer_tpu.kernels.megakernel import pack_scene as jpack_scene
+from oclpathtracer_tpu_torch.config import RenderConfig
+from oclpathtracer_tpu_torch.convert import scene_from_numpy
+from oclpathtracer_tpu_torch.integrators import ao, direct
+from oclpathtracer_tpu_torch.kernels import fast_integrators as fi
+from oclpathtracer_tpu_torch.kernels import megakernel as mk
+
+torch.set_num_threads(1)
+
+TOL = {"ao": dict(rtol=1e-5, atol=1e-5), "direct": dict(rtol=1e-4, atol=1e-4)}
+
+
+@pytest.fixture(scope="module")
+def port_scene(scene):
+    return scene_from_numpy(*[[np.asarray(x) for x in part] for part in scene], device="cpu")
+
+
+@pytest.fixture(scope="module")
+def tables(port_scene):
+    lt, area = fi.pack_lights(port_scene)
+    return mk.pack_scene(port_scene), lt, area
+
+
+def _port(kind, tables, cfg, start, n, **kw):
+    table, lt, area = tables
+    if kind == "ao":
+        return fi.render_ao_pallas(table, cfg, start, n, **kw).numpy()
+    return fi.render_direct_pallas(table, lt, area, cfg, start, n, **kw).numpy()
+
+
+def test_pack_lights_matches_jax_bitwise(scene, port_scene):
+    lt, area = fi.pack_lights(port_scene)
+    jlt, jarea = jfi.pack_lights(scene)
+    assert lt.dtype == torch.float32 and lt.shape == (jlt.shape[0], fi.LIGHT_COLS)
+    assert np.array_equal(lt.numpy(), np.asarray(jlt))
+    assert isinstance(area, np.float32) and area == jarea
+
+
+def test_ao_plain_matches_jax_interpret_kernel(scene, tables):
+    """32×32 (one JAX block), 1 spp: the JAX Pallas kernel in interpret mode."""
+    want = np.asarray(jfi.render_ao_pallas(jpack_scene(scene), JCfg(width=32, height=32), 0, 1))
+    got = _port("ao", tables, RenderConfig(width=32, height=32), 0, 1)
+    np.testing.assert_allclose(got, want, **TOL["ao"])
+    assert 0.3 < got.mean() < 1.0  # partially occluded
+
+
+def test_direct_plain_matches_jax_interpret_kernel(scene, tables):
+    """32×32, 1 spp: the JAX Pallas kernel in interpret mode (about 20 s on a CPU).
+    At 2 spp one pixel of the JAX kernel sits 1.006× the tolerance from its own twin
+    and from this plain version alike, which agree with each other to 0.007× of it."""
+    jlt, jarea = jfi.pack_lights(scene)
+    want = np.asarray(jfi.render_direct_pallas(jpack_scene(scene), jlt, jarea,
+                                               JCfg(width=32, height=32), 0, 1))
+    got = _port("direct", tables, RenderConfig(width=32, height=32), 0, 1)
+    np.testing.assert_allclose(got, want, **TOL["direct"])
+    assert got.mean() > 0.1  # lit
+
+
+@pytest.mark.parametrize("kind", ["ao", "direct"])
+def test_plain_matches_jax_twin(scene, tables, kind):
+    """48×40, frames 3 and 4, against the sum of the JAX reference-stream twins."""
+    twin = jao_ref if kind == "ao" else jdirect_ref
+    jcfg = JCfg(width=48, height=40)
+    want = sum(np.asarray(twin(scene, jcfg, f)) for f in (3, 4))
+    got = _port(kind, tables, RenderConfig(width=48, height=40), 3, 2)
+    np.testing.assert_allclose(got, want, **TOL[kind])
+
+
+@pytest.mark.parametrize("kind", ["ao", "direct"])
+def test_pid_base_and_ragged_n_rays(scene, tables, kind):
+    """Pixels [100, 433) of a 32×24 image: the full image's rows bit for bit, and the
+    JAX twin at those pixel ids."""
+    cfg = RenderConfig(width=32, height=24)
+    full = _port(kind, tables, cfg, 7, 2)
+    part = _port(kind, tables, cfg, 7, 2, pid_base=100, n_rays=333)
+    assert part.shape == (333, 3) and np.array_equal(part, full[100:433])
+    twin = jao_ref if kind == "ao" else jdirect_ref
+    pid = jnp.arange(100, 433, dtype=jnp.int32)
+    want = sum(np.asarray(twin(scene, JCfg(width=32, height=24), f, pixel_ids=pid))
+               for f in (7, 8))
+    np.testing.assert_allclose(part, want, **TOL[kind])
+
+
+def test_ao_radius_reaches_the_kernel(tables):
+    """A radius too short to reach any surface leaves every pixel visible."""
+    cfg = RenderConfig(width=16, height=16)
+    assert np.array_equal(_port("ao", tables, cfg, 0, 2, radius=1e-6), np.full((256, 3), 2.0))
+    assert _port("ao", tables, cfg, 0, 2).mean() < 2.0
+
+
+def test_twins_agree_with_their_integrators(port_scene, tables):
+    """The port's AO and direct twins are its integrators on reference uniforms; the
+    plain AO kernel equals the AO twin to 1e-5."""
+    cfg = RenderConfig(width=16, height=16)
+    got = _port("ao", tables, cfg, 2, 1)
+    np.testing.assert_allclose(got, ao.render_ao_sample_ref(port_scene, cfg, 2).numpy(),
+                               **TOL["ao"])
+    got = _port("direct", tables, cfg, 2, 1)
+    np.testing.assert_allclose(got, direct.render_direct_sample_ref(port_scene, cfg, 2).numpy(),
+                               **TOL["direct"])
+
+
+def test_plain_counts_the_rays_it_casts(tables):
+    table, lt, area = tables
+    cfg = RenderConfig(width=16, height=16)
+    for kind in ("ao", "direct"):
+        counts = fi._new_counts()
+        if kind == "ao":
+            fi._render_ao_plain(table, cfg, 0, 3, counts=counts)
+        else:
+            fi._render_direct_plain(table, lt, area, cfg, 0, 3, counts=counts)
+        assert counts["camera"] == 3 * 256
+        assert 0 < counts["rays"] <= counts["camera"]
+        assert counts["rays"] <= counts["tris"] <= counts["rays"] * table.shape[0]
+
+
+def test_wrappers_check_their_inputs(tables):
+    table, lt, area = tables
+    cfg = RenderConfig(width=8, height=8)
+    with pytest.raises(ValueError):
+        fi.render_ao_pallas(table[:, :20].contiguous(), cfg, 0, 1)
+    with pytest.raises(ValueError):
+        fi.render_ao_pallas(table, cfg, 0, 0)
+    with pytest.raises(ValueError):
+        fi.render_direct_pallas(table, lt[:, :15].contiguous(), area, cfg, 0, 1)
+    with pytest.raises(ValueError):
+        fi.render_direct_pallas(table, lt[:0], area, cfg, 0, 1)

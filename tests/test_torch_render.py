@@ -140,7 +140,8 @@ def test_cli_profile_writes_trace_and_summary(tmp_path, capsys):
         assert "Self CPU" in f.read()
 
 
-@pytest.mark.parametrize("argv", [["render", "--integrator", "ao", "--device", "cpu"],
+@pytest.mark.parametrize("argv", [["render", "--integrator", "ao", "--scan-chunks", "1",
+                                   "--device", "cpu"],
                                   ["render", "--scan-chunks", "2", "--device", "cpu"],
                                   ["bench"]])
 def test_cli_unported_commands_exit_2(argv, capsys):
@@ -162,6 +163,10 @@ def test_port_never_imports_jax():
             "import oclpathtracer_tpu_torch.convert\n"
             "import oclpathtracer_tpu_torch.diff.edge, oclpathtracer_tpu_torch.diff.secondary\n"
             "import oclpathtracer_tpu_torch.diff.vertex\n"
+            "import oclpathtracer_tpu_torch.kernels.fast_integrators\n"
+            "import oclpathtracer_tpu_torch.kernels.sorted_wavefront\n"
+            "import oclpathtracer_tpu_torch.integrators.ao, oclpathtracer_tpu_torch.integrators.direct\n"
+            "import oclpathtracer_tpu_torch.integrators.primary\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'oclpathtracer_tpu' or m.startswith('oclpathtracer_tpu.')]\n"
             "assert not bad, bad\n")
