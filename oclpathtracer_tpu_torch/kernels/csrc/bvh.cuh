@@ -1,10 +1,19 @@
-// Per-thread BVH traversal shared by bvh_megakernel.cu and wide_bvh.cu.
+// Per-thread BVH traversal shared by bvh_megakernel.cu, sorted_wavefront.cu and
+// wide_bvh.cu.
 //
 // Each thread walks its own ray (the TPU kernels walk one node sequence for a
 // whole (8, 128) tile and descend when any lane's box test passes; a per-ray walk
 // visits fewer leaves, and an extra leaf visit cannot win a best hit). Leaves
-// are tested with trace.cuh's scan_range in leaf order, so parity, fast and tp
-// leaves run the linear kernels' arithmetic.
+// are tested in leaf order with trace.cuh's tests, so parity, fast and tp leaves
+// run the linear kernels' arithmetic: the skip walk through scan_range, the wide
+// walk through scan_rows4, which reads each row as float4s.
+//
+// What bounds the walks on the H100: dependent loads (a box test picks the next
+// node or group) and divergence (lanes walk different nodes and leaves). The
+// skip walk chains one box test to the next through its cursor. The wide walk
+// reads a whole group, its 8 boxes and kinds, in 14 aligned 16-byte loads with
+// no load behind another, tests all 8 slots and masks by kind; its stack is one
+// 32-bit word a level in shared memory, sized by the tree's depth at launch.
 //
 // The slab test follows bvh_megakernel.py:357-380: t1 = (bmin - o) * inv_d,
 // t2 = (bmax - o) * inv_d, t_near = max of the per-axis mins, t_far = min of
@@ -20,7 +29,10 @@
 namespace opt {
 
 constexpr int WIDE = 8;
-constexpr int WIDE_MAX_DEPTH = 12;  // the bitmask stack's levels (kernels/wide_bvh.py)
+// The 8-wide walk's stack: one 32-bit word a level for each of a block's BLOCK
+// threads, in at most the 227 KB of shared memory a block can have, so 454 levels.
+constexpr int WIDE_STACK_MAX_BYTES = 232448;
+constexpr int WIDE_MAX_DEPTH = WIDE_STACK_MAX_BYTES / (BLOCK * 4);
 
 static __device__ __forceinline__ float jmin(float a, float b) {
   return (a < b || a != a) ? a : b;
@@ -90,59 +102,103 @@ static __device__ __forceinline__ Hit skip_walk(const Params& P, const float* __
   return decode<SCAN>(P, tbl, best);
 }
 
+// ---- the 8-wide walk (wide_bvh.cu) ------------------------------------------
+//
+// A group record is read in aligned 16-byte loads: boxes (G, 6, 8) f32, the rows
+// bmin.x bmin.y bmin.z bmax.x bmax.y bmax.z of the group's 8 slots (12 float4s),
+// and meta (G, 3, 8) i32, the rows kind, a, b (6 int4s); kernels/wide_bvh.py
+// group_record builds both from wn_f and wn_i. The values are wn_f's and wn_i's,
+// so every slab test and its bits are those of the (G, 8, 6) layout.
+constexpr int GROUP_BOX_VEC4S = 12;
+constexpr int GROUP_META_VEC4S = 6;
+// Leaf rows a loop iteration of the wide walk's leaf scan: 4 measured fastest
+// against 1, 2 and 8 at 5k and 102k triangles (PERF.md).
+constexpr int WIDE_LEAF_UNROLL = 4;
+
 // Bit c of the result is set where child slot c of group g is a real child
 // (kind != 0; an empty slot's inverted box passes the slab test) and the ray
-// meets its box. The best-hit prune is left to the pop, with the best of then.
-static __device__ __forceinline__ int expand(const float* __restrict__ wn_f,
-                                             const int* __restrict__ wn_i, int g, const Ray& r) {
-  int mask = 0;
+// meets its box. All 8 slots are read and tested, then masked by kind. The
+// best-hit prune is left to the pop, with the best of then.
+static __device__ __forceinline__ uint32_t expand_group(const float4* __restrict__ boxes,
+                                                        const int4* __restrict__ meta, int g,
+                                                        const Ray& r) {
+  float v[4 * GROUP_BOX_VEC4S];
+  const float4* bg = boxes + (size_t)g * GROUP_BOX_VEC4S;
+#pragma unroll
+  for (int q = 0; q < GROUP_BOX_VEC4S; ++q) {
+    float4 x = __ldg(bg + q);
+    v[4 * q] = x.x;
+    v[4 * q + 1] = x.y;
+    v[4 * q + 2] = x.z;
+    v[4 * q + 3] = x.w;
+  }
+  int4 k0 = __ldg(meta + (size_t)g * GROUP_META_VEC4S);
+  int4 k1 = __ldg(meta + (size_t)g * GROUP_META_VEC4S + 1);
+  int kind[WIDE] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
+  uint32_t mask = 0;
+#pragma unroll
   for (int c = 0; c < WIDE; ++c) {
-    int child = g * WIDE + c;
+    float b[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) b[k] = v[k * WIDE + c];
     float t_near;
-    if (wn_i[(size_t)child * 3] != 0 && slab(wn_f + (size_t)child * 6, r, t_near))
-      mask |= 1 << c;
+    bool met = slab(b, r, t_near);
+    if (kind[c] != 0 && met) mask |= 1u << c;
   }
   return mask;
 }
 
-// 8-wide walk (wide_bvh.py make_wide_traversal, per ray): a stack of
-// (mask, group) pairs; each step pops the lowest set bit of the top mask, so
-// children come in the skip walk's pre-order. A popped child gets the full box
-// test with the current best, as the skip walk would test it at the same point
-// of the same sequence, so both walks visit the same leaves in the same order
-// and give the same bits. Group rows are wn_f [bmin.xyz bmax.xyz] and wn_i
-// [kind a b] per slot. The wrapper checks P.depth <= WIDE_MAX_DEPTH.
+// 8-wide walk (wide_bvh.py make_wide_traversal, per ray). The stack holds one
+// 32-bit word a level, the group's unvisited hit mask in bits 0-7 and the group
+// index above them (the wrapper keeps G below 2^24), in shared memory: level l
+// of the thread at stack[l * BLOCK], so a warp's lanes hit 32 banks. The top
+// word stays in a register; a finished group's word is replaced instead of
+// pushed over. Each step pops the lowest set bit of the top mask, so children
+// come in the skip walk's pre-order; a popped child gets the full box test with
+// the current best, as the skip walk would test it at the same point of the
+// same sequence, so both walks visit the same leaves in the same order and give
+// the same bits. Leaves are read as float4s of the (T, 24) table, 96-byte rows.
+// P.depth levels hold any tree of that depth (core/bvh.widen_bvh's depth).
 template <int SCAN>
 static __device__ __forceinline__ Hit wide_walk(const Params& P, const float* __restrict__ tbl,
-                                                const float* __restrict__ wn_f,
-                                                const int* __restrict__ wn_i, float3 o,
-                                                float3 d) {
+                                                const float4* __restrict__ boxes,
+                                                const int4* __restrict__ meta,
+                                                uint32_t* __restrict__ stack, float3 o, float3 d) {
   Ray r = make_ray<SCAN>(o, d);
   Best best = fresh_best();
-  int masks[WIDE_MAX_DEPTH], groups[WIDE_MAX_DEPTH];
-  masks[0] = expand(wn_f, wn_i, 0, r);
-  groups[0] = 0;
-  int level = masks[0] != 0 ? 0 : -1;
+  const float4* rows = (const float4*)tbl;
+  auto load = [&](int i) { return __ldg(rows + i); };
+  uint32_t top = expand_group(boxes, meta, 0, r);
+  int level = top != 0 ? 0 : -1;
   while (level >= 0) {
-    int mk = masks[level];
-    int c = __ffs(mk) - 1;
-    masks[level] = mk & (mk - 1);
-    int child = groups[level] * WIDE + c;
-    if (box_hit<SCAN>(wn_f + (size_t)child * 6, r, best)) {
-      const int* ci = wn_i + (size_t)child * 3;
-      int a = ci[1];
-      if (ci[0] == 2) {
-        scan_range<SCAN>(tbl, a, a + ci[2], o, d, r.m, best);
+    int c = __ffs(top) - 1;  // the mask is bits 0-7 and not empty
+    top &= top - 1;
+    int g = (int)(top >> 8);
+    const float* bg = (const float*)(boxes + (size_t)g * GROUP_BOX_VEC4S);
+    float b[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) b[k] = __ldg(bg + k * WIDE + c);
+    if (box_hit<SCAN>(b, r, best)) {
+      const int* mg = (const int*)(meta + (size_t)g * GROUP_META_VEC4S);
+      int kind = __ldg(mg + c);
+      int a = __ldg(mg + WIDE + c);
+      if (kind == 2) {
+        scan_rows4<SCAN, WIDE_LEAF_UNROLL>(load, TABLE_COLS / 4, a, a + __ldg(mg + 2 * WIDE + c), o,
+                                           d, r.m, best);
       } else {
-        int cm = expand(wn_f, wn_i, a, r);
-        if (cm != 0 && level + 1 < WIDE_MAX_DEPTH) {
-          ++level;
-          masks[level] = cm;
-          groups[level] = a;
+        uint32_t cm = expand_group(boxes, meta, a, r);
+        if (cm != 0 && (top & 0xffu) == 0) {
+          top = cm | ((uint32_t)a << 8);
+        } else if (cm != 0 && level + 1 < P.depth) {
+          stack[BLOCK * level++] = top;
+          top = cm | ((uint32_t)a << 8);
         }
       }
     }
-    while (level >= 0 && masks[level] == 0) --level;
+    while ((top & 0xffu) == 0) {
+      if (--level < 0) break;
+      top = stack[BLOCK * level];
+    }
   }
   return decode<SCAN>(P, tbl, best);
 }

@@ -1,0 +1,68 @@
+// Work split shared by wavefront.cu and wide_bvh.cu: threads that own fewer than
+// all samples of a pixel write each finished sample's max(rad, 0) into a
+// (n_samples, n_pix, 3) scratch buffer, and sample_sum adds the samples of each
+// pixel in the plain version's order (kernels/wavefront.py
+// _render_samples_wavefront_plain): stream i = the samples s = i mod k in
+// ascending order, each from 0, then the streams in ascending order from 0. With
+// k = 1 that is the megakernel's sum in sample order, so the bits do not depend
+// on the split. Segments go to one 64-bit counter, one atomic add a warp.
+#pragma once
+
+#include "trace.cuh"
+
+namespace opt {
+
+// Adds the lanes' segment counts to the counter, one atomic a warp (an integer
+// sum does not depend on its order). Every lane of the warp calls it.
+static __device__ __forceinline__ void count_segments(unsigned long long* __restrict__ segs,
+                                                      int sg) {
+  unsigned total = __reduce_add_sync(0xffffffffu, (unsigned)sg);
+  if ((threadIdx.x & 31) == 0 && total != 0) atomicAdd(segs, (unsigned long long)total);
+}
+
+// Sample s's max(rad, 0) of pixel idx into the scratch buffer.
+static __device__ __forceinline__ void store_sample(float* __restrict__ scratch, int s, int n_pix,
+                                                    int idx, float3 rad) {
+  float* q = scratch + ((size_t)s * n_pix + idx) * 3;
+  q[0] = clamp0(rad.x);
+  q[1] = clamp0(rad.y);
+  q[2] = clamp0(rad.z);
+}
+
+// init, when not null, is the sum of the samples before these (k = 1): stream 0
+// then goes on from it, as one sum over all the samples would.
+static __global__ void __launch_bounds__(BLOCK) sample_sum(const float* __restrict__ scratch,
+                                                         int n_samples, int n_pix, int k,
+                                                         const float* __restrict__ init,
+                                                         float* __restrict__ out) {
+  int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_pix) return;
+  float3 total = v3(0.0f, 0.0f, 0.0f);
+  for (int i = 0; i < k && i < n_samples; ++i) {
+    float3 acc = v3(0.0f, 0.0f, 0.0f);
+    if (i == 0 && init) acc = v3(init[3 * p], init[3 * p + 1], init[3 * p + 2]);
+    for (int s = i; s < n_samples; s += k) {
+      const float* q = scratch + ((size_t)s * n_pix + p) * 3;
+      acc = v3(acc.x + q[0], acc.y + q[1], acc.z + q[2]);
+    }
+    total = add3(total, acc);
+  }
+  out[3 * p + 0] = total.x;
+  out[3 * p + 1] = total.y;
+  out[3 * p + 2] = total.z;
+}
+
+static inline int launch_sample_sum(const float* scratch, int n_samples, int n_pix, int k,
+                                    const float* init, float* out, cudaStream_t stream) {
+  sample_sum<<<(n_pix + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(scratch, n_samples, n_pix, k,
+                                                               init, out);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of BLOCK threads covering `threads` threads, or 0 past a 32-bit index.
+static inline int split_grid(long long threads) {
+  long long grid = (threads + BLOCK - 1) / BLOCK;
+  return threads > 0x7fffffffLL ? 0 : (int)grid;
+}
+
+}  // namespace opt

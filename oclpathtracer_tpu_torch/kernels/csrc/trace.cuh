@@ -273,6 +273,42 @@ static __device__ __forceinline__ void scan_range(const float* tbl, int begin, i
   }
 }
 
+// ---- the scan read in aligned 16-byte loads (wavefront.cu, wide_bvh.cu) ----
+
+// The float4s of a row that each form's triangle test reads: tp columns 0-15,
+// parity and fast columns 0-8 (padded to 12 in a scan-only table).
+template <int SCAN>
+__host__ __device__ constexpr int scan_vec4s() {
+  return SCAN == SCAN_TP ? 4 : 3;
+}
+
+// scan_range with row j read as scan_vec4s<SCAN>() float4s, the first at
+// load(j * stride4): the loads of a row go out together, none behind another.
+// UNROLL rows a loop iteration. The tests and their order are scan_range's, so
+// are the bits.
+template <int SCAN, int UNROLL = 1, typename Load>
+static __device__ __forceinline__ void scan_rows4(Load load, int stride4, int begin, int end,
+                                                  float3 o, float3 d, float3 m, Best& b) {
+#pragma unroll UNROLL
+  for (int j = begin; j < end; ++j) {
+    float r[16];
+#pragma unroll
+    for (int v = 0; v < scan_vec4s<SCAN>(); ++v) {
+      float4 x = load(j * stride4 + v);
+      r[4 * v] = x.x;
+      r[4 * v + 1] = x.y;
+      r[4 * v + 2] = x.z;
+      r[4 * v + 3] = x.w;
+    }
+    if (SCAN == SCAN_TP)
+      test_tp(r, j, o, d, m, b);
+    else if (SCAN == SCAN_FAST)
+      test_fast(r, j, o, d, b);
+    else
+      test_parity(r, j, o, d, b);
+  }
+}
+
 // ---- decoding a best hit into the shading attributes ----------------------
 
 // Parity: the winner's pack_scene attributes, read once after the scan.

@@ -759,6 +759,38 @@ def render_frames_plain(cfg: RenderConfig, start_sample: int, n_samples: int,
     return acc, segs.sum(dtype=torch.int64)
 
 
+# The most (n_samples, n_pix, 3) f32 scratch a split kernel launch takes
+# (csrc/split.cuh): the wavefront gives each pixel to one thread past it, the 8-wide
+# kernel splits the samples over launches.
+SCRATCH_MAX_BYTES = 1 << 30
+
+
+def render_frames_split_plain(cfg: RenderConfig, start_sample: int, n_samples: int,
+                              pid_base: int, n_pix: int, device, nearest):
+    """The split kernels' first pass (csrc/split.cuh): each sample's max(rad, 0)
+    in a (n_samples, n_pix, 3) scratch buffer + the segment count (int64)."""
+    pid = torch.arange(pid_base, pid_base + n_pix, dtype=torch.int64, device=device)
+    scratch = torch.empty((n_samples, n_pix, 3), dtype=torch.float32, device=device)
+    segs = torch.zeros((), dtype=torch.int64, device=device)
+    for s in range(n_samples):
+        scratch[s], sg = _trace_sample_plain(cfg, pid, int(start_sample) + s, nearest)
+        segs = segs + sg.sum(dtype=torch.int64)
+    return scratch, segs
+
+
+def sample_sum_plain(scratch: torch.Tensor, interleave: int = 1) -> torch.Tensor:
+    """csrc/split.cuh sample_sum: stream i adds the samples s = i mod k in ascending
+    order from 0, then the streams are added in ascending order from 0."""
+    zeros = torch.zeros_like(scratch[0])
+    total = zeros
+    for i in range(min(interleave, scratch.shape[0])):
+        acc = zeros
+        for s in range(i, scratch.shape[0], interleave):
+            acc = acc + scratch[s]
+        total = total + acc
+    return total
+
+
 def _render_samples_stats_plain(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
                                 n_samples: int, pid_base: int = 0,
                                 n_rays: int | None = None, scan: str = "parity",

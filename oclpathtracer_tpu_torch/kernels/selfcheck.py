@@ -22,7 +22,8 @@ segments bit for bit, with its sort on and off.
 Scenes: the Cornell box with its own camera; sphere_field(3, 1, seed=2) (244
 triangles, tp-capable), sphere_field() (5,124 triangles, 18 material classes, so
 the fast scan) and sphere_field(80, 3) (102,404 triangles) with the JAX package's
-camera for procedural scenes.
+camera for procedural scenes; `deep_scene` (488 triangles whose leaf-32 tree is 14
+levels deep) with its own camera.
 
 Used by `chip_smoke.py` and `tests/test_torch_cuda.py`.
 """
@@ -52,11 +53,45 @@ START_SAMPLE = 3
 N_SAMPLES = 8  # k = 4 wavefront streams then trace two samples each
 BVH_SAMPLES = 2
 PROCGEN_EYE = (0.0, 3.0, 9.0)  # the JAX package's camera for procedural scenes
+DEEP_EYE = (-0.3, -0.2, -0.25)
+
+
+def deep_scene(device="cuda", n_chain: int = 88, n_fill: int = 400, ratio: float = 2.53):
+    """A scene whose BVH is deep: `n_chain` triangles 0.01 across at distances
+    ratio**i from the origin along the axes x, y, z in turn, and `n_fill` in a
+    0.08-wide cluster at the origin, all facing DEEP_EYE. ratio**3 > 16, so along
+    each split's longest centroid axis the farthest triangle sits alone in the top
+    of the binned SAH's 16 bins (core/bvh.py) and is peeled off by itself: a node
+    takes 7 of the chain, and at leaf 32 (render/driver.py's) the 8-wide tree is 14 levels
+    deep. The farthest lies 2.4e33 from the origin, inside f32."""
+    from oclpathtracer_tpu_torch.convert import scene_from_numpy
+
+    i = np.arange(n_chain)
+    c = np.zeros((n_chain, 3))
+    c[i, i % 3] = ratio ** i
+    c = np.concatenate([c, np.random.default_rng(0).uniform(-0.04, 0.04, (n_fill, 3))])
+    w = np.asarray(DEEP_EYE) - c
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    a = np.where(np.abs(w[:, :1]) > 0.5, [[0.0, 1.0, 0.0]], [[1.0, 0.0, 0.0]])
+    u = np.cross(a, w)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    v = np.cross(w, u)
+    f32, i32 = np.float32, np.int32
+    p1, p2, p3 = c - 0.01 * (u + v), c + 0.01 * (u - v), c + 0.01 * v
+    geometry = (p1.astype(f32), p2.astype(f32), p3.astype(f32),
+                (np.arange(c.shape[0]) % 2).astype(i32))
+    materials = (np.array([[0.8, 0.7, 0.6], [0.5, 0.5, 0.5]], f32),
+                 np.array([[2, 2, 2], [0, 0, 0]], f32), np.array([0.0, 0.3], f32),
+                 np.array([1, 2], i32))
+    lights = (np.array([0], i32), np.array([1.0], f32), np.array([[2, 2, 2]], f32))
+    return scene_from_numpy(geometry, materials, lights, device=device)
+
 
 SCENES = {"cornell": load_cornell_box,
           "spheres244": functools.partial(sphere_field, 3, 1, seed=2),
           "spheres5k": sphere_field,
-          "spheres102k": functools.partial(sphere_field, 80, 3)}
+          "spheres102k": functools.partial(sphere_field, 80, 3),
+          "deep": deep_scene}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,10 +105,12 @@ class Case:
     interleave: int = 1  # wavefront only
     scene: str = "cornell"
     leaf: int = 32     # BVH kernels only
+    run: int | None = None  # wavefront only: samples a thread takes at a time
 
     @property
     def name(self) -> str:
-        extra = {"megakernel": f"tp0={int(self.tp0)}", "wavefront": f"k={self.interleave}"}
+        run = "" if self.run is None else f" run={self.run}"
+        extra = {"megakernel": f"tp0={int(self.tp0)}", "wavefront": f"k={self.interleave}{run}"}
         return (f"{self.kernel} {self.scan} {extra.get(self.kernel, f'leaf={self.leaf}')} "
                 f"{self.scene} {self.width}x{self.height} b{self.bounces}")
 
@@ -87,8 +124,14 @@ class Case:
 
 
 def scene_cfg(scene: str, width: int, height: int, bounces: int) -> RenderConfig:
-    """The scene's render config: the Cornell box's own camera, else PROCGEN_EYE."""
-    cam = CameraConfig() if scene == "cornell" else CameraConfig(eye=PROCGEN_EYE)
+    """The scene's render config: the Cornell box's own camera, deep_scene's looking
+    from DEEP_EYE at the origin, else PROCGEN_EYE."""
+    if scene == "cornell":
+        cam = CameraConfig()
+    elif scene == "deep":
+        cam = CameraConfig(eye=DEEP_EYE, look=tuple(-x for x in DEEP_EYE))
+    else:
+        cam = CameraConfig(eye=PROCGEN_EYE)
     return RenderConfig(width=width, height=height, bounces=bounces, camera=cam)
 
 
@@ -168,6 +211,16 @@ class Tables:
         emi = mk.scene_emissive_const(scene) if scan == "fast" else mk.NO_EMI
         return table, wn_f, wn_i, depth, emi, classes
 
+    @functools.lru_cache(maxsize=None)
+    def record(self, name: str, scan: str, leaf: int):
+        """group_record of wide(name, scan, leaf)."""
+        return wb.group_record(*self.wide(name, scan, leaf)[1:3])
+
+    @functools.lru_cache(maxsize=None)
+    def scan_table(self, name: str, scan: str):
+        """wavefront.scan_table of linear(name, scan)."""
+        return wf.scan_table(self.linear(name, scan)[0], scan)
+
 
 def run(case: Case, tables: Tables, plain: bool = False, start: int = START_SAMPLE,
         n: int | None = None):
@@ -190,7 +243,10 @@ def run(case: Case, tables: Tables, plain: bool = False, start: int = START_SAMP
                                                       emi)
         return wf.render_samples_wavefront_stats(table, cfg, start, n,
                                                  interleave=case.interleave, scan=case.scan,
-                                                 classes=classes, emi_const=emi)
+                                                 classes=classes, emi_const=emi,
+                                                 scan_tbl=tables.scan_table(case.scene,
+                                                                            case.scan),
+                                                 run=case.run)
     if case.kernel == "bvh":
         table, nf, ni, emi, classes = tables.bvh(case.scene, case.scan, case.leaf)
         fn = bk._render_samples_bvh_stats_plain if plain else bk.render_samples_bvh_stats
@@ -200,18 +256,22 @@ def run(case: Case, tables: Tables, plain: bool = False, start: int = START_SAMP
     if plain:
         return wb._render_samples_wide_bvh_stats_plain(table, wn_f, wn_i, cfg, start, n,
                                                        scan=case.scan, emi_const=emi,
-                                                       classes=classes)
+                                                       classes=classes, depth=depth)
     return wb.render_samples_wide_bvh_stats(table, wn_f, wn_i, cfg, start, n,
                                             max_leaf=case.leaf, max_depth=depth,
-                                            scan=case.scan, emi_const=emi, classes=classes)
+                                            scan=case.scan, emi_const=emi, classes=classes,
+                                            record=tables.record(case.scene, case.scan,
+                                                                 case.leaf))
 
 
 def padded_past_shared(table: torch.Tensor) -> torch.Tensor:
-    """The table with zero rows (never hit) appended until the linear kernels read it
-    from global memory instead of shared memory."""
-    rows = mk.SMEM_TABLE_MAX_BYTES // (4 * mk.TABLE_COLS) + 1 - table.shape[0]
+    """The table with zero rows (never hit) appended until the linear kernels read it,
+    and the wavefront its 48-byte-a-row scan table, from global memory instead of
+    shared memory."""
+    rows = mk.SMEM_TABLE_MAX_BYTES // 48 + 1 - table.shape[0]
     big = torch.cat([table, torch.zeros((rows, mk.TABLE_COLS), device=table.device)])
     assert mk.table_in_shared(table) and not mk.table_in_shared(big)
+    assert not wf.scan_in_shared(wf.scan_table(big, "parity"))
     return big
 
 
@@ -286,12 +346,69 @@ def global_table_matches_shared(tables: Tables, width, height) -> dict:
 
 
 def wide_equals_skip_walk(tables: Tables, width, height, bounces=4) -> dict:
-    """The 8-wide kernel vs the skip-link kernel on the same build: bit for bit."""
+    """The 8-wide kernel vs the skip-link kernel on the same build: bit for bit, on
+    bvh_cases' scenes and on deep_scene (a 14-level tree) in each leaf form."""
     out = {}
-    for case in bvh_cases(width, height, bounces):
+    deep = [Case("bvh", scan, width, height, bounces, scene="deep")
+            for scan in ("parity", "fast", "tp")]
+    for case in bvh_cases(width, height, bounces) + deep:
         if case.kernel == "bvh":
             wide = dataclasses.replace(case, kernel="widebvh")
             out[f"{case.scene} {case.scan}"] = _same(run(case, tables), run(wide, tables))
+    return out
+
+
+def wide_chunks_agree(tables: Tables, width, height, bounces=4, n_samples=3) -> dict:
+    """The 8-wide kernel's launches split by its scratch budget (one sample a launch,
+    each sum going on from the last), and a launch with the largest stack
+    (WIDE_MAX_DEPTH levels, 227 KB of shared memory a block), against one launch
+    with the tree's own stack: bit for bit, each leaf form on sphere_field(3, 1)."""
+    out = {}
+    for scan in ("parity", "fast", "tp"):
+        case = Case("widebvh", scan, width, height, bounces, scene="spheres244")
+        table, wn_f, wn_i, depth, emi, classes = tables.wide(case.scene, scan, case.leaf)
+
+        def render(**kw):
+            return wb.render_samples_wide_bvh_stats(
+                table, wn_f, wn_i, case.cfg, START_SAMPLE, n_samples, max_leaf=case.leaf,
+                scan=scan, emi_const=emi, classes=classes,
+                record=tables.record(case.scene, scan, case.leaf), **kw)
+
+        ref = run(case, tables, n=n_samples)
+        out[f"{scan} one sample a launch"] = _same(
+            render(max_depth=depth, scratch_bytes=12 * width * height), ref)
+        out[f"{scan} {wb.WIDE_MAX_DEPTH}-level stack"] = _same(
+            render(max_depth=wb.WIDE_MAX_DEPTH), ref)
+    return out
+
+
+WAVEFRONT_RUNS = (None, 2, 5)  # the default, runs of 2, and all 5 samples
+
+
+def wavefront_splits_agree(tables: Tables, width, height, bounces=16, n_samples=5) -> dict:
+    """The wavefront kernel on the Cornell box gives the same bits (image and
+    segments) for every work split and scan-table place: runs of the default (one
+    sample), of 2 (2, 2, 1 of 5 samples) and of all n_samples (a pixel a thread),
+    with k = 1 and 3, its scan table in shared memory (as it is, and padded with zero
+    rows past the 48 KB a block gets without opting in) and, padded past 227 KB, in
+    global memory; in each scan form. Keys "scan k=…", values whether every variant
+    equals the pixel-a-thread launch from shared memory."""
+    out = {}
+    cfg = RenderConfig(width=width, height=height, bounces=bounces)
+    for scan in ("parity", "fast", "tp"):
+        table, emi, classes = tables.linear("cornell", scan)
+        big = padded_past_shared(table)
+        mid = torch.cat([table, torch.zeros((49152 // 48 + 1 - table.shape[0], mk.TABLE_COLS),
+                                            device=table.device)])
+        for k in (1, 3):
+            def render(tbl, m):
+                return wf.render_samples_wavefront_stats(tbl, cfg, START_SAMPLE, n_samples,
+                                                         interleave=k, scan=scan,
+                                                         classes=classes, emi_const=emi, run=m)
+
+            ref = render(table, n_samples)
+            out[f"{scan} k={k}"] = all(_same(render(tbl, m), ref) for m in WAVEFRONT_RUNS
+                                       for tbl in (table, mid, big))
     return out
 
 

@@ -2,11 +2,20 @@
 
 Counterpart of `oclpathtracer_tpu.kernels.wavefront`. The kernel
 (`csrc/wavefront.cu`) computes the megakernel's per-pixel sum by in-thread path
-regeneration: a thread owns k = `interleave` streams; stream i traces samples i,
-i+k, … one segment per loop iteration, adds a finished path's max(rad, 0) into its
-own accumulator and starts its next sample in the same iteration. The streams are
-summed in ascending order, so k only fixes the summation order and k = 1 equals the
-megakernel (without the tp0 peel) bit for bit.
+regeneration: a thread traces its samples one segment per loop iteration and, when
+a path ends, adds its max(rad, 0) and starts its next sample in the same
+iteration. With k = `interleave` streams, stream i traces samples i, i+k, … and
+the streams are summed in ascending order, so k only fixes the summation order and
+k = 1 equals the megakernel (without the tp0 peel) bit for bit.
+
+`run`, the samples of one pixel a thread takes at a time from the launch's queue
+of runs, schedules the card and moves no bit: with run < n_samples each finished
+sample goes to a (n_samples, n_pix, 3) scratch buffer and a second kernel adds
+them in the plain version's order (`megakernel.sample_sum_plain`); run = n_samples
+gives each pixel to one thread, which sums its own samples. The scan reads
+`scan_table`, the scan-only copy of the table (the columns the scan form reads, in
+16-byte rows), from shared memory while it fits a block's 227 KB and from global
+memory beyond; which depends only on its size.
 
 The port's default is k = 1. The JAX package's 16/4 were measured on its own chip
 and are to be derived again on this one.
@@ -19,18 +28,47 @@ import torch
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.kernels.megakernel import (
     NO_EMI,
+    SCRATCH_MAX_BYTES,
+    SMEM_TABLE_MAX_BYTES,
     _PlainScene,
     _trace_sample_plain,
     check_call,
     host_params,
     linear_nearest,
     prepare_scan,
-    table_in_shared,
 )
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 # Kernel launches made by render_samples_wavefront_stats on CUDA tensors.
 LAUNCHES = 0
+
+# Samples a thread takes at a time by default (`run`), the fastest on the card
+# (PERF.md), while the scratch buffer stays within SCRATCH_MAX_BYTES; past it a
+# launch gives each pixel to one thread (no scratch).
+DEFAULT_RUN = 1
+
+
+def scan_table(table: torch.Tensor, scan: str) -> torch.Tensor:
+    """The scan-only copy of a prepare_scan table, on its device: the columns the
+    scan form's triangle test reads, padded to whole 16-byte float4s. tp: (T, 16),
+    columns 0-15; parity and fast: (T, 12), columns 0-8 and three zeros. The decode
+    reads the winner's full row from `table`."""
+    if scan == "tp":
+        return table[:, :16].contiguous()
+    pad = torch.zeros((table.shape[0], 3), dtype=table.dtype, device=table.device)
+    return torch.cat([table[:, :9], pad], dim=1)
+
+
+def scan_in_shared(scan_tbl: torch.Tensor) -> bool:
+    """Whether the kernel stages `scan_tbl` in shared memory (up to a block's 227 KB)
+    or reads it from global memory."""
+    return scan_tbl.numel() * scan_tbl.element_size() <= SMEM_TABLE_MAX_BYTES
+
+
+def default_run(n_samples: int, n_pix: int) -> int:
+    """DEFAULT_RUN while the (n_samples, n_pix, 3) f32 scratch buffer fits
+    SCRATCH_MAX_BYTES, else n_samples (no scratch)."""
+    return DEFAULT_RUN if n_samples * n_pix * 12 <= SCRATCH_MAX_BYTES else n_samples
 
 
 def _render_samples_wavefront_plain(table: torch.Tensor, cfg: RenderConfig,
@@ -60,33 +98,48 @@ def render_samples_wavefront_stats(table: torch.Tensor, cfg: RenderConfig,
                                    start_sample: int, n_samples: int, interleave: int = 1,
                                    scan: str = "parity", classes: tuple = (),
                                    pid_base: int = 0, n_rays: int | None = None,
-                                   emi_const: tuple = NO_EMI):
+                                   emi_const: tuple = NO_EMI,
+                                   scan_tbl: torch.Tensor | None = None,
+                                   run: int | None = None):
     """SUM of n_samples frames via path regeneration + traced-segment count.
 
     Returns (img (n_rays, 3) f32, segments () int64). interleave: streams per
     pixel (k ≥ 1; 1 is bitwise the megakernel without tp0, k > 1 reorders the sum).
-    scan, classes, emi_const: as prepare_scan returns them.
+    scan, classes, emi_const: as prepare_scan returns them. scan_tbl:
+    `scan_table(table, scan)`, made once per render (without it each launch makes
+    it). run: samples a thread takes at a time (default `default_run`); it changes
+    no bit of the result.
     A CUDA table launches `csrc/wavefront.cu`; a CPU table runs the plain version.
     """
     global LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     check_call(table, cfg, n_samples, scan, classes, n_pix)
-    if interleave < 1:
-        raise ValueError(f"interleave must be >= 1, got {interleave}")
+    run = default_run(n_samples, n_pix) if run is None else run
+    if interleave < 1 or run < 1:
+        raise ValueError(f"interleave and run must be >= 1, got {interleave} and {run}")
     if table.device.type == "cpu":
         return _render_samples_wavefront_plain(table, cfg, start_sample, n_samples,
                                                interleave, scan, classes, pid_base, n_pix,
                                                emi_const)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
+    if scan_tbl is None:
+        scan_tbl = scan_table(table, scan)
+    if scan_tbl.shape != (table.shape[0], 16 if scan == "tp" else 12) \
+            or scan_tbl.dtype != torch.float32 or scan_tbl.device != table.device:
+        raise ValueError("scan_tbl must be scan_table(table, scan)")
+    run = min(run, n_samples)
     floats, ints = host_params(cfg, scan, classes, False, table.shape[0], start_sample,
-                               n_samples, pid_base, n_pix, interleave, emi_const=emi_const,
-                               smem=table_in_shared(table))
+                               n_samples, pid_base, n_pix, interleave, emi_const=emi_const)
     out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
-    segs = torch.empty((n_pix,), dtype=torch.int32, device=table.device)
-    cuda_build.launch("opt_wavefront_launch", (table,), floats, ints, out, segs)
+    scratch = None
+    if run < n_samples:
+        scratch = torch.empty((n_samples, n_pix, 3), dtype=torch.float32, device=table.device)
+    segs = torch.zeros((2,), dtype=torch.int64, device=table.device)  # segments, queue head
+    cuda_build.launch("opt_wavefront_launch", (table, scan_tbl), floats,
+                      ints + [run, int(scan_in_shared(scan_tbl))], out, scratch, segs)
     LAUNCHES += 1
-    return out, segs.sum(dtype=torch.int64)
+    return out, segs[0]
 
 
 def render_wavefront(scene: Scene, cfg: RenderConfig, total_spp: int,
@@ -94,13 +147,15 @@ def render_wavefront(scene: Scene, cfg: RenderConfig, total_spp: int,
                      interleave: int = 1) -> torch.Tensor:
     """Progressive mean image via the path-regeneration kernel, on the scene's device."""
     scan, table, emi, classes = prepare_scan(scene, scan)
+    scan_tbl = scan_table(table, scan)
     chunk = samples_per_call or total_spp
     acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=table.device)
     s = 0
     while s < total_spp:
         n = min(chunk, total_spp - s)
         img, _ = render_samples_wavefront_stats(table, cfg, s, n, interleave=interleave,
-                                                scan=scan, classes=classes, emi_const=emi)
+                                                scan=scan, classes=classes, emi_const=emi,
+                                                scan_tbl=scan_tbl)
         acc = acc + img
         s += n
     return acc / total_spp

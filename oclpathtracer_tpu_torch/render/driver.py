@@ -56,13 +56,17 @@ def make_render_step(cfg: RenderConfig, samples_per_step: int,
 
 
 def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: int,
-                            backend: str = "auto", scan: str = "auto"):
+                            backend: str = "auto", scan: str = "auto",
+                            bvh_leaf: int = BVH_LEAF):
     """Build a step (Accumulator, start_sample) → Accumulator over one of the kernels.
 
     backend ∈ {auto, pallas, wavefront, bvh, widebvh}: auto picks the 8-wide BVH
     kernel ("widebvh") above LINEAR_KERNEL_MAX_TRIS triangles, else the megakernel
     ("pallas") up to MEGAKERNEL_MAX_BOUNCES and the path-regeneration kernel
-    ("wavefront") beyond; "bvh" is the skip-link walk. scan ∈ {auto, parity, fast,
+    ("wavefront") beyond; "bvh" is the skip-link walk (leaf size `bvh_leaf`).
+    "widebvh" on a tree deeper than the wide kernel's stack (wide_bvh.WIDE_MAX_DEPTH
+    levels) renders with the skip-link kernel on the same build, which gives the
+    same bits; the depth decides before any launch. scan ∈ {auto, parity, fast,
     tp}: auto is the fastest scan the scene's materials support, for every backend.
     The kernels use the reference RNG keyed by absolute (pixel, sample); there is no
     seed.
@@ -91,34 +95,42 @@ def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: i
                                                  tp0_table=tp0_table, emi_const=emi)
             return img
     elif backend == "wavefront":
-        from oclpathtracer_tpu_torch.kernels.wavefront import render_samples_wavefront_stats
+        from oclpathtracer_tpu_torch.kernels.wavefront import (
+            render_samples_wavefront_stats,
+            scan_table,
+        )
 
         scan, table, emi, classes = prepare_scan(scene, scan)
+        scan_tbl = scan_table(table, scan)
 
         def chunk(start):
             img, _ = render_samples_wavefront_stats(table, cfg, start, samples_per_step,
                                                     scan=scan, classes=classes,
-                                                    emi_const=emi)
+                                                    emi_const=emi, scan_tbl=scan_tbl)
             return img
     elif backend == "widebvh":
+        from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
         from oclpathtracer_tpu_torch.kernels.bvh_megakernel import resolve_bvh_scan
         from oclpathtracer_tpu_torch.kernels.megakernel import NO_EMI, scene_emissive_const
-        from oclpathtracer_tpu_torch.kernels.wide_bvh import (
-            pack_wide_bvh_scene,
-            render_samples_wide_bvh_stats,
-        )
 
         leaf = 32 if n_tris <= WIDE_BVH_LEAF_SWITCH_TRIS else 64
         scan = resolve_bvh_scan(scene, scan)
         emi = scene_emissive_const(scene) if scan == "fast" else NO_EMI
-        wtable, wn_f, wn_i, depth, classes = pack_wide_bvh_scene(scene, leaf_size=leaf,
-                                                                 scan=scan)
+        wtable, wn_f, wn_i, depth, classes = wb.pack_wide_bvh_scene(scene, leaf_size=leaf,
+                                                                    scan=scan)
+        if depth > wb.WIDE_MAX_DEPTH:
+            # Deeper than the kernel's shared-memory stack: the skip-link kernel on the
+            # same build gives the same bits and needs no stack.
+            return make_kernel_render_step(scene, cfg, samples_per_step, "bvh", scan,
+                                           bvh_leaf=leaf)
+        record = wb.group_record(wn_f, wn_i)
 
         def chunk(start):
-            img, _ = render_samples_wide_bvh_stats(wtable, wn_f, wn_i, cfg, start,
-                                                   samples_per_step, max_leaf=leaf,
-                                                   max_depth=depth, scan=scan,
-                                                   emi_const=emi, classes=classes)
+            img, _ = wb.render_samples_wide_bvh_stats(wtable, wn_f, wn_i, cfg, start,
+                                                      samples_per_step, max_leaf=leaf,
+                                                      max_depth=depth, scan=scan,
+                                                      emi_const=emi, classes=classes,
+                                                      record=record)
             return img
     elif backend == "bvh":
         from oclpathtracer_tpu_torch.kernels.bvh_megakernel import (
@@ -127,11 +139,11 @@ def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: i
         )
 
         scan, table, nodes_f, nodes_i, emi, classes = prepare_bvh_scan(scene, scan,
-                                                                       leaf_size=BVH_LEAF)
+                                                                       leaf_size=bvh_leaf)
 
         def chunk(start):
             img, _ = render_samples_bvh_stats(table, nodes_f, nodes_i, cfg, start,
-                                              samples_per_step, max_leaf=BVH_LEAF,
+                                              samples_per_step, max_leaf=bvh_leaf,
                                               scan=scan, emi_const=emi, classes=classes)
             return img
     else:

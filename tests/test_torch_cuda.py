@@ -4,8 +4,10 @@ These need a CUDA device (marker `cuda`) and skip without one; on a machine with
 card run them with `python -m pytest --noconftest tests/test_torch_cuda.py -q` (this
 file needs no fixture of tests/conftest.py, which imports jax). They are
 chip_smoke.py's phase-3 checks at 64×64 (kernels/selfcheck.py holds the cases and
-the pass rule), for the linear and the BVH kernels, the adjoint kernel and the
-arbitrary-ray kernel; and the vertex step's launches. Whether there is a card is
+the pass rule), for the linear and the BVH kernels (with the wavefront's work
+splits and table routes, the wide kernel on a 14-level tree and split into
+launches), the adjoint kernel and the arbitrary-ray kernel; and the vertex step's
+launches. Whether there is a card is
 decided inside the fixture, never at import.
 """
 
@@ -60,6 +62,15 @@ def test_table_in_global_memory_renders_as_in_shared(cuda_tables):
 
 def test_wide_kernel_is_the_skip_kernel_bitwise(cuda_tables):
     assert all(selfcheck.wide_equals_skip_walk(cuda_tables, SIZE, SIZE).values())
+
+
+def test_wide_kernel_split_into_launches_or_with_the_largest_stack_gives_the_same_bits(
+        cuda_tables):
+    assert all(selfcheck.wide_chunks_agree(cuda_tables, SIZE, SIZE).values())
+
+
+def test_wavefront_runs_and_routes_give_the_same_bits(cuda_tables):
+    assert all(selfcheck.wavefront_splits_agree(cuda_tables, SIZE, SIZE).values())
 
 
 def test_bvh_kernels_match_the_linear_kernel(cuda_tables):
