@@ -13,7 +13,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      linear kernels on the Cornell box in parity, fast and tp form, wavefront k=1
      vs megakernel bit for bit, fast and tp vs parity under the JAX contract, a
      table past shared memory (read from global memory) bit for bit as in shared
-     memory; the wavefront with runs of 1, 2 and all samples a lane, k = 1 and 3,
+     memory (the megakernel at runs of 1 and 2 samples a lane); every megakernel
+     case (parity, fast, tp with the tp0 peel on and off, 4 and 16 bounces, a
+     ragged image) at runs of 1, 2 and all samples a lane and with the peel in both
+     designs (lockstep, deferred), and a ragged pixel range (pid_base 1000, 2,001
+     pixels; also the whole image's rows), bit for bit against the plain version
+     (selfcheck.linear_runs_agree); the wavefront with runs of 1, 2 and all
+     samples a lane, k = 1 and 3,
      scan table in shared memory (also padded past 48 KB) and, padded past 227 KB,
      in global memory, the same bits; the skip-link and
      8-wide BVH kernels in each leaf form on sphere_field(3, 1), sphere_field() and
@@ -34,8 +40,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      arbitrary-ray kernel (trace_rays.cu, kernels/selfcheck.py trace_rays_checks)
      on 65,536 rows (half camera rays through diff/edge.rays_at, half from inside the
      box), rows from 7, samples from 2^20, 4 bounces, 4 spp: bit for bit against its
-     plain version in parity, fast and tp, a rerun the same bits, and a table past
-     shared memory the same bits. Every linear and BVH kernel case must be bit for
+     plain version in parity, fast and tp at its default run and at runs of 1, 2 and
+     all samples a lane, a rerun the same bits, and a table past shared memory the
+     same bits at each run. Every linear and BVH kernel case must be bit for
      bit against its plain version (the device code they share with the newer
      kernels was factored into helpers; no bit of theirs may move). The AO and
      direct-NEE kernels (fast_integrators.cu, kernels/selfcheck.py
@@ -109,10 +116,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      shape (512², 64 samples per launch; the BVH kernels' plain versions at 1
      sample, against the kernel at 1 sample), as Mrays/s = traced segments per
      second; the two results of each pair are held against each other by phase
-     3's rule; the wavefront (tp) also with runs of 1, 4 and 64 samples a lane.
-     Then the linear-vs-BVH crossover: the megakernel
-     against the 8-wide
-     BVH kernel, fast scan, on sphere_field(n, 2) for n = 1..16 at 256², 4 bounces.
+     3's rule; the wavefront (tp) also with runs of 1, 4 and 64 samples a lane, the
+     megakernel (tp with the tp0 peel in both designs, and parity) with runs of 1,
+     2, 4, 8 and 64, and the SM clock and power draw (nvidia-smi, every 100 ms)
+     over 200 back-to-back megakernel launches. Then the linear-vs-BVH crossover:
+     the megakernel against the 8-wide BVH kernel, fast scan, on sphere_field(n, 2)
+     for n = 1..16 at 256², 4 bounces.
      The adjoint kernel forward-only and with gradients against its plain version
      at 256², 4 bounces, 8 spp (bench_train.py's shape), and the three train steps
      (kernel, hybrid, twin) in ms/step (host clock around synchronize, median) and
@@ -120,16 +129,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
      window for the kernel and hybrid steps, 2 × for the twin; one more step of each
      under torch.profiler gives its device time and busy share. trace_rays against
      its plain version at the rim probes' full-width shape (1,572,864 rows, 3
-     bounces, 2 spp, parity), and the two vertex steps of phase 4c (kernel probes,
-     twin probes) in ms/step with one profiled step each. The AO and direct kernels
+     bounces, 2 spp, parity; also at runs of 1 and 2 samples a lane); the megakernel
+     and trace_rays at the launches of one step of phase 4c's SGD recovery run
+     (recorded through diff/vertex.py: 2 megakernel launches at 64², 2 bounces, 8
+     spp, 4 trace_rays launches), each at its defaults and at every run, against its
+     plain version bit for bit, with its bound; and the two vertex steps of phase 4c
+     (kernel probes, twin probes) in ms/step with one profiled step each. The AO and direct kernels
      against their plain versions at the CLI's shape (Cornell 512², 64 spp in one
      launch), bit for bit, as Mrays/s of the rays they cast (camera rays, and the
      second rays where cast, counted by the plain versions). The sorted wavefront at
      render_sorted's shape (512², 16 bounces, 8 spp a call, leaf 32) on sphere_field()
      and the Cornell box: its 16 bounce launches, whole calls with the sort off and
      on (and the bounce kernels' own device time in each, from events around each
-     launch, which says whether the sort buys kernel time), and the skip-link kernel at the same
-     samples (whose image it must equal bit for bit); the plain version at 1 spp
+     launch, which says whether the sort buys kernel time), and the skip-link kernel
+     at the same samples (whose image it must equal bit for bit); the plain version at 1 spp
      against the kernel at 1 spp, bit for bit.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
@@ -140,7 +153,9 @@ triangles their plain versions tested, per segment, at the timed shape, and for 
 and direct the rays and any-hit triangles theirs counted), `library_ms` null (no
 PyTorch call computes a path trace, AO or NEE) and its launches on each path; the
 BVH kernels also their time and bound at sphere_field(80, 3) (`ms_102k`,
-`bound_ms_102k`).
+`bound_ms_102k`), the megakernel and trace_rays theirs at the vertex recovery
+step's launches (`ms_vertex_step`, `plain_ms_vertex_step`, `bound_ms_vertex_step`:
+sums over its `launches_vertex_step` launches).
 """
 
 from __future__ import annotations
@@ -186,6 +201,9 @@ CLI_SPP = 64         # the CLI's default --spp
 SORTED_CALL_SPP = 8  # render_sorted's samples a call
 SORTED_MAIN_SPP = 64
 WAVEFRONT_TIMED_RUNS = (1, 4, 64)  # phase 5: samples a lane takes at a time
+MEGAKERNEL_TIMED_RUNS = (1, 2, 4, 8, 64)
+TRACE_RAYS_TIMED_RUNS = (1, 2)
+VERTEX_LAUNCH_RUNS = {"megakernel": (1, 2, 4, 8), "trace_rays": (1, 2, 4)}
 GRAD_TIME_CALLS = 20  # launches per timed run of the adjoint kernel (about 0.5 ms each)
 RENDER_KERNELS = ("megakernel", "wavefront", "bvh_megakernel", "wide_bvh")
 VERTEX_SIZE = 64           # examples/train_vertices.py's recovery run
@@ -365,6 +383,8 @@ def phase_checks(tables):
                       selfcheck.wavefront_k1_equals_megakernel),
                      ("table in global memory == in shared memory, bit for bit",
                       selfcheck.global_table_matches_shared),
+                     ("megakernel at runs 1, 2, all and both tp0 designs, and a ragged pixel "
+                      "range, bit for bit against the plain version", selfcheck.linear_runs_agree),
                      ("wide BVH kernel == skip-link kernel, bit for bit (deep: a 14-level tree)",
                       selfcheck.wide_equals_skip_walk),
                      (f"wavefront runs {selfcheck.WAVEFRONT_RUNS}, scan table in shared "
@@ -678,12 +698,9 @@ def vertex_steps(cornell, cfg):
     return {"kernel": (kernel, params), "twin": (twin, params)}
 
 
-def recovery_run(cornell, factory, device):
-    """examples/train_vertices.py's run with the optimizer `factory` makes: (initial
-    and final light-vertex error, losses, the set of (megakernel, trace_rays)
-    launches a step, seconds)."""
-    import torch
-
+def recovery_setup(cornell, factory, device):
+    """examples/train_vertices.py's run with the optimizer `factory` makes: (step,
+    opt_init, the moved light's params, the target, the key, the true vertices)."""
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.core import rng
     from oclpathtracer_tpu_torch.diff import extract_params, make_vertex_train_step
@@ -694,13 +711,22 @@ def recovery_run(cornell, factory, device):
                                                scan="parity")
     target = target / (2 * TRAIN_SPP)
     true_v = extract_params(cornell, albedo=False, vertices=True).vertices
-    params = shifted_light(cornell)
-    err0 = light_error(params, true_v)
     step, init = make_vertex_train_step(
         cornell, cfg, TRAIN_SPP, factory, interior_spp=0, samples_per_edge=48, edge_spp=4,
         secondary=True, secondary_samples_per_edge=16, secondary_spp=2,
         secondary_pixel_stride=RIM_PIXEL_STRIDE)
-    state, key = init(params), rng.make_key(7, device)
+    return step, init, shifted_light(cornell), target, rng.make_key(7, device), true_v
+
+
+def recovery_run(cornell, factory, device):
+    """examples/train_vertices.py's run with the optimizer `factory` makes: (initial
+    and final light-vertex error, losses, the set of (megakernel, trace_rays)
+    launches a step, seconds)."""
+    import torch
+
+    step, init, params, target, key, true_v = recovery_setup(cornell, factory, device)
+    err0 = light_error(params, true_v)
+    state = init(params)
     losses, per_step, errs = [], set(), []
     t0 = time.perf_counter()
     for i in range(VERTEX_STEPS):
@@ -714,6 +740,37 @@ def recovery_run(cornell, factory, device):
             errs.append(light_error(params, true_v))
     secs = time.perf_counter() - t0
     return err0, errs, torch.stack(losses).cpu().numpy(), per_step, secs
+
+
+def recovery_launches(cornell):
+    """The megakernel and trace_rays launches of one step of the SGD 2e-4 recovery
+    run, as (kind, args, kwargs) in launch order: the step's calls of the two
+    wrappers, recorded on their way through diff/vertex.py."""
+    import torch
+
+    from oclpathtracer_tpu_torch.diff import vertex
+
+    device = cornell.geometry.p1.device
+    step, init, params, target, key, _ = recovery_setup(
+        cornell, functools.partial(torch.optim.SGD, lr=2e-4), device)
+    calls = []
+    originals = {"megakernel": vertex.render_samples_pallas_stats,
+                 "trace_rays": vertex.trace_rays_pallas_stats}
+
+    def recorder(kind):
+        def call(*args, **kw):
+            calls.append((kind, args, kw))
+            return originals[kind](*args, **kw)
+        return call
+
+    vertex.render_samples_pallas_stats = recorder("megakernel")
+    vertex.trace_rays_pallas_stats = recorder("trace_rays")
+    try:
+        step(params, init(params), target, 0, key)
+    finally:
+        vertex.render_samples_pallas_stats = originals["megakernel"]
+        vertex.trace_rays_pallas_stats = originals["trace_rays"]
+    return calls
 
 
 def phase_vertex(tables):
@@ -1074,6 +1131,30 @@ def phase_timing(tables):
         log(f"[time] wavefront tp Cornell 512x512 b16 {MAIN_STEP}spp, run {run_len}: {ms:.3f} ms "
             f"({int(segs)} segments)")
     rows.append({"name": "wavefront runs", "ms": variants})
+    variants = {}
+    for scan in ("tp", "parity"):
+        cfg = RenderConfig(512, 512, bounces=4)
+        table, emi, classes = tables.linear("cornell", scan)
+        tp0_table = mk.tp0_table_for(table, cfg, scan)
+        designs = tuple(mk.TP0_DESIGNS) if tp0_table is not None else (None,)
+        for run_len in MEGAKERNEL_TIMED_RUNS:
+            for design in designs:
+                def launch(scan=scan, cfg=cfg, table=table, emi=emi, classes=classes,
+                           tp0_table=tp0_table, run_len=run_len, design=design):
+                    return mk.render_samples_pallas_stats(
+                        table, cfg, TIME_START, MAIN_STEP, scan=scan, classes=classes,
+                        emi_const=emi, tp0_table=tp0_table, run=run_len, tp0_design=design)
+
+                ms, (_, segs) = cuda_time_ms(launch, launch)
+                label = f"{scan} run {run_len}" + (f" {design}" if design else "")
+                variants[label] = ms
+                log(f"[time] megakernel {scan} Cornell 512x512 b4 {MAIN_STEP}spp, run {run_len}"
+                    f"{', tp0 ' + design if design else ''}: {ms:.3f} ms ({int(segs)} segments)")
+    rows.append({"name": "megakernel runs", "ms": variants})
+    clock = clock_under_load(launch)
+    log(f"[time] SM clock and power over {clock['launches']} back-to-back launches of the last "
+        f"megakernel case: {clock}")
+    rows.append({"name": "megakernel clock", **clock})
     for scene, leaf in (("spheres5k", 32), ("spheres102k", 64)):
         for kernel in ("bvh", "widebvh"):
             case = Case(kernel, "fast", 512, 512, 16, scene=scene, leaf=leaf)
@@ -1084,6 +1165,31 @@ def phase_timing(tables):
                       scene=scene)
     require(not failed, f"kernel vs plain at the main path's shapes failed: {failed}")
     return rows
+
+
+def clock_under_load(fn, launches: int = 200) -> dict:
+    """The SM clock (MHz) and power draw (W) that nvidia-smi samples every 100 ms
+    while `launches` calls of fn run back to back: their median and maximum."""
+    import torch
+
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.3)
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        text = smi.communicate(timeout=60)[0]
+    samples = [[float(x) for x in line.split(",")] for line in text.strip().splitlines()
+               if line.count(",") == 1]
+    mhz = [m for m, _ in samples]
+    watts = [w for _, w in samples]
+    return {"launches": launches, "samples": len(samples),
+            "sm_mhz_median": statistics.median(mhz), "sm_mhz_min": min(mhz),
+            "power_w_median": statistics.median(watts), "power_w_max": max(watts)}
 
 
 def phase_grad_timing(tables):
@@ -1135,14 +1241,80 @@ def phase_trace_rays_timing(tables):
     plain_ms, want = cuda_time_ms(lambda: run(plain=True), lambda: None, reps=1)
     r = selfcheck.compare(*got, *want)
     segs = int(got[1])
+    by_run = {}
+    for run_len in TRACE_RAYS_TIMED_RUNS:
+        def launch(run_len=run_len):
+            return selfcheck.run_trace_rays(tables, "parity", o, d, cfg, 2, run=run_len)
+
+        by_run[run_len] = cuda_time_ms(launch, launch)[0]
     row = {"rows": n, "bounces": 3, "spp": 2, "ms": ms, "segments": segs,
            "mrays": segs / (ms * 1e3), "plain_ms": plain_ms, "plain_mrays": segs / (plain_ms * 1e3),
-           "max_abs_err": r["max_abs_err"], "bitwise": r["bitwise"]}
+           "max_abs_err": r["max_abs_err"], "bitwise": r["bitwise"], "ms_by_run": by_run}
     log(f"[time] trace_rays parity {n} rows b3 2spp: kernel {ms:.3f} ms ({row['mrays']:.1f} "
         f"Mrays/s, {segs} segments), plain {plain_ms:.1f} ms ({row['plain_mrays']:.3f} "
-        f"Mrays/s); {r}")
+        f"Mrays/s); by run {by_run}; {r}")
     require(r["ok"] and r["bitwise"], f"trace_rays vs plain at the rim shape: {r}")
     return row
+
+
+def phase_vertex_launch_timing(tables):
+    """The megakernel and trace_rays at the vertex recovery run's launch shapes: the
+    launches of one step of phase 4c's SGD run (recovery_launches: 2 megakernel
+    launches at 64², 2 bounces, 8 spp, and 4 trace_rays launches, all parity), each
+    timed at its defaults and at every run of VERTEX_LAUNCH_RUNS (median of 5), its
+    plain version once and held bit for bit, with its bound; then for each kernel
+    the step's sums over its launches. name → {"launches": [...], "ms", "plain_ms",
+    "bound_ms", "ms_by_run", "segments"}."""
+    from oclpathtracer_tpu_torch.kernels import bounds, selfcheck
+    from oclpathtracer_tpu_torch.kernels import megakernel as mk
+
+    fns = {"megakernel": (mk.render_samples_pallas_stats, mk._render_samples_stats_plain),
+           "trace_rays": (mk.trace_rays_pallas_stats, mk._trace_rays_stats_plain)}
+    out = {kind: {"launches": []} for kind in fns}
+    failed = []
+    for kind, args, kw in recovery_launches(tables.scene("cornell")):
+        fn, plain = fns[kind]
+        if kind == "megakernel":
+            table, cfg, _, n_samples = args[:4]
+            n, in_bytes = cfg.n_pixels, 0
+        else:
+            table, o, _, cfg, n_samples = args[:5]
+            n, in_bytes = o.shape[0], 24 * o.shape[0]
+        ms, got = cuda_time_ms(lambda: fn(*args, **kw), lambda: fn(*args, **kw))
+        by_run = {}
+        for run_len in VERTEX_LAUNCH_RUNS[kind]:
+            if run_len <= n_samples:
+                def launch(run_len=run_len):
+                    return fn(*args, **kw, run=run_len)
+
+                by_run[run_len] = cuda_time_ms(launch, launch)[0]
+        plain_ms, want = cuda_time_ms(lambda: plain(*args, **kw), lambda: None, reps=1)
+        r = selfcheck.compare(*got, *want)
+        segs = int(got[1])
+        bound = bounds.bound_ms(bounds.linear_ops(kw["scan"], table.shape[0], segs),
+                                table.numel() * 4 + in_bytes + 12 * n)
+        out[kind]["launches"].append({
+            "rays": n, "bounces": cfg.bounces, "spp": n_samples, "ms": ms, "plain_ms": plain_ms,
+            "segments": segs, "bound_ms": bound[0], "bound_by": bound[1], "ms_by_run": by_run,
+            "bitwise": r["bitwise"]})
+        log(f"[time] vertex recovery launch: {kind} {kw['scan']} {n} rays b{cfg.bounces} "
+            f"{n_samples}spp: kernel {ms:.4f} ms ({segs} segments), by run {by_run}, plain "
+            f"{plain_ms:.1f} ms, bound {bound[0]:.4f} ms, bitwise {r['bitwise']}")
+        if not r["bitwise"]:
+            failed.append(f"{kind} at {n} rays")
+    for kind, row in out.items():
+        launches = row["launches"]
+        runs = set.intersection(*(set(x["ms_by_run"]) for x in launches))
+        row.update({k: sum(x[k] for x in launches) for k in ("ms", "plain_ms", "bound_ms",
+                                                             "segments")},
+                   ms_by_run={r: sum(x["ms_by_run"][r] for x in launches) for r in sorted(runs)})
+        log(f"[time] vertex recovery step, {kind}'s {len(launches)} launches: {row['ms']:.4f} ms "
+            f"(by run {row['ms_by_run']}), plain {row['plain_ms']:.1f} ms, bound "
+            f"{row['bound_ms']:.4f} ms")
+    require(len(out["megakernel"]["launches"]) == 2 and len(out["trace_rays"]["launches"]) == 4,
+            f"a recovery step's launches: {[(k, len(v['launches'])) for k, v in out.items()]}")
+    require(not failed, f"kernel vs plain at the vertex recovery's launches: {failed}")
+    return out
 
 
 def phase_vertex_timing(tables):
@@ -1414,9 +1586,9 @@ def kernel_bounds(tables, main_rows) -> dict:
     out = {}
     r = main_rows["megakernel"]  # tp with the tp0 peel, 512² b4
     n = 512 * 512
-    out["megakernel"] = bounds.bound_ms(
+    out["megakernel"] = bounds.bound_ms(  # the tp0 table in, the image out
         bounds.linear_ops("tp", n_tris, r["segments"], paths=n * r["spp"], tp0=True,
-                          n_classes=n_cls), 2 * nbytes(table) + 16 * n)  # and the tp0 table
+                          n_classes=n_cls), nbytes(table) + 12 * n)
     r = main_rows["wavefront"]
     out["wavefront"] = bounds.bound_ms(bounds.linear_ops("tp", n_tris, r["segments"],
                                                          n_classes=n_cls),
@@ -1440,7 +1612,7 @@ def kernel_bounds(tables, main_rows) -> dict:
     r = main_rows["trace_rays"]
     ptable, _, _ = tables.linear("cornell", "parity")
     out["trace_rays"] = bounds.bound_ms(bounds.linear_ops("parity", n_tris, r["segments"]),
-                                        nbytes(ptable) + r["rows"] * (24 + 16))
+                                        nbytes(ptable) + r["rows"] * (24 + 12))
     for kind in ("ao", "direct"):
         r = main_rows[kind]
         lights = tables.lights("cornell")[0]
@@ -1486,6 +1658,7 @@ def main() -> int:
     grad_rows = phase_grad_timing(tables)
     train_rows = phase_train_timing(tables)
     rays_row = phase_trace_rays_timing(tables)
+    vertex_launch_rows = phase_vertex_launch_timing(tables)
     vertex_rows = phase_vertex_timing(tables)
     fast_rows = phase_fast_timing(tables)
     sorted_rows = phase_sorted_timing(tables)
@@ -1528,10 +1701,15 @@ def main() -> int:
     kernels = []
     for name, (src, tpu) in sources.items():
         row = main_rows[name]
-        at_102k = {}
+        second = {}  # each kernel's second shape
         if name + "_102k" in main_rows:  # the BVH kernels at sphere_field(80, 3) too
-            at_102k = {"ms_102k": main_rows[name + "_102k"]["ms"],
+            second = {"ms_102k": main_rows[name + "_102k"]["ms"],
                        "bound_ms_102k": bounds[name + "_102k"][0]}
+        if name in vertex_launch_rows:  # the vertex recovery step's launches too
+            v = vertex_launch_rows[name]
+            second = {"ms_vertex_step": v["ms"], "plain_ms_vertex_step": v["plain_ms"],
+                       "bound_ms_vertex_step": v["bound_ms"],
+                       "launches_vertex_step": len(v["launches"])}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"oclpathtracer_tpu_torch/kernels/csrc/{src}", "replaces": tpu,
@@ -1540,11 +1718,12 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
             **{k: row[k] for k in ("spp", "plain_spp", "forward_ms", "forward_plain_ms", "rows")
-               if k in row}, **at_102k})
+               if k in row}, **second})
     log(f"[done] {card}; all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)  # nvidia-smi's name and power limit, as it gives them
     print(json.dumps({"timing": rows, "grad_timing": grad_rows, "train_timing": train_rows,
-                      "trace_rays_timing": rays_row, "vertex_timing": vertex_rows,
+                      "trace_rays_timing": rays_row, "vertex_launch_timing": vertex_launch_rows,
+                      "vertex_timing": vertex_rows,
                       "fast_timing": fast_rows, "sorted_timing": sorted_rows,
                       "crossover": crossover}))
     print(json.dumps({"kernels": kernels}))

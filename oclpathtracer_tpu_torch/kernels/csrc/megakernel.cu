@@ -6,55 +6,92 @@
 // radiance, clamped at max(rad, 0) per path and added in sample order, and the
 // number of traced segments.
 //
-// What bounds it on the H100: FP32 ALU work and register pressure. Each thread
-// runs the whole bounce loop with a linear scan of every triangle per bounce
-// (about 40 FP32 operations per triangle) and touches device memory only to
-// stage the table once per block and to write one float3 and one int per pixel.
+// What bounds it on the H100: the linear scan's instruction issue. A tp triangle is
+// about 43 FP32 operations with -fmad=false (25 in the tp0 peel's collapsed form),
+// and at the Cornell box's 36 triangles the scan is most of a segment's arithmetic;
+// device memory is touched only to stage the table and to write the result (and,
+// with the per-sample split, the scratch buffer). Written as one thread a pixel that
+// left the bounce loop when its path died, it ran the scan in divergent control
+// flow, and at small launches (the vertex step's 64², 4,096 pixels: 32 blocks for
+// 132 SMs) most of the card sat idle.
 //
-// What the design does about that: one thread per pixel, 128 threads a block;
-// the table lives in shared memory when it fits (227 KB, about 2,400
-// triangles) so that a warp's 32 lanes read each triangle as one broadcast, and
-// is read from global memory through read-only loads (L1/L2-resident broadcasts)
-// when it does not; which of the two depends only on the table's size, and the
-// results are the same. The scan tracks only (t, index) or (num, den, index)
-// and reads the winner's attributes once; a thread leaves the bounce loop as
-// soon as its path is dead, which is exact because a dead lane adds no radiance
-// and is not counted. The TPU kernel's tiles, SMEM flattening and
-// interleave/scan-chunk/unroll knobs are scheduling for the TPU and have no
-// counterpart here.
-//
-// The tp0 peel keeps the JAX gate (tp, n_tris <= 128, 1 <= bounces <= 8):
-// its collapsed forms round differently from the generic tp scan, so the gate
-// decides which numbers come out, not only how fast.
-#include "trace.cuh"
+// What the design does about that: regen.cuh's loop, which wavefront.cu and
+// trace_rays.cu run too. Persistent blocks take (pixel, run of samples) items from
+// a queue, the segment loop is warp-uniform (the scan reads the table's rows as
+// aligned float4s from shared memory, or from global memory past 227 KB, with the
+// row index in uniform registers), and with runs shorter than n_samples the samples
+// go to the scratch buffer and split.cuh's sample_sum adds them in sample order,
+// which moves no bit. The tp0 peel keeps the JAX gate (tp, n_tris <= 128, 1 <=
+// bounces <= 8: its collapsed forms round differently from the generic tp scan, so
+// the gate decides which numbers come out); a path's first segment runs the
+// collapsed scan and no other does, in one of two designs (regen.cuh): lockstep or
+// deferred regeneration; it reads only the rows whose t0 > 0, a copy each block
+// makes once. A peeled table has at most 128 rows and is always in shared memory.
+// The TPU kernel's tiles, SMEM flattening and interleave/scan-chunk/unroll knobs
+// are scheduling for the TPU and have no counterpart here.
+#include "regen.cuh"
 
 namespace opt {
 
-static __device__ __forceinline__ void megakernel_pixel(const Params& P, const float* tbl,
-                                                        float* __restrict__ out,
-                                                        int* __restrict__ segs) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= P.n_rays) return;
-  render_pixel(
-      P, idx, [&](Path& p, int b) { trace_segment(P, tbl, p, P.tp0 && b == 0); }, out, segs);
+template <int SCAN, int ROUTE, int PEEL>
+__global__ void __launch_bounds__(BLOCK) megakernel(const float* __restrict__ table,
+                                                  const Params P, int run, int wait,
+                                                  CameraStart src, float* __restrict__ out,
+                                                  float* __restrict__ scratch,
+                                                  unsigned long long* __restrict__ counters) {
+  table_loop<SCAN, ROUTE, PEEL>(table, P, run, wait, src, out, scratch, counters);
 }
 
-__global__ void __launch_bounds__(BLOCK) megakernel(const float* __restrict__ table,
-                                                  const Params P, float* __restrict__ out,
-                                                  int* __restrict__ segs) {
+template <int SCAN, int PEEL>
+static int launch_megakernel(const float* table, const Params& P, int run, int wait, float* out,
+                             float* scratch, unsigned long long* counters, cudaStream_t stream) {
   if (P.smem)
-    megakernel_pixel(P, stage_table(table, P.n_tris), out, segs);
-  else
-    megakernel_pixel(P, table, out, segs);
+    return launch_table_loop(megakernel<SCAN, ROUTE_SHARED, PEEL>,
+                             table_smem_bytes(P, true, PEEL != PEEL_NONE), table, P, run, wait,
+                             CameraStart{}, out, scratch, counters, stream);
+  if constexpr (PEEL == PEEL_NONE)  // a peeled table is always in shared memory
+    return launch_table_loop(megakernel<SCAN, ROUTE_GLOBAL, PEEL>, 0, table, P, run, wait,
+                             CameraStart{}, out, scratch, counters, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace opt
 
-extern "C" int opt_megakernel_launch(const float* table, const float* host_f,
-                                     const int* host_i, float* out, int* segs,
+// host_i[N_HOST_INTS] = run (samples of one pixel a lane takes from the queue, >= 1),
+// host_i[N_HOST_INTS + 1] = the tp0 peel's design where P.tp0 (PEEL_LOCKSTEP or
+// PEEL_DEFERRED), host_i[N_HOST_INTS + 2] = the deferred design's wait (1..32).
+// scratch is (n_samples, n_pix, 3) when run < n_samples, else unused. counters is
+// two int64, zero on entry: the traced segments and the queue's head.
+extern "C" int opt_megakernel_launch(const float* table, const float* host_f, const int* host_i,
+                                     float* out, float* scratch, long long* counters,
                                      void* stream) {
   opt::Params P = opt::params_from_host(host_f, host_i);
-  return opt::launch_linear(opt::megakernel, table, P, out, segs, stream);
+  int run = host_i[opt::N_HOST_INTS];
+  int peel = host_i[opt::N_HOST_INTS + 1];
+  int wait = host_i[opt::N_HOST_INTS + 2];
+  if (run < 1 || (run < P.n_samples) != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
+  auto* c = (unsigned long long*)counters;
+  auto s = (cudaStream_t)stream;
+  if (P.tp0) {
+    // The gate keeps a peeled table to 128 rows: always in shared memory.
+    if (P.scan != opt::SCAN_TP || !P.smem || wait < 1 || wait > 32)
+      return (int)cudaErrorInvalidValue;
+    if (peel == opt::PEEL_LOCKSTEP)
+      return opt::launch_megakernel<opt::SCAN_TP, opt::PEEL_LOCKSTEP>(table, P, run, wait, out,
+                                                                      scratch, c, s);
+    if (peel == opt::PEEL_DEFERRED)
+      return opt::launch_megakernel<opt::SCAN_TP, opt::PEEL_DEFERRED>(table, P, run, wait, out,
+                                                                      scratch, c, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (P.scan == opt::SCAN_TP)
+    return opt::launch_megakernel<opt::SCAN_TP, opt::PEEL_NONE>(table, P, run, wait, out, scratch,
+                                                                c, s);
+  if (P.scan == opt::SCAN_FAST)
+    return opt::launch_megakernel<opt::SCAN_FAST, opt::PEEL_NONE>(table, P, run, wait, out,
+                                                                  scratch, c, s);
+  return opt::launch_megakernel<opt::SCAN_PARITY, opt::PEEL_NONE>(table, P, run, wait, out,
+                                                                  scratch, c, s);
 }
 
 extern "C" const char* opt_error_string(int code) {

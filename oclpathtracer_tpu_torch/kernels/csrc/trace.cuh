@@ -391,25 +391,6 @@ static __device__ __forceinline__ Hit decode(const Params& P, const float* tbl, 
   return decode_parity(tbl, b);
 }
 
-// tp0 scan (megakernel.py tri_body_tp0): the first segment starts at the eye,
-// so the forms collapse to dots with the augment_table_tp0 columns 17:24.
-static __device__ __forceinline__ Hit scan_tp0(const Params& P, const float* tbl, float3 d) {
-  Best b = fresh_best();
-  for (int j = 0; j < P.n_tris; ++j) {
-    const float* r = tbl + (size_t)j * TABLE_COLS;
-    float t0 = r[23];
-    float det = dot3(d, row3(r, 0));
-    float unum = dot3(d, row3(r, 17));
-    float vnum = dot3(d, row3(r, 20));
-    if (det >= 1e-8f && inside3(unum, vnum, det) && t0 > 0.0f && t0 * b.den < b.num * det) {
-      b.num = t0;
-      b.den = det;
-      b.idx = j;
-    }
-  }
-  return decode_tp(P.classes, P.n_classes, tbl, b);
-}
-
 // The linear first-min scan over the whole table, decoded.
 template <int SCAN>
 static __device__ __forceinline__ Hit scan_linear(const Params& P, const float* tbl, float3 o,
@@ -540,20 +521,6 @@ static __device__ __forceinline__ void shade(const Params& P, Path& p, const Hit
   advance(P, p, h, sample_lobe(p.d, h, p.rng));
 }
 
-// One traced segment of the linear kernels: scan, decode, shade. `primary`
-// selects the tp0 form.
-static __device__ __forceinline__ void trace_segment(const Params& P, const float* tbl, Path& p,
-                                                     bool primary) {
-  Hit h;
-  if (P.scan == SCAN_TP)
-    h = primary ? scan_tp0(P, tbl, p.d) : scan_linear<SCAN_TP>(P, tbl, p.o, p.d);
-  else if (P.scan == SCAN_FAST)
-    h = scan_linear<SCAN_FAST>(P, tbl, p.o, p.d);
-  else
-    h = scan_linear<SCAN_PARITY>(P, tbl, p.o, p.d);
-  shade(P, p, h);
-}
-
 // The per-sample bounce loop of one thread: n 1-spp samples, each at most
 // `bounces` segments, max(rad, 0) added in sample order, segments counted.
 // `start(s)` makes sample s's path (camera_path or ray_path);
@@ -608,19 +575,6 @@ static inline cudaError_t table_smem(Kernel kernel, const Params& P, size_t* sme
   *smem = P.smem ? (size_t)P.n_tris * TABLE_COLS * sizeof(float) : 0;
   if (*smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-}
-
-// Launch a linear kernel: the table goes to shared memory when P.smem says it
-// fits, else the kernel reads it from global memory.
-template <typename Kernel>
-static inline int launch_linear(Kernel kernel, const float* table, const Params& P, float* out,
-                                int* segs, void* stream) {
-  size_t smem;
-  cudaError_t err = table_smem(kernel, P, &smem);
-  if (err != cudaSuccess) return (int)err;
-  int grid = (P.n_rays + BLOCK - 1) / BLOCK;
-  kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(table, P, out, segs);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace opt

@@ -12,57 +12,63 @@
 // probes just inside and outside an edge rely on. The tp0 peel is off (the rays do
 // not share the camera's origin), and the width and height are not read.
 //
-// What bounds it on the H100: as megakernel.cu, FP32 work of the linear scan per
-// bounce (about 50 operations per triangle in the parity form the vertex step
-// uses). Device memory carries only the rays in (24 bytes a row) and the sums out
-// (16 bytes a row): at the rim probes' 1.57 M rows that is 63 MB, far under the
-// scan's arithmetic.
+// What bounds it on the H100: as megakernel.cu, the linear scan's instruction issue
+// (about 53 FP32 operations per triangle in the parity form the vertex step uses,
+// one of them an IEEE divide with a branch to its slow path). Device memory carries
+// only the rays in (24 bytes a row), the sums out (12 bytes a row) and, split, the
+// scratch buffer: at the rim probes' 1.57 M rows that is 57 MB and 38 MB, far under
+// the scan's arithmetic.
 //
-// What the design does about that: the megakernel's loop, scan and shading
-// (trace.cuh trace_samples and trace_segment), with only the path's start
-// swapped, so the two kernels cannot drift apart; one thread per row, 128 threads
-// a block; the table in shared memory when it fits, else read from global memory.
-#include "trace.cuh"
+// What the design does about that: regen.cuh's loop with the path started from the
+// row (RayStart), so the megakernel, this kernel and the wavefront cannot drift
+// apart: persistent blocks take (row, run of samples) items from a queue and read
+// the row's (o, d) once an item, the segment loop is warp-uniform over the table's
+// float4 rows (shared memory, or global memory past 227 KB), and with runs shorter
+// than n_samples the samples go to the scratch buffer and split.cuh's sample_sum
+// adds them in sample order, which moves no bit.
+#include "regen.cuh"
 
 namespace opt {
 
-static __device__ __forceinline__ void trace_rays_row(const Params& P, const float* tbl,
-                                                      const float* __restrict__ o,
-                                                      const float* __restrict__ d,
-                                                      float* __restrict__ out,
-                                                      int* __restrict__ segs) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= P.n_rays) return;
-  int row = P.pid_base + idx;
-  float3 ro = row3(o, 3 * idx);
-  float3 rd = row3(d, 3 * idx);
-  trace_samples(
-      P, idx, [&](int s) { return ray_path(P, row, ro, rd, s); },
-      [&](Path& p, int) { trace_segment(P, tbl, p, false); }, out, segs);
+template <int SCAN, int ROUTE>
+__global__ void __launch_bounds__(BLOCK) trace_rays(const float* __restrict__ table,
+                                                  const Params P, int run, int wait,
+                                                  RayStart src, float* __restrict__ out,
+                                                  float* __restrict__ scratch,
+                                                  unsigned long long* __restrict__ counters) {
+  table_loop<SCAN, ROUTE, PEEL_NONE>(table, P, run, wait, src, out, scratch, counters);
 }
 
-__global__ void __launch_bounds__(BLOCK) trace_rays(const float* __restrict__ table,
-                                                  const float* __restrict__ o,
-                                                  const float* __restrict__ d, const Params P,
-                                                  float* __restrict__ out,
-                                                  int* __restrict__ segs) {
+template <int SCAN>
+static int launch_trace_rays(const float* table, const Params& P, int run, RayStart src,
+                             float* out, float* scratch, unsigned long long* counters,
+                             cudaStream_t stream) {
   if (P.smem)
-    trace_rays_row(P, stage_table(table, P.n_tris), o, d, out, segs);
-  else
-    trace_rays_row(P, table, o, d, out, segs);
+    return launch_table_loop(trace_rays<SCAN, ROUTE_SHARED>, table_smem_bytes(P, true, false),
+                             table, P, run, 1, src, out, scratch, counters, stream);
+  return launch_table_loop(trace_rays<SCAN, ROUTE_GLOBAL>, 0, table, P, run, 1, src, out,
+                           scratch, counters, stream);
 }
 
 }  // namespace opt
 
-// pid_base carries row_base; tp0 must be 0.
+// pid_base carries row_base; tp0 must be 0. host_i[N_HOST_INTS] = run (samples of one
+// row a lane takes from the queue, >= 1). scratch is (n_samples, N, 3) when run <
+// n_samples, else unused. counters is two int64, zero on entry: the traced segments
+// and the queue's head.
 extern "C" int opt_trace_rays_launch(const float* table, const float* o, const float* d,
                                      const float* host_f, const int* host_i, float* out,
-                                     int* segs, void* stream) {
+                                     float* scratch, long long* counters, void* stream) {
   opt::Params P = opt::params_from_host(host_f, host_i);
-  size_t smem;
-  cudaError_t err = opt::table_smem(opt::trace_rays, P, &smem);
-  if (err != cudaSuccess) return (int)err;
-  int grid = (P.n_rays + opt::BLOCK - 1) / opt::BLOCK;
-  opt::trace_rays<<<grid, opt::BLOCK, smem, (cudaStream_t)stream>>>(table, o, d, P, out, segs);
-  return (int)cudaGetLastError();
+  int run = host_i[opt::N_HOST_INTS];
+  if (P.tp0 || run < 1 || (run < P.n_samples) != (scratch != nullptr))
+    return (int)cudaErrorInvalidValue;
+  opt::RayStart src{o, d};
+  auto* c = (unsigned long long*)counters;
+  auto s = (cudaStream_t)stream;
+  if (P.scan == opt::SCAN_TP)
+    return opt::launch_trace_rays<opt::SCAN_TP>(table, P, run, src, out, scratch, c, s);
+  if (P.scan == opt::SCAN_FAST)
+    return opt::launch_trace_rays<opt::SCAN_FAST>(table, P, run, src, out, scratch, c, s);
+  return opt::launch_trace_rays<opt::SCAN_PARITY>(table, P, run, src, out, scratch, c, s);
 }

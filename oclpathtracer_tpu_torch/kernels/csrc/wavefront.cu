@@ -21,7 +21,8 @@
 // (nvcc merges the row's scalar reads), and neither unrolling the scan nor more
 // resident blocks moves it.
 //
-// What the design does about that:
+// What the design does about that (regen.cuh's loop, which the megakernel and
+// trace_rays run too):
 //  - the segment loop is warp-uniform: it runs while any lane of the warp has a
 //    path, every lane scans (a lane without one scans its last ray and drops the
 //    result), and ptxas keeps the row index and address in uniform registers
@@ -44,11 +45,9 @@
 // forms' strict first-min of fractions is not a min over (t, row) at ulp ties.
 // No tp0 peel (the JAX kernel has none): a regenerated path's first segment uses
 // the generic scan.
-#include "split.cuh"
+#include "regen.cuh"
 
 namespace opt {
-
-enum { ROUTE_GLOBAL = 0, ROUTE_SHARED = 1 };
 
 template <int SCAN, int ROUTE>
 __global__ void __launch_bounds__(BLOCK) wavefront(const float* __restrict__ table,
@@ -63,108 +62,23 @@ __global__ void __launch_bounds__(BLOCK) wavefront(const float* __restrict__ tab
     __syncthreads();
   }
   auto load = [&](int i) { return ROUTE == ROUTE_SHARED ? smem_scan[i] : __ldg(scan + i); };
-
-  const int n_pix = P.n_rays;
-  const long long n_items = (long long)((P.n_samples + run - 1) / run) * n_pix;
-  const int k = scratch ? 1 : P.interleave;
-  const unsigned lane = threadIdx.x & 31u;
-  int sg = 0;
-  bool have = false, drained = false;
-  int idx = 0, pid = 0, first = 0, last = 0, i = 0, s = 0, b = 0;
-  float px = 0.0f, py = 0.0f;
-  float3 acc = v3(0.0f, 0.0f, 0.0f), total = acc;
-  Path p;
-  p.o = p.d = acc;
-  while (true) {
-    // Lanes without a run take the next runs of the queue, one atomic a warp.
-    unsigned need = __ballot_sync(0xffffffffu, !have);
-    if (need != 0 && !drained) {
-      int leader = __ffs(need) - 1;
-      unsigned long long base = 0;
-      if ((int)lane == leader) base = atomicAdd(&counters[1], (unsigned long long)__popc(need));
-      base = __shfl_sync(0xffffffffu, base, leader);
-      drained = base + __popc(need) >= (unsigned long long)n_items;
-      long long item = (long long)base + __popc(need & ((1u << lane) - 1u));
-      if (!have && item < n_items) {
-        int r = (int)(item / n_pix);
-        idx = (int)(item - (long long)r * n_pix);
-        pid = P.pid_base + idx;
-        px = (float)(pid % P.width);
-        py = (float)(pid / P.width);
-        first = r * run;
-        last = min(first + run, P.n_samples);
-        i = 0;
-        s = first;
-        b = 0;
-        acc = total = v3(0.0f, 0.0f, 0.0f);
-        p = camera_path(P, pid, px, py, s);
-        have = true;
-      }
-    }
-    if (!__any_sync(0xffffffffu, have)) break;
-    Best best = fresh_best();
-    float3 m = SCAN == SCAN_TP ? cross3(p.o, p.d) : v3(0.0f, 0.0f, 0.0f);
-    scan_rows4<SCAN, 2>(load, V, 0, P.n_tris, p.o, p.d, m, best);
-    if (have) {
-      sg += 1;
-      shade(P, p, decode<SCAN>(P, table, best));
-      b += 1;
-      if (!p.active || b >= P.bounces) {
-        if (scratch)
-          store_sample(scratch, s, n_pix, idx, p.rad);
-        else
-          acc = v3(acc.x + clamp0(p.rad.x), acc.y + clamp0(p.rad.y), acc.z + clamp0(p.rad.z));
-        s += k;
-        if (s >= last) {  // stream i is done: the next stream, in ascending order
-          total = add3(total, acc);
-          acc = v3(0.0f, 0.0f, 0.0f);
-          i += 1;
-          s = first + i;
-        }
-        if (i < k && s < last) {
-          p = camera_path(P, pid, px, py, s);
-          b = 0;
-        } else {
-          if (!scratch) {
-            out[3 * idx + 0] = total.x;
-            out[3 * idx + 1] = total.y;
-            out[3 * idx + 2] = total.z;
-          }
-          have = false;
-        }
-      }
-    }
-  }
-  count_segments(&counters[0], sg);
+  auto no_peel = [](float3, Best&) {};
+  regen_loop<SCAN, PEEL_NONE>(P, table, load, V, no_peel, run, 1, CameraStart{}, out, scratch,
+                              counters);
 }
 
 template <int SCAN, int ROUTE>
 static int launch_wavefront(const float* table, const float* scan, const Params& P, int run,
                             float* out, float* scratch, unsigned long long* counters,
                             cudaStream_t stream) {
-  constexpr int V = scan_vec4s<SCAN>();
   auto kernel = wavefront<SCAN, ROUTE>;
-  size_t bytes = (size_t)P.n_tris * V * sizeof(float4);
-  size_t smem = 0;
-  cudaError_t err = cudaSuccess;
-  if (ROUTE == ROUTE_SHARED) {
-    smem = bytes;
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  if (err != cudaSuccess) return (int)err;
+  size_t smem = ROUTE == ROUTE_SHARED ? (size_t)P.n_tris * scan_vec4s<SCAN>() * sizeof(float4)
+                                      : 0;
   bool split = run < P.n_samples;
-  int n_runs = (P.n_samples + run - 1) / run;
-  int grid = split_grid((long long)n_runs * P.n_rays);
-  if (grid == 0) return (int)cudaErrorInvalidValue;
-  // Persistent blocks: as many as the card holds at once, no more than the runs need.
-  int device, sms, per_sm;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, smem)) !=
-          cudaSuccess)
-    return (int)err;
-  if (sms * per_sm >= 1 && sms * per_sm < grid) grid = sms * per_sm;
+  long long n_items = (long long)((P.n_samples + run - 1) / run) * P.n_rays;
+  int grid;
+  cudaError_t err = persistent_grid(kernel, smem, n_items, &grid);
+  if (err != cudaSuccess) return (int)err;
   kernel<<<grid, BLOCK, smem, stream>>>(table, (const float4*)scan, P, run, split ? nullptr : out,
                                         split ? scratch : nullptr, counters);
   err = cudaGetLastError();

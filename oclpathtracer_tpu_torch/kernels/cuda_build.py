@@ -29,19 +29,19 @@ BUILD_DIR = os.path.join(os.path.dirname(__file__), "build")
 SOURCES = ("megakernel.cu", "wavefront.cu", "bvh_megakernel.cu", "wide_bvh.cu",
            "grad_megakernel.cu", "trace_rays.cu", "fast_integrators.cu",
            "sorted_wavefront.cu")
-HEADERS = ("trace.cuh", "bvh.cuh", "split.cuh")
+HEADERS = ("trace.cuh", "bvh.cuh", "split.cuh", "regen.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Each entry point: (input tensors, output tensors). Its arguments are the inputs,
 # the host float and int arrays, the outputs and the stream, each a c_void_p.
 LAUNCHERS = {
-    "opt_megakernel_launch": (1, 2),       # table -> out, segs
+    "opt_megakernel_launch": (1, 3),       # table -> out, scratch, segs
     "opt_wavefront_launch": (2, 3),        # table, scan table -> out, scratch, segs
     "opt_bvh_megakernel_launch": (3, 2),   # table, nodes_f, nodes_i -> out, segs
     "opt_wide_bvh_launch": (4, 3),         # table, boxes, meta, init -> out, scratch, segs
     "opt_grad_megakernel_launch": (3, 3),  # table, classes, weight -> out, segs, partials
-    "opt_trace_rays_launch": (3, 2),       # table, o, d -> out, segs
+    "opt_trace_rays_launch": (3, 3),       # table, o, d -> out, scratch, segs
     "opt_ao_launch": (1, 1),               # table -> out
     "opt_direct_launch": (2, 1),           # table, light table -> out
     # table, nodes_f, nodes_i -> the ray state in place (o, d, mask, rad, live, rng), segs

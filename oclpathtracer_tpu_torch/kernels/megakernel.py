@@ -1,11 +1,14 @@
 """Fused path-trace megakernel: host side, plain PyTorch version and CUDA wrapper.
 
 Counterpart of `oclpathtracer_tpu.kernels.megakernel`. The kernel
-(`csrc/megakernel.cu`, device code in `csrc/trace.cuh`) traces whole paths for one
-pixel per thread: camera generation, the bounce loop, the first-min linear triangle
-scan, BRDF sampling and the sum over samples. The scene table sits in shared memory
-while it fits (`table_in_shared`) and is read from global memory beyond; the results
-do not depend on which.
+(`csrc/megakernel.cu`, its loop in `csrc/regen.cuh`, device code in `csrc/trace.cuh`)
+traces the paths of (pixel, run of samples) items that persistent blocks take from a
+queue: camera generation, the bounce loop, the first-min linear triangle scan, BRDF
+sampling and the sum over samples. The scene table sits in shared memory while it
+fits (`table_in_shared`) and is read from global memory beyond; the results do not
+depend on which. `run`, the samples of one pixel a lane takes at a time, moves no
+bit: with run < n_samples each sample's max(rad, 0) goes to a (n_samples, n_pix, 3)
+scratch buffer that a second kernel adds in sample order (`sample_sum_plain`).
 
 Sample streams are the reference's RNG (kernels/rng.py): seed = pixel_id +
 hash(frame), wang+LCG per draw, keyed on ABSOLUTE pixel ids so any split of the
@@ -79,6 +82,19 @@ TP_ORIGIN_FACTOR = 64.0
 # trace_rays_pallas_stats (csrc/trace_rays.cu).
 LAUNCHES = 0
 TRACE_RAYS_LAUNCHES = 0
+
+# Samples a lane takes at a time by default (`run`), the fastest on the card
+# (PERF.md), while the scratch buffer stays within SCRATCH_MAX_BYTES (default_run).
+DEFAULT_RUN = 1
+TRACE_RAYS_DEFAULT_RUN = 1
+
+# The tp0 peel's two designs (csrc/regen.cuh PEEL_*): "lockstep" runs the collapsed
+# bounce-0 scan once no lane of a warp is in the middle of a path, "deferred" also
+# once TP0_WAIT lanes wait for it. Both give the same bits; TP0_DESIGN is the faster
+# on the card, and TP0_WAIT the best of the waits tried for "deferred" (PERF.md).
+TP0_DESIGNS = {"lockstep": 1, "deferred": 2}
+TP0_DESIGN = "lockstep"
+TP0_WAIT = 24
 
 
 # ---- scene packing (bit for bit as the JAX package builds it in numpy) --------
@@ -760,9 +776,15 @@ def render_frames_plain(cfg: RenderConfig, start_sample: int, n_samples: int,
 
 
 # The most (n_samples, n_pix, 3) f32 scratch a split kernel launch takes
-# (csrc/split.cuh): the wavefront gives each pixel to one thread past it, the 8-wide
-# kernel splits the samples over launches.
+# (csrc/split.cuh): the linear kernels give each pixel (or row) to one lane past it,
+# the 8-wide kernel splits the samples over launches.
 SCRATCH_MAX_BYTES = 1 << 30
+
+
+def default_run(n_samples: int, n_pix: int, run: int = DEFAULT_RUN) -> int:
+    """`run` while the (n_samples, n_pix, 3) f32 scratch buffer fits
+    SCRATCH_MAX_BYTES, else n_samples (a pixel or row a lane, no scratch)."""
+    return run if n_samples * n_pix * 12 <= SCRATCH_MAX_BYTES else n_samples
 
 
 def render_frames_split_plain(cfg: RenderConfig, start_sample: int, n_samples: int,
@@ -814,7 +836,8 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
                                 n_rays: int | None = None, scan: str = "parity",
                                 classes: tuple = (), tp0: bool = True,
                                 tp0_table: torch.Tensor | None = None,
-                                emi_const: tuple = NO_EMI):
+                                emi_const: tuple = NO_EMI, run: int | None = None,
+                                tp0_design: str | None = None):
     """SUM of `n_samples` progressive 1-spp frames + traced-segment count.
 
     Returns (img (n_rays, 3) f32, segments () int64). `table` is pack_scene's
@@ -823,7 +846,9 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
     [pid_base, pid_base + n_rays) passes its offset so RNG and camera stay keyed on
     absolute ids. `tp0` (tp only): peel bounce 0 onto the collapsed scan, under
     the gate of `tp0_enabled`; `tp0_table` is `tp0_table_for`'s result, made once
-    per render (without it each launch augments the table itself).
+    per render (without it each launch augments the table itself). `run`: samples
+    of one pixel a lane takes at a time (default `default_run`); `tp0_design`: the
+    peel's design, a key of TP0_DESIGNS (default TP0_DESIGN). Neither moves a bit.
 
     A CUDA table launches `csrc/megakernel.cu` (table in shared memory where
     `table_in_shared`, else in global memory); a CPU table runs the plain version.
@@ -831,6 +856,10 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
     global LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     check_call(table, cfg, n_samples, scan, classes, n_pix)
+    run = check_run(run, n_samples, n_pix, DEFAULT_RUN)
+    design = TP0_DESIGN if tp0_design is None else tp0_design
+    if design not in TP0_DESIGNS:
+        raise ValueError(f"tp0_design must be one of {tuple(TP0_DESIGNS)}, got {design!r}")
     if table.device.type == "cpu":
         return _render_samples_stats_plain(table, cfg, start_sample, n_samples, pid_base,
                                            n_pix, scan, classes, tp0, tp0_table, emi_const)
@@ -839,14 +868,43 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
     tp0_on = tp0_enabled(scan, tp0, table.shape[0], cfg.bounces)
     if tp0_on:
         table = _peel_table(table, cfg, tp0_table)
+    check_rows4(table)
     floats, ints = host_params(cfg, scan, classes, tp0_on, table.shape[0], start_sample,
                                n_samples, pid_base, n_pix, emi_const=emi_const,
                                smem=table_in_shared(table))
-    out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
-    segs = torch.empty((n_pix,), dtype=torch.int32, device=table.device)
-    cuda_build.launch("opt_megakernel_launch", (table,), floats, ints, out, segs)
+    out, scratch, counters = split_buffers(n_samples, n_pix, run, table.device)
+    cuda_build.launch("opt_megakernel_launch", (table,), floats,
+                      ints + [run, TP0_DESIGNS[design], TP0_WAIT], out, scratch, counters)
     LAUNCHES += 1
-    return out, segs.sum(dtype=torch.int64)
+    return out, counters[0]
+
+
+def check_run(run: int | None, n_samples: int, n_pix: int, preferred: int) -> int:
+    """The launch's run: `default_run(n_samples, n_pix, preferred)` where `run` is
+    None, else `run` capped at n_samples; raise unless run >= 1."""
+    run = default_run(n_samples, n_pix, preferred) if run is None else run
+    if run < 1:
+        raise ValueError(f"run must be >= 1, got {run}")
+    return min(run, n_samples)
+
+
+def check_rows4(table: torch.Tensor) -> None:
+    """Raise unless the (T, 24) table's base is 16-byte aligned: the kernels read its
+    96-byte rows as float4s."""
+    if table.data_ptr() % 16:
+        raise ValueError("the table must start on a 16-byte boundary (the kernels read "
+                         "float4s): pass a fresh contiguous tensor")
+
+
+def split_buffers(n_samples: int, n_pix: int, run: int, device):
+    """The linear kernels' outputs: (out (n_pix, 3), the (n_samples, n_pix, 3) scratch
+    buffer where run < n_samples else None, the two int64 counters: segments and the
+    queue's head, zero)."""
+    out = torch.empty((n_pix, 3), dtype=torch.float32, device=device)
+    scratch = None
+    if run < n_samples:
+        scratch = torch.empty((n_samples, n_pix, 3), dtype=torch.float32, device=device)
+    return out, scratch, torch.zeros((2,), dtype=torch.int64, device=device)
 
 
 def render_samples_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
@@ -879,38 +937,61 @@ def render_pallas(scene: Scene, cfg: RenderConfig, total_spp: int,
 
 # ---- arbitrary rays: the boundary estimators' probes ------------------------------
 
+def _ray_samples_plain(table: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                       cfg: RenderConfig, n_samples: int, row_base: int, start_sample: int,
+                       scan: str, classes: tuple, emi_const: tuple):
+    """Each sample's (max(rad, 0) (N, 3), segments (N,) int32) of the rows, in order."""
+    ps = _PlainScene(table, classes, scan, emi_const)
+    k = _Consts.of(cfg)
+    nearest = linear_nearest(ps)
+    rows = torch.arange(row_base, row_base + o.shape[0], dtype=torch.int64, device=o.device)
+    for s in range(n_samples):
+        yield _trace_path_plain(k, cfg, _ray_path(o, d, rows, int(start_sample) + s), nearest)
+
+
 def _trace_rays_stats_plain(table: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                             cfg: RenderConfig, n_samples: int, row_base: int = 0,
                             start_sample: int = 0, scan: str = "parity", classes: tuple = (),
                             emi_const: tuple = NO_EMI):
     """trace_rays' plain PyTorch version: (radiance sum (N, 3) f32, segments int64)."""
-    ps = _PlainScene(table, classes, scan, emi_const)
-    k = _Consts.of(cfg)
-    nearest = linear_nearest(ps)
-    n = o.shape[0]
-    rows = torch.arange(row_base, row_base + n, dtype=torch.int64, device=o.device)
-    acc = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
-    segs = torch.zeros((n,), dtype=torch.int32, device=o.device)
-    for s in range(n_samples):
-        rad, sg = _trace_path_plain(k, cfg, _ray_path(o, d, rows, int(start_sample) + s),
-                                    nearest)
+    acc = torch.zeros((o.shape[0], 3), dtype=torch.float32, device=o.device)
+    segs = torch.zeros((o.shape[0],), dtype=torch.int32, device=o.device)
+    for rad, sg in _ray_samples_plain(table, o, d, cfg, n_samples, row_base, start_sample,
+                                      scan, classes, emi_const):
         acc = acc + rad
         segs = segs + sg
     return acc, segs.sum(dtype=torch.int64)
 
 
+def trace_rays_split_plain(table: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                           cfg: RenderConfig, n_samples: int, row_base: int = 0,
+                           start_sample: int = 0, scan: str = "parity", classes: tuple = (),
+                           emi_const: tuple = NO_EMI):
+    """trace_rays' split first pass (csrc/split.cuh): each sample's max(rad, 0) in a
+    (n_samples, N, 3) scratch buffer + the segment count (int64); sample_sum_plain
+    with k = 1 then gives `_trace_rays_stats_plain`'s sum."""
+    scratch = torch.empty((n_samples, o.shape[0], 3), dtype=torch.float32, device=o.device)
+    segs = torch.zeros((), dtype=torch.int64, device=o.device)
+    for s, (rad, sg) in enumerate(_ray_samples_plain(table, o, d, cfg, n_samples, row_base,
+                                                     start_sample, scan, classes, emi_const)):
+        scratch[s] = rad
+        segs = segs + sg.sum(dtype=torch.int64)
+    return scratch, segs
+
+
 def trace_rays_pallas_stats(table: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                             cfg: RenderConfig, n_samples: int, row_base: int = 0,
                             start_sample: int = 0, scan: str = "parity", classes: tuple = (),
-                            emi_const: tuple = NO_EMI):
+                            emi_const: tuple = NO_EMI, run: int | None = None):
     """SUM of `n_samples` path traces along ARBITRARY rays (o, d) (N, 3) f32.
 
     Returns (radiance_sum (N, 3) f32, segments () int64). Sample s of row i keys the
     reference RNG on (row_base + i, start_sample + s), with no camera draws: two calls
     with equal row counts and the same row_base share their streams row for row (the
     CRN pairing of the ± edge probes). `cfg.width`/`height` are not read; bounces,
-    background, boost and offset are. No tp0 peel. The JAX knobs `interleave`,
-    `scan_chunks` and `tri_unroll` schedule the TPU and are not taken.
+    background, boost and offset are. No tp0 peel. `run`: samples of one row a lane
+    takes at a time (default `default_run`), which moves no bit. The JAX knobs
+    `interleave`, `scan_chunks` and `tri_unroll` schedule the TPU and are not taken.
 
     A CUDA table launches `csrc/trace_rays.cu`; a CPU table runs the plain version,
     which equals the twin `trace_paths` on `ref_uniforms(rows, s, 2 * bounces)`.
@@ -922,17 +1003,19 @@ def trace_rays_pallas_stats(table: torch.Tensor, o: torch.Tensor, d: torch.Tenso
     check_table("d", d, 3)
     if o.shape != d.shape or o.device != table.device or d.device != table.device:
         raise ValueError("o and d must be (N, 3) on the table's device")
+    run = check_run(run, n_samples, n, TRACE_RAYS_DEFAULT_RUN)
     if table.device.type == "cpu":
         return _trace_rays_stats_plain(table, o, d, cfg, n_samples, row_base, start_sample,
                                        scan, classes, emi_const)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
+    check_rows4(table)
     # The launch's pid_base carries row_base.
     floats, ints = host_params(cfg, scan, classes, False, table.shape[0], start_sample,
                                n_samples, row_base, n, emi_const=emi_const,
                                smem=table_in_shared(table))
-    out = torch.empty((n, 3), dtype=torch.float32, device=table.device)
-    segs = torch.empty((n,), dtype=torch.int32, device=table.device)
-    cuda_build.launch("opt_trace_rays_launch", (table, o, d), floats, ints, out, segs)
+    out, scratch, counters = split_buffers(n_samples, n, run, table.device)
+    cuda_build.launch("opt_trace_rays_launch", (table, o, d), floats, ints + [run], out,
+                      scratch, counters)
     TRACE_RAYS_LAUNCHES += 1
-    return out, segs.sum(dtype=torch.int64)
+    return out, counters[0]

@@ -12,12 +12,14 @@ The adjoint kernel (grad_checks) is held to its plain version more tightly: imag
 and segments bit for bit, each class row of the gradients within GRAD_REL_TOL of its
 largest entry (see compare_grads).
 
-The arbitrary-ray kernel (trace_rays_checks) is held to its plain version bit for
-bit, images and segments, in each scan form, as is a rerun and a table read from
-global memory. So are the AO and direct-NEE kernels (fast_integrator_checks), on
-the whole image, a ragged pixel range and a table in global memory, and the sorted
-wavefront (sorted_checks), which must also give the skip-link kernel's image and
-segments bit for bit, with its sort on and off.
+The megakernel (linear_runs_agree) and the arbitrary-ray kernel
+(trace_rays_checks) are held to their plain versions bit for bit, images and
+segments, at runs of 1, 2 and all samples a lane, the tp0 peel in both designs, as
+are a ragged pixel range, a rerun and a table read from global memory. So are the
+AO and direct-NEE kernels (fast_integrator_checks), on the whole image, a ragged
+pixel range and a table in global memory, and the sorted wavefront
+(sorted_checks), which must also give the skip-link kernel's image and segments bit
+for bit, with its sort on and off.
 
 Scenes: the Cornell box with its own camera; sphere_field(3, 1, seed=2) (244
 triangles, tp-capable), sphere_field() (5,124 triangles, 18 material classes, so
@@ -105,12 +107,15 @@ class Case:
     interleave: int = 1  # wavefront only
     scene: str = "cornell"
     leaf: int = 32     # BVH kernels only
-    run: int | None = None  # wavefront only: samples a thread takes at a time
+    run: int | None = None  # linear kernels only: samples a lane takes at a time
+    design: str | None = None  # megakernel only: the tp0 peel's design
 
     @property
     def name(self) -> str:
         run = "" if self.run is None else f" run={self.run}"
-        extra = {"megakernel": f"tp0={int(self.tp0)}", "wavefront": f"k={self.interleave}{run}"}
+        design = "" if self.design is None else f" {self.design}"
+        extra = {"megakernel": f"tp0={int(self.tp0)}{design}{run}",
+                 "wavefront": f"k={self.interleave}{run}"}
         return (f"{self.kernel} {self.scan} {extra.get(self.kernel, f'leaf={self.leaf}')} "
                 f"{self.scene} {self.width}x{self.height} b{self.bounces}")
 
@@ -236,7 +241,8 @@ def run(case: Case, tables: Tables, plain: bool = False, start: int = START_SAMP
                                                       emi_const=emi)
             return mk.render_samples_pallas_stats(table, cfg, start, n, scan=case.scan,
                                                   classes=classes, tp0=case.tp0,
-                                                  emi_const=emi)
+                                                  emi_const=emi, run=case.run,
+                                                  tp0_design=case.design)
         if plain:
             return wf._render_samples_wavefront_plain(table, cfg, start, n, case.interleave,
                                                       case.scan, classes, 0, cfg.n_pixels,
@@ -330,18 +336,55 @@ def matches_parity(tables: Tables, scan: str) -> dict:
 def global_table_matches_shared(tables: Tables, width, height) -> dict:
     """The Cornell table padded with zero rows past shared memory (the kernels then
     read it from global memory) renders bit for bit as the table in shared memory:
-    zero rows are never hit. Megakernel and wavefront, each scan."""
+    zero rows are never hit. Megakernel (at runs of 1, 2 and all samples a lane) and
+    wavefront, each scan."""
     out = {}
     for scan in ("parity", "fast", "tp"):
         table, emi, classes = tables.linear("cornell", scan)
         big = padded_past_shared(table)
         cfg = RenderConfig(width=width, height=height, bounces=4)
-        for kernel, fn in (("megakernel", mk.render_samples_pallas_stats),
-                           ("wavefront", wf.render_samples_wavefront_stats)):
-            kw = dict(scan=scan, classes=classes, emi_const=emi)
-            if kernel == "megakernel":
-                kw["tp0"] = False  # the tp0 gate counts rows: keep both launches alike
-            out[f"{kernel} {scan}"] = _same(fn(table, cfg, 1, 2, **kw), fn(big, cfg, 1, 2, **kw))
+        kw = dict(scan=scan, classes=classes, emi_const=emi)
+        mk_kw = dict(kw, tp0=False)  # the tp0 gate counts rows: keep both launches alike
+        out[f"megakernel {scan}"] = all(
+            _same(mk.render_samples_pallas_stats(table, cfg, 1, 2, run=r, **mk_kw),
+                  mk.render_samples_pallas_stats(big, cfg, 1, 2, run=r, **mk_kw))
+            for r in (1, 2))
+        out[f"wavefront {scan}"] = _same(wf.render_samples_wavefront_stats(table, cfg, 1, 2, **kw),
+                                         wf.render_samples_wavefront_stats(big, cfg, 1, 2, **kw))
+    return out
+
+
+def linear_runs_agree(tables: Tables, width, height) -> dict:
+    """Every megakernel case of `cases` (parity, fast, tp with the tp0 peel on and
+    off, 4 and 16 bounces, a ragged image) at runs of 1, 2 and all samples a lane,
+    and with the peel in each of mk.TP0_DESIGNS, bit for bit against the plain
+    version; and the pixels [1000, 1000 + 2001) of the tp0 and parity cases at 4
+    bounces (a ragged range from a pid_base) against the plain version of that range
+    and against the whole image's rows."""
+    out = {}
+    for case in cases(width, height):
+        if case.kernel != "megakernel":
+            continue
+        want = run(case, tables, plain=True)
+        n_tris = tables.linear(case.scene, case.scan)[0].shape[0]
+        peeled = mk.tp0_enabled(case.scan, case.tp0, n_tris, case.bounces)
+        designs = tuple(mk.TP0_DESIGNS) if peeled else (None,)
+        out[case.name] = all(
+            _same(run(dataclasses.replace(case, run=r, design=dz), tables), want)
+            for r in (1, 2, case.n_samples) for dz in designs)
+    for scan, tp0 in (("tp", True), ("parity", False)):
+        table, emi, classes = tables.linear("cornell", scan)
+        cfg = RenderConfig(width=width, height=height, bounces=4)
+        kw = dict(scan=scan, classes=classes, tp0=tp0, emi_const=emi)
+        whole = mk.render_samples_pallas_stats(table, cfg, START_SAMPLE, N_SAMPLES, **kw)
+        want = mk._render_samples_stats_plain(table, cfg, START_SAMPLE, N_SAMPLES, 1000, 2001,
+                                              **kw)
+        ok = True
+        for r in (1, 2, N_SAMPLES):
+            got = mk.render_samples_pallas_stats(table, cfg, START_SAMPLE, N_SAMPLES, 1000, 2001,
+                                                 run=r, **kw)
+            ok = ok and _same(got, want) and torch.equal(got[0], whole[0][1000:3001])
+        out[f"megakernel {scan} tp0={int(tp0)} pid_base 1000 n_rays 2001"] = ok
     return out
 
 
@@ -599,39 +642,47 @@ def probe_rays(scene, n: int, cfg: RenderConfig, seed: int = 0):
 
 
 def run_trace_rays(tables: Tables, scan: str, o, d, cfg: RenderConfig, n_samples: int,
-                   plain: bool = False, table=None, scene: str = "cornell"):
-    """(img, segments) of trace_rays, or of its plain version, on the scene's table for
-    `scan` (or on `table`, e.g. a padded one), rows from PROBE_ROW_BASE, samples from
-    PROBE_START."""
+                   plain: bool = False, table=None, scene: str = "cornell", run=None):
+    """(img, segments) of trace_rays (at `run` samples a lane), or of its plain
+    version, on the scene's table for `scan` (or on `table`, e.g. a padded one), rows
+    from PROBE_ROW_BASE, samples from PROBE_START."""
     own, emi, classes = tables.linear(scene, scan)
     table = own if table is None else table
-    fn = mk._trace_rays_stats_plain if plain else mk.trace_rays_pallas_stats
-    return fn(table, o, d, cfg, n_samples, row_base=PROBE_ROW_BASE, start_sample=PROBE_START,
-              scan=scan, classes=classes, emi_const=emi)
+    kw = dict(row_base=PROBE_ROW_BASE, start_sample=PROBE_START, scan=scan, classes=classes,
+              emi_const=emi)
+    if plain:
+        return mk._trace_rays_stats_plain(table, o, d, cfg, n_samples, **kw)
+    return mk.trace_rays_pallas_stats(table, o, d, cfg, n_samples, run=run, **kw)
 
 
 def trace_rays_checks(tables: Tables, n_rows: int, bounces: int = 4, n_samples: int = 4,
                       camera: int = 256) -> dict:
-    """The arbitrary-ray kernel on the Cornell box: against its plain version in each
-    scan form, bit for bit (images and segments, compare's dict with `ok` requiring
-    `bitwise`); a rerun giving the same bits; and the table padded with zero rows past
-    shared memory (read from global memory) giving the same bits."""
+    """The arbitrary-ray kernel on the Cornell box, at runs of 1, 2 and all samples a
+    lane: against its plain version in each scan form, bit for bit (images and
+    segments, compare's dict with `ok` requiring `bitwise` at every run); a rerun
+    giving the same bits; and the table padded with zero rows past shared memory
+    (read from global memory) giving the same bits."""
     scene = tables.scene("cornell")
     cfg = RenderConfig(width=camera, height=camera, bounces=bounces)
     o, d = probe_rays(scene, n_rows, cfg)
+    runs = (1, 2, n_samples)
     out = {}
     for scan in ("parity", "fast", "tp"):
         got = run_trace_rays(tables, scan, o, d, cfg, n_samples)
         torch.cuda.synchronize()
         want = run_trace_rays(tables, scan, o, d, cfg, n_samples, plain=True)
         r = compare(*got, *want)
-        out[f"kernel vs plain, {scan}"] = {**r, "ok": r["ok"] and r["bitwise"]}
+        by_run = {m: _same(run_trace_rays(tables, scan, o, d, cfg, n_samples, run=m), want)
+                  for m in runs}
+        out[f"kernel vs plain, {scan}"] = {**r, "runs_bitwise": by_run,
+                                           "ok": r["ok"] and r["bitwise"] and all(by_run.values())}
     first = run_trace_rays(tables, "parity", o, d, cfg, n_samples)
     again = run_trace_rays(tables, "parity", o, d, cfg, n_samples)
     out["rerun, same bits"] = {"ok": _same(first, again)}
     big = padded_past_shared(tables.linear("cornell", "parity")[0])
-    far = run_trace_rays(tables, "parity", o, d, cfg, n_samples, table=big)
-    out["table in global memory, same bits"] = {"ok": _same(far, first)}
+    out["table in global memory, same bits"] = {"ok": all(
+        _same(run_trace_rays(tables, "parity", o, d, cfg, n_samples, table=big, run=m), first)
+        for m in runs)}
     return out
 
 

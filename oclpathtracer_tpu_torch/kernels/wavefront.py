@@ -26,16 +26,18 @@ from __future__ import annotations
 import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
+from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels.megakernel import (
     NO_EMI,
-    SCRATCH_MAX_BYTES,
     SMEM_TABLE_MAX_BYTES,
     _PlainScene,
     _trace_sample_plain,
     check_call,
+    check_run,
     host_params,
     linear_nearest,
     prepare_scan,
+    split_buffers,
 )
 from oclpathtracer_tpu_torch.scene.types import Scene
 
@@ -68,7 +70,7 @@ def scan_in_shared(scan_tbl: torch.Tensor) -> bool:
 def default_run(n_samples: int, n_pix: int) -> int:
     """DEFAULT_RUN while the (n_samples, n_pix, 3) f32 scratch buffer fits
     SCRATCH_MAX_BYTES, else n_samples (no scratch)."""
-    return DEFAULT_RUN if n_samples * n_pix * 12 <= SCRATCH_MAX_BYTES else n_samples
+    return mk.default_run(n_samples, n_pix, DEFAULT_RUN)
 
 
 def _render_samples_wavefront_plain(table: torch.Tensor, cfg: RenderConfig,
@@ -114,9 +116,9 @@ def render_samples_wavefront_stats(table: torch.Tensor, cfg: RenderConfig,
     global LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     check_call(table, cfg, n_samples, scan, classes, n_pix)
-    run = default_run(n_samples, n_pix) if run is None else run
-    if interleave < 1 or run < 1:
-        raise ValueError(f"interleave and run must be >= 1, got {interleave} and {run}")
+    run = check_run(run, n_samples, n_pix, DEFAULT_RUN)
+    if interleave < 1:
+        raise ValueError(f"interleave must be >= 1, got {interleave}")
     if table.device.type == "cpu":
         return _render_samples_wavefront_plain(table, cfg, start_sample, n_samples,
                                                interleave, scan, classes, pid_base, n_pix,
@@ -128,18 +130,13 @@ def render_samples_wavefront_stats(table: torch.Tensor, cfg: RenderConfig,
     if scan_tbl.shape != (table.shape[0], 16 if scan == "tp" else 12) \
             or scan_tbl.dtype != torch.float32 or scan_tbl.device != table.device:
         raise ValueError("scan_tbl must be scan_table(table, scan)")
-    run = min(run, n_samples)
     floats, ints = host_params(cfg, scan, classes, False, table.shape[0], start_sample,
                                n_samples, pid_base, n_pix, interleave, emi_const=emi_const)
-    out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
-    scratch = None
-    if run < n_samples:
-        scratch = torch.empty((n_samples, n_pix, 3), dtype=torch.float32, device=table.device)
-    segs = torch.zeros((2,), dtype=torch.int64, device=table.device)  # segments, queue head
+    out, scratch, counters = split_buffers(n_samples, n_pix, run, table.device)
     cuda_build.launch("opt_wavefront_launch", (table, scan_tbl), floats,
-                      ints + [run, int(scan_in_shared(scan_tbl))], out, scratch, segs)
+                      ints + [run, int(scan_in_shared(scan_tbl))], out, scratch, counters)
     LAUNCHES += 1
-    return out, segs[0]
+    return out, counters[0]
 
 
 def render_wavefront(scene: Scene, cfg: RenderConfig, total_spp: int,

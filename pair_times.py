@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the path-regeneration and 8-wide BVH kernels of two trees on one card.
+"""Time the linear, path-regeneration and 8-wide BVH kernels of two trees on one card.
 
     python3 pair_times.py PARENT_DIR   # PARENT_DIR, this tree, this tree, PARENT_DIR
     python3 pair_times.py --tree DIR   # one tree: one JSON line
@@ -7,16 +7,19 @@
 PARENT_DIR is an unpacked checkout of another commit (for example
 `git archive HEAD | tar -x -C .scratch/parent`). Each tree runs in its own
 process, with its own `oclpathtracer_tpu_torch` first on `sys.path`, its kernels
-built from its own sources, and is timed at chip_smoke.py phase 5's shapes through
-its own `kernels/selfcheck.run`: the wavefront kernel (tp, Cornell 512², 16
-bounces, 64 spp in one launch from sample 64) and the 8-wide BVH kernel (fast,
-512², 16 bounces, 64 spp from sample 64, on sphere_field() at leaf 32 and on
-sphere_field(80, 3) at leaf 64). A time is device time: CUDA events around the
-launch, queued behind a 0.1 s spin kernel, median of 5 after a warm-up. Each
-line also carries the segment counts and the tree's ptxas lines (registers, stack,
-spills of every kernel), and the paired run says which kernels of both trees have
-the same lines. The paired order cancels drift of the card's clocks; compare the
-two trees only within one call.
+built from its own sources, and is timed through its own `kernels/selfcheck`, at
+chip_smoke.py phase 5's shapes: the wavefront kernel (tp, Cornell 512², 16
+bounces, 64 spp in one launch from sample 64); the 8-wide BVH kernel (fast, 512²,
+16 bounces, 64 spp from sample 64, on sphere_field() at leaf 32 and on
+sphere_field(80, 3) at leaf 64); the megakernel (tp with the tp0 peel, Cornell 512²,
+4 bounces, 64 spp from sample 64; and parity at the vertex recovery's launch, 64², 2
+bounces, 8 spp from sample 16); and trace_rays (parity, the rim probes' 1,572,864
+rows, 3 bounces, 2 spp). Each kernel runs at its tree's defaults. A time is device
+time: CUDA events around the launch, queued behind a 0.1 s spin kernel, median of
+5 after a warm-up. Each line also carries the segment counts and the tree's ptxas
+lines (registers, stack, spills of every kernel), and the paired run says which
+kernels of both trees have the same lines. The paired order cancels drift of the
+card's clocks; compare the two trees only within one call.
 """
 
 from __future__ import annotations
@@ -28,9 +31,17 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CASES = (("wavefront tp cornell", "wavefront", "tp", "cornell", 32),
-         ("widebvh fast spheres5k leaf 32", "widebvh", "fast", "spheres5k", 32),
-         ("widebvh fast spheres102k leaf 64", "widebvh", "fast", "spheres102k", 64))
+# (label, kernel, scan, scene, leaf, size, bounces, first sample, samples)
+CASES = (("wavefront tp cornell", "wavefront", "tp", "cornell", 32, 512, 16, 64, 64),
+         ("widebvh fast spheres5k leaf 32", "widebvh", "fast", "spheres5k", 32, 512, 16, 64, 64),
+         ("widebvh fast spheres102k leaf 64", "widebvh", "fast", "spheres102k", 64, 512, 16, 64,
+          64),
+         ("megakernel tp cornell 512 b4", "megakernel", "tp", "cornell", 32, 512, 4, 64, 64),
+         ("megakernel parity cornell 64 b2 8spp", "megakernel", "parity", "cornell", 32, 64, 2, 16,
+          8),
+         ("trace_rays parity rim 1572864 rows b3 2spp", "trace_rays", "parity", "cornell", 32, 256,
+          3, 0, 2))
+RIM_ROWS = 1_572_864  # chip_smoke.py phase 5: 256² / 4 prefix pixels x 3 edges x 2 tris x 16
 SPIN_CYCLES = 200_000_000  # about 0.1 s at the H100's boost clock
 
 
@@ -48,11 +59,16 @@ def time_tree(tree: str) -> dict:
            "ptxas": [ln.strip() for ln in info.log.splitlines()
                      if "Compiling entry" in ln or "registers" in ln or "spill" in ln],
            "ms": {}, "segments": {}}
-    for label, kernel, scan, scene, leaf in CASES:
-        case = selfcheck.Case(kernel, scan, 512, 512, 16, scene=scene, leaf=leaf)
+    for label, kernel, scan, scene, leaf, size, bounces, start, n in CASES:
+        case = selfcheck.Case(kernel, scan, size, size, bounces, scene=scene, leaf=leaf)
+        if kernel == "trace_rays":
+            o, d = selfcheck.probe_rays(tables.scene(scene), RIM_ROWS, case.cfg, seed=1)
 
-        def call(case=case):
-            return selfcheck.run(case, tables, start=64, n=64)
+            def call(o=o, d=d, case=case, n=n):
+                return selfcheck.run_trace_rays(tables, scan, o, d, case.cfg, n)
+        else:
+            def call(case=case, start=start, n=n):
+                return selfcheck.run(case, tables, start=start, n=n)
 
         call()
         torch.cuda.synchronize()
@@ -72,13 +88,18 @@ def time_tree(tree: str) -> dict:
 
 
 def by_kernel(ptxas: list) -> dict:
-    """ptxas lines grouped by the entry function they follow: mangled name → lines."""
-    out, cur = {}, None
-    for line in ptxas:
+    """ptxas lines grouped by the entry function they follow: mangled name → the set
+    of its compilations' lines (a kernel that several sources compile, such as
+    split.cuh's sample_sum, appears once a source)."""
+    out, name, cur = {}, None, None
+    for line in ptxas + ["Compiling entry function ''"]:
         if "Compiling entry function" in line:
-            cur = out.setdefault(line.split("'")[1], [])
+            if name is not None:
+                out.setdefault(name, set()).add(tuple(cur))
+            name, cur = line.split("'")[1], []
         elif cur is not None:
             cur.append(line)
+    out.pop("", None)
     return out
 
 
@@ -100,7 +121,7 @@ def main() -> int:
         runs.append((label, row))
         print(f"[pair] {label}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in row["ms"].items()),
               flush=True)
-    for label, _, _, _, _ in CASES:
+    for label, *_ in CASES:
         seg = {lab: row["segments"][label] for lab, row in runs}
         print(f"[pair] {label}: parent, change, change, parent = "
               f"{[round(row['ms'][label], 3) for _, row in runs]} ms; segments {seg}", flush=True)

@@ -4,11 +4,12 @@ These need a CUDA device (marker `cuda`) and skip without one; on a machine with
 card run them with `python -m pytest --noconftest tests/test_torch_cuda.py -q` (this
 file needs no fixture of tests/conftest.py, which imports jax). They are
 chip_smoke.py's phase-3 checks at 64×64 (kernels/selfcheck.py holds the cases and
-the pass rule), for the linear and the BVH kernels (with the wavefront's work
-splits and table routes, the wide kernel on a 14-level tree and split into
-launches), the adjoint kernel and the arbitrary-ray kernel; and the vertex step's
-launches. Whether there is a card is
-decided inside the fixture, never at import.
+the pass rule), for the linear and the BVH kernels (with the megakernel's and the
+wavefront's work splits and table routes, the tp0 peel's two designs, the wide
+kernel on a 14-level tree and split into launches), the adjoint kernel and the
+arbitrary-ray kernel (at runs of 1, 2 and all samples a lane); and the vertex
+step's launches. Whether there is a card is decided inside the fixture, never at
+import.
 """
 
 import pytest
@@ -58,6 +59,19 @@ def test_kernel_fast_meets_parity_contract(cuda_tables):
 
 def test_table_in_global_memory_renders_as_in_shared(cuda_tables):
     assert all(selfcheck.global_table_matches_shared(cuda_tables, SIZE, SIZE).values())
+
+
+@pytest.fixture(scope="module")
+def linear_runs(cuda_tables):
+    return selfcheck.linear_runs_agree(cuda_tables, SIZE, SIZE)
+
+
+@pytest.mark.parametrize("name", [c.name for c in selfcheck.cases(SIZE, SIZE)
+                                  if c.kernel == "megakernel"]
+                         + ["megakernel tp tp0=1 pid_base 1000 n_rays 2001",
+                            "megakernel parity tp0=0 pid_base 1000 n_rays 2001"])
+def test_megakernel_at_runs_1_2_all_and_both_tp0_designs_is_plain_bitwise(linear_runs, name):
+    assert linear_runs[name], linear_runs
 
 
 def test_wide_kernel_is_the_skip_kernel_bitwise(cuda_tables):
