@@ -13,11 +13,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      linear kernels on the Cornell box in parity, fast and tp form, wavefront k=1
      vs megakernel bit for bit, fast and tp vs parity under the JAX contract, a
      table past shared memory (read from global memory) bit for bit as in shared
-     memory (the megakernel at runs of 1 and 2 samples a lane); every megakernel
-     case (parity, fast, tp with the tp0 peel on and off, 4 and 16 bounces, a
-     ragged image) at runs of 1, 2 and all samples a lane and with the peel in both
-     designs (lockstep, deferred), and a ragged pixel range (pid_base 1000, 2,001
-     pixels; also the whole image's rows), bit for bit against the plain version
+     memory (the megakernel at runs of 1, 2 and all 3 samples a lane); every
+     megakernel case (parity, fast, tp with the tp0 peel on and off, 4 and 16
+     bounces, a ragged image) at runs of 1, 2 and all samples a lane, and a ragged
+     pixel range (pid_base 1000, 2,001 pixels; also the whole image's rows), bit for
+     bit against the plain version
      (selfcheck.linear_runs_agree); the wavefront with runs of 1, 2 and all
      samples a lane, k = 1 and 3,
      scan table in shared memory (also padded past 48 KB) and, padded past 227 KB,
@@ -117,8 +117,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      sample, against the kernel at 1 sample), as Mrays/s = traced segments per
      second; the two results of each pair are held against each other by phase
      3's rule; the wavefront (tp) also with runs of 1, 4 and 64 samples a lane, the
-     megakernel (tp with the tp0 peel in both designs, and parity) with runs of 1,
-     2, 4, 8 and 64, and the SM clock and power draw (nvidia-smi, every 100 ms)
+     megakernel (tp with the tp0 peel, and parity) with runs of 1, 2, 4, 8 and 64,
+     and the SM clock and power draw (nvidia-smi, every 100 ms)
      over 200 back-to-back megakernel launches. Then the linear-vs-BVH crossover:
      the megakernel against the 8-wide BVH kernel, fast scan, on sphere_field(n, 2)
      for n = 1..16 at 256², 4 bounces.
@@ -383,8 +383,8 @@ def phase_checks(tables):
                       selfcheck.wavefront_k1_equals_megakernel),
                      ("table in global memory == in shared memory, bit for bit",
                       selfcheck.global_table_matches_shared),
-                     ("megakernel at runs 1, 2, all and both tp0 designs, and a ragged pixel "
-                      "range, bit for bit against the plain version", selfcheck.linear_runs_agree),
+                     ("megakernel at runs 1, 2 and all, and a ragged pixel range, bit for bit "
+                      "against the plain version", selfcheck.linear_runs_agree),
                      ("wide BVH kernel == skip-link kernel, bit for bit (deep: a 14-level tree)",
                       selfcheck.wide_equals_skip_walk),
                      (f"wavefront runs {selfcheck.WAVEFRONT_RUNS}, scan table in shared "
@@ -1136,20 +1136,17 @@ def phase_timing(tables):
         cfg = RenderConfig(512, 512, bounces=4)
         table, emi, classes = tables.linear("cornell", scan)
         tp0_table = mk.tp0_table_for(table, cfg, scan)
-        designs = tuple(mk.TP0_DESIGNS) if tp0_table is not None else (None,)
         for run_len in MEGAKERNEL_TIMED_RUNS:
-            for design in designs:
-                def launch(scan=scan, cfg=cfg, table=table, emi=emi, classes=classes,
-                           tp0_table=tp0_table, run_len=run_len, design=design):
-                    return mk.render_samples_pallas_stats(
-                        table, cfg, TIME_START, MAIN_STEP, scan=scan, classes=classes,
-                        emi_const=emi, tp0_table=tp0_table, run=run_len, tp0_design=design)
+            def launch(scan=scan, cfg=cfg, table=table, emi=emi, classes=classes,
+                       tp0_table=tp0_table, run_len=run_len):
+                return mk.render_samples_pallas_stats(
+                    table, cfg, TIME_START, MAIN_STEP, scan=scan, classes=classes,
+                    emi_const=emi, tp0_table=tp0_table, run=run_len)
 
-                ms, (_, segs) = cuda_time_ms(launch, launch)
-                label = f"{scan} run {run_len}" + (f" {design}" if design else "")
-                variants[label] = ms
-                log(f"[time] megakernel {scan} Cornell 512x512 b4 {MAIN_STEP}spp, run {run_len}"
-                    f"{', tp0 ' + design if design else ''}: {ms:.3f} ms ({int(segs)} segments)")
+            ms, (_, segs) = cuda_time_ms(launch, launch)
+            variants[f"{scan} run {run_len}"] = ms
+            log(f"[time] megakernel {scan} Cornell 512x512 b4 {MAIN_STEP}spp, run {run_len}: "
+                f"{ms:.3f} ms ({int(segs)} segments)")
     rows.append({"name": "megakernel runs", "ms": variants})
     clock = clock_under_load(launch)
     log(f"[time] SM clock and power over {clock['launches']} back-to-back launches of the last "

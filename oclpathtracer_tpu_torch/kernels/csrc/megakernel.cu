@@ -24,9 +24,9 @@
 // which moves no bit. The tp0 peel keeps the JAX gate (tp, n_tris <= 128, 1 <=
 // bounces <= 8: its collapsed forms round differently from the generic tp scan, so
 // the gate decides which numbers come out); a path's first segment runs the
-// collapsed scan and no other does, in one of two designs (regen.cuh): lockstep or
-// deferred regeneration; it reads only the rows whose t0 > 0, a copy each block
-// makes once. A peeled table has at most 128 rows and is always in shared memory.
+// collapsed scan and no other does, the warp's lanes running in lockstep
+// (regen.cuh); it reads only the rows whose t0 > 0, a copy each block makes once. A
+// peeled table has at most 128 rows and is always in shared memory.
 // The TPU kernel's tiles, SMEM flattening and interleave/scan-chunk/unroll knobs
 // are scheduling for the TPU and have no counterpart here.
 #include "regen.cuh"
@@ -35,31 +35,29 @@ namespace opt {
 
 template <int SCAN, int ROUTE, int PEEL>
 __global__ void __launch_bounds__(BLOCK) megakernel(const float* __restrict__ table,
-                                                  const Params P, int run, int wait,
-                                                  CameraStart src, float* __restrict__ out,
+                                                  const Params P, int run, CameraStart src,
+                                                  float* __restrict__ out,
                                                   float* __restrict__ scratch,
                                                   unsigned long long* __restrict__ counters) {
-  table_loop<SCAN, ROUTE, PEEL>(table, P, run, wait, src, out, scratch, counters);
+  table_loop<SCAN, ROUTE, PEEL>(table, P, run, src, out, scratch, counters);
 }
 
 template <int SCAN, int PEEL>
-static int launch_megakernel(const float* table, const Params& P, int run, int wait, float* out,
+static int launch_megakernel(const float* table, const Params& P, int run, float* out,
                              float* scratch, unsigned long long* counters, cudaStream_t stream) {
   if (P.smem)
     return launch_table_loop(megakernel<SCAN, ROUTE_SHARED, PEEL>,
-                             table_smem_bytes(P, true, PEEL != PEEL_NONE), table, P, run, wait,
+                             table_smem_bytes(P, true, PEEL != PEEL_NONE), table, P, run,
                              CameraStart{}, out, scratch, counters, stream);
   if constexpr (PEEL == PEEL_NONE)  // a peeled table is always in shared memory
-    return launch_table_loop(megakernel<SCAN, ROUTE_GLOBAL, PEEL>, 0, table, P, run, wait,
+    return launch_table_loop(megakernel<SCAN, ROUTE_GLOBAL, PEEL>, 0, table, P, run,
                              CameraStart{}, out, scratch, counters, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace opt
 
-// host_i[N_HOST_INTS] = run (samples of one pixel a lane takes from the queue, >= 1),
-// host_i[N_HOST_INTS + 1] = the tp0 peel's design where P.tp0 (PEEL_LOCKSTEP or
-// PEEL_DEFERRED), host_i[N_HOST_INTS + 2] = the deferred design's wait (1..32).
+// host_i[N_HOST_INTS] = run (samples of one pixel a lane takes from the queue, >= 1).
 // scratch is (n_samples, n_pix, 3) when run < n_samples, else unused. counters is
 // two int64, zero on entry: the traced segments and the queue's head.
 extern "C" int opt_megakernel_launch(const float* table, const float* host_f, const int* host_i,
@@ -67,31 +65,22 @@ extern "C" int opt_megakernel_launch(const float* table, const float* host_f, co
                                      void* stream) {
   opt::Params P = opt::params_from_host(host_f, host_i);
   int run = host_i[opt::N_HOST_INTS];
-  int peel = host_i[opt::N_HOST_INTS + 1];
-  int wait = host_i[opt::N_HOST_INTS + 2];
   if (run < 1 || (run < P.n_samples) != (scratch != nullptr)) return (int)cudaErrorInvalidValue;
   auto* c = (unsigned long long*)counters;
   auto s = (cudaStream_t)stream;
   if (P.tp0) {
     // The gate keeps a peeled table to 128 rows: always in shared memory.
-    if (P.scan != opt::SCAN_TP || !P.smem || wait < 1 || wait > 32)
-      return (int)cudaErrorInvalidValue;
-    if (peel == opt::PEEL_LOCKSTEP)
-      return opt::launch_megakernel<opt::SCAN_TP, opt::PEEL_LOCKSTEP>(table, P, run, wait, out,
-                                                                      scratch, c, s);
-    if (peel == opt::PEEL_DEFERRED)
-      return opt::launch_megakernel<opt::SCAN_TP, opt::PEEL_DEFERRED>(table, P, run, wait, out,
-                                                                      scratch, c, s);
-    return (int)cudaErrorInvalidValue;
+    if (P.scan != opt::SCAN_TP || !P.smem) return (int)cudaErrorInvalidValue;
+    return opt::launch_megakernel<opt::SCAN_TP, opt::PEEL_LOCKSTEP>(table, P, run, out, scratch,
+                                                                    c, s);
   }
   if (P.scan == opt::SCAN_TP)
-    return opt::launch_megakernel<opt::SCAN_TP, opt::PEEL_NONE>(table, P, run, wait, out, scratch,
-                                                                c, s);
+    return opt::launch_megakernel<opt::SCAN_TP, opt::PEEL_NONE>(table, P, run, out, scratch, c, s);
   if (P.scan == opt::SCAN_FAST)
-    return opt::launch_megakernel<opt::SCAN_FAST, opt::PEEL_NONE>(table, P, run, wait, out,
-                                                                  scratch, c, s);
-  return opt::launch_megakernel<opt::SCAN_PARITY, opt::PEEL_NONE>(table, P, run, wait, out,
-                                                                  scratch, c, s);
+    return opt::launch_megakernel<opt::SCAN_FAST, opt::PEEL_NONE>(table, P, run, out, scratch, c,
+                                                                  s);
+  return opt::launch_megakernel<opt::SCAN_PARITY, opt::PEEL_NONE>(table, P, run, out, scratch, c,
+                                                                  s);
 }
 
 extern "C" const char* opt_error_string(int code) {

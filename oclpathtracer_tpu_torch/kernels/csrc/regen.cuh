@@ -20,19 +20,17 @@
 // Rows are read as aligned float4s through `load` (shared memory, or global memory
 // past 227 KB), `stride4` float4s a row.
 //
-// The tp0 peel (megakernel only): a path's first segment starts at the eye and
-// must use the collapsed scan (scan_tp0_rows4, which rounds differently from the
-// generic tp scan) and no other segment may. An iteration therefore runs one of
-// the two scans for the whole warp, and only the lanes whose next segment needs it
-// trace; a lane whose new path waits for the collapsed scan is "fresh":
-//  - PEEL_LOCKSTEP: the collapsed scan runs once no lane has a path past its first
-//    segment, and the warp takes new items only then: all 32 lanes start their
-//    paths together and trace bounce b together;
-//  - PEEL_DEFERRED: the collapsed scan also runs once `wait` lanes are fresh; the
-//    lanes in the middle of a path sit that iteration out.
-// Either way a lane's segments are the per-thread megakernel's, in its order. The
-// collapsed scan reads only the rows it can take (t0 > 0: the eye in front of the
-// row's plane), which each block copies once (compact_tp0_rows).
+// The tp0 peel (megakernel only, PEEL_LOCKSTEP): a path's first segment starts at
+// the eye and must use the collapsed scan (scan_tp0_rows4, which rounds differently
+// from the generic tp scan) and no other segment may. An iteration therefore runs
+// one of the two scans for the whole warp, and only the lanes whose next segment
+// needs it trace. The warp runs in lockstep: the collapsed scan runs once no lane
+// is in the middle of a path, and the warp takes new items only then, so its lanes
+// start their paths together and trace bounce b together (a lane that starts the
+// next sample of its run sits out until the others' paths end). A lane's segments
+// are the per-thread megakernel's, in its order. The collapsed scan reads only the
+// rows it can take (t0 > 0: the eye in front of the row's plane), which each block
+// copies once (compact_tp0_rows).
 #pragma once
 
 #include "split.cuh"
@@ -40,7 +38,7 @@
 namespace opt {
 
 enum { ROUTE_GLOBAL = 0, ROUTE_SHARED = 1 };
-enum { PEEL_NONE = 0, PEEL_LOCKSTEP = 1, PEEL_DEFERRED = 2 };
+enum { PEEL_NONE = 0, PEEL_LOCKSTEP = 1 };
 
 // Where an item's paths start: pixel P.pid_base + idx's camera paths.
 struct CameraStart {
@@ -130,7 +128,7 @@ static __device__ __forceinline__ void compact_tp0_rows(const float4* table4, in
 template <int SCAN, int PEEL, typename Start, typename Load, typename Tp0Scan>
 static __device__ __forceinline__ void regen_loop(const Params& P, const float* tbl, Load load,
                                                   int stride4, Tp0Scan tp0_scan, int run,
-                                                  int wait, Start src, float* __restrict__ out,
+                                                  Start src, float* __restrict__ out,
                                                   float* __restrict__ scratch,
                                                   unsigned long long* __restrict__ counters) {
   const int n_pix = P.n_rays;
@@ -174,9 +172,7 @@ static __device__ __forceinline__ void regen_loop(const Params& P, const float* 
     // Which scan this iteration runs, and which lanes trace a segment with it.
     bool primary = false, go = have;
     if (PEEL != PEEL_NONE) {
-      unsigned fresh = __ballot_sync(0xffffffffu, have && b == 0);
-      primary = !__any_sync(0xffffffffu, have && b > 0) ||
-                (PEEL == PEEL_DEFERRED && __popc(fresh) >= wait);
+      primary = !__any_sync(0xffffffffu, have && b > 0);
       go = have && (b == 0) == primary;
     }
     Best best = fresh_best();
@@ -257,8 +253,8 @@ static inline size_t table_smem_bytes(const Params& P, bool shared, bool peel) {
 // runs it.
 template <int SCAN, int ROUTE, int PEEL, typename Start>
 static __device__ __forceinline__ void table_loop(const float* __restrict__ table,
-                                                  const Params& P, int run, int wait,
-                                                  Start src, float* __restrict__ out,
+                                                  const Params& P, int run, Start src,
+                                                  float* __restrict__ out,
                                                   float* __restrict__ scratch,
                                                   unsigned long long* __restrict__ counters) {
   constexpr int STRIDE4 = TABLE_COLS / 4;
@@ -279,8 +275,7 @@ static __device__ __forceinline__ void table_loop(const float* __restrict__ tabl
   auto load = [&](int i) { return ROUTE == ROUTE_SHARED ? smem_rows4[i] : __ldg(rows + i); };
   auto tp0_scan = [&](float3 d, Best& best) { scan_tp0_rows4<2>(tp0_rows, n_tp0, d, best); };
   const float* tbl = ROUTE == ROUTE_SHARED ? (const float*)smem_rows4 : table;
-  regen_loop<SCAN, PEEL>(P, tbl, load, STRIDE4, tp0_scan, run, wait, src, out, scratch,
-                         counters);
+  regen_loop<SCAN, PEEL>(P, tbl, load, STRIDE4, tp0_scan, run, src, out, scratch, counters);
 }
 
 // Launch a table kernel on the persistent grid with `smem` bytes of dynamic shared
@@ -288,14 +283,14 @@ static __device__ __forceinline__ void table_loop(const float* __restrict__ tabl
 // (scratch not null).
 template <typename Kernel, typename Start>
 static int launch_table_loop(Kernel kernel, size_t smem, const float* table, const Params& P,
-                             int run, int wait, Start src, float* out, float* scratch,
+                             int run, Start src, float* out, float* scratch,
                              unsigned long long* counters, cudaStream_t stream) {
   long long n_items = (long long)((P.n_samples + run - 1) / run) * P.n_rays;
   int grid;
   cudaError_t err = persistent_grid(kernel, smem, n_items, &grid);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, BLOCK, smem, stream>>>(table, P, run, wait, src, scratch ? nullptr : out,
-                                        scratch, counters);
+  kernel<<<grid, BLOCK, smem, stream>>>(table, P, run, src, scratch ? nullptr : out, scratch,
+                                        counters);
   err = cudaGetLastError();
   if (err != cudaSuccess || !scratch) return (int)err;
   return launch_sample_sum(scratch, P.n_samples, P.n_rays, 1, nullptr, out, stream);

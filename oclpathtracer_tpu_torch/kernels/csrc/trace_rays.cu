@@ -32,11 +32,11 @@ namespace opt {
 
 template <int SCAN, int ROUTE>
 __global__ void __launch_bounds__(BLOCK) trace_rays(const float* __restrict__ table,
-                                                  const Params P, int run, int wait,
-                                                  RayStart src, float* __restrict__ out,
+                                                  const Params P, int run, RayStart src,
+                                                  float* __restrict__ out,
                                                   float* __restrict__ scratch,
                                                   unsigned long long* __restrict__ counters) {
-  table_loop<SCAN, ROUTE, PEEL_NONE>(table, P, run, wait, src, out, scratch, counters);
+  table_loop<SCAN, ROUTE, PEEL_NONE>(table, P, run, src, out, scratch, counters);
 }
 
 template <int SCAN>
@@ -45,9 +45,9 @@ static int launch_trace_rays(const float* table, const Params& P, int run, RaySt
                              cudaStream_t stream) {
   if (P.smem)
     return launch_table_loop(trace_rays<SCAN, ROUTE_SHARED>, table_smem_bytes(P, true, false),
-                             table, P, run, 1, src, out, scratch, counters, stream);
-  return launch_table_loop(trace_rays<SCAN, ROUTE_GLOBAL>, 0, table, P, run, 1, src, out,
-                           scratch, counters, stream);
+                             table, P, run, src, out, scratch, counters, stream);
+  return launch_table_loop(trace_rays<SCAN, ROUTE_GLOBAL>, 0, table, P, run, src, out, scratch,
+                           counters, stream);
 }
 
 }  // namespace opt

@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(BLOCK) wavefront(const float* __restrict__ tab
   }
   auto load = [&](int i) { return ROUTE == ROUTE_SHARED ? smem_scan[i] : __ldg(scan + i); };
   auto no_peel = [](float3, Best&) {};
-  regen_loop<SCAN, PEEL_NONE>(P, table, load, V, no_peel, run, 1, CameraStart{}, out, scratch,
+  regen_loop<SCAN, PEEL_NONE>(P, table, load, V, no_peel, run, CameraStart{}, out, scratch,
                               counters);
 }
 

@@ -83,18 +83,11 @@ TP_ORIGIN_FACTOR = 64.0
 LAUNCHES = 0
 TRACE_RAYS_LAUNCHES = 0
 
-# Samples a lane takes at a time by default (`run`), the fastest on the card
-# (PERF.md), while the scratch buffer stays within SCRATCH_MAX_BYTES (default_run).
+# Samples a lane takes at a time by default (`run`) in the linear kernels (the
+# megakernel, trace_rays, the wavefront), the fastest on the card at their main
+# shapes (PERF.md), while the scratch buffer stays within SCRATCH_MAX_BYTES
+# (default_run).
 DEFAULT_RUN = 1
-TRACE_RAYS_DEFAULT_RUN = 1
-
-# The tp0 peel's two designs (csrc/regen.cuh PEEL_*): "lockstep" runs the collapsed
-# bounce-0 scan once no lane of a warp is in the middle of a path, "deferred" also
-# once TP0_WAIT lanes wait for it. Both give the same bits; TP0_DESIGN is the faster
-# on the card, and TP0_WAIT the best of the waits tried for "deferred" (PERF.md).
-TP0_DESIGNS = {"lockstep": 1, "deferred": 2}
-TP0_DESIGN = "lockstep"
-TP0_WAIT = 24
 
 
 # ---- scene packing (bit for bit as the JAX package builds it in numpy) --------
@@ -781,10 +774,10 @@ def render_frames_plain(cfg: RenderConfig, start_sample: int, n_samples: int,
 SCRATCH_MAX_BYTES = 1 << 30
 
 
-def default_run(n_samples: int, n_pix: int, run: int = DEFAULT_RUN) -> int:
-    """`run` while the (n_samples, n_pix, 3) f32 scratch buffer fits
+def default_run(n_samples: int, n_pix: int) -> int:
+    """DEFAULT_RUN while the (n_samples, n_pix, 3) f32 scratch buffer fits
     SCRATCH_MAX_BYTES, else n_samples (a pixel or row a lane, no scratch)."""
-    return run if n_samples * n_pix * 12 <= SCRATCH_MAX_BYTES else n_samples
+    return DEFAULT_RUN if n_samples * n_pix * 12 <= SCRATCH_MAX_BYTES else n_samples
 
 
 def render_frames_split_plain(cfg: RenderConfig, start_sample: int, n_samples: int,
@@ -836,8 +829,7 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
                                 n_rays: int | None = None, scan: str = "parity",
                                 classes: tuple = (), tp0: bool = True,
                                 tp0_table: torch.Tensor | None = None,
-                                emi_const: tuple = NO_EMI, run: int | None = None,
-                                tp0_design: str | None = None):
+                                emi_const: tuple = NO_EMI, run: int | None = None):
     """SUM of `n_samples` progressive 1-spp frames + traced-segment count.
 
     Returns (img (n_rays, 3) f32, segments () int64). `table` is pack_scene's
@@ -847,8 +839,7 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
     absolute ids. `tp0` (tp only): peel bounce 0 onto the collapsed scan, under
     the gate of `tp0_enabled`; `tp0_table` is `tp0_table_for`'s result, made once
     per render (without it each launch augments the table itself). `run`: samples
-    of one pixel a lane takes at a time (default `default_run`); `tp0_design`: the
-    peel's design, a key of TP0_DESIGNS (default TP0_DESIGN). Neither moves a bit.
+    of one pixel a lane takes at a time (default `default_run`), which moves no bit.
 
     A CUDA table launches `csrc/megakernel.cu` (table in shared memory where
     `table_in_shared`, else in global memory); a CPU table runs the plain version.
@@ -856,10 +847,7 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
     global LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     check_call(table, cfg, n_samples, scan, classes, n_pix)
-    run = check_run(run, n_samples, n_pix, DEFAULT_RUN)
-    design = TP0_DESIGN if tp0_design is None else tp0_design
-    if design not in TP0_DESIGNS:
-        raise ValueError(f"tp0_design must be one of {tuple(TP0_DESIGNS)}, got {design!r}")
+    run = check_run(run, n_samples, n_pix)
     if table.device.type == "cpu":
         return _render_samples_stats_plain(table, cfg, start_sample, n_samples, pid_base,
                                            n_pix, scan, classes, tp0, tp0_table, emi_const)
@@ -874,15 +862,15 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
                                smem=table_in_shared(table))
     out, scratch, counters = split_buffers(n_samples, n_pix, run, table.device)
     cuda_build.launch("opt_megakernel_launch", (table,), floats,
-                      ints + [run, TP0_DESIGNS[design], TP0_WAIT], out, scratch, counters)
+                      ints + [run], out, scratch, counters)
     LAUNCHES += 1
     return out, counters[0]
 
 
-def check_run(run: int | None, n_samples: int, n_pix: int, preferred: int) -> int:
-    """The launch's run: `default_run(n_samples, n_pix, preferred)` where `run` is
-    None, else `run` capped at n_samples; raise unless run >= 1."""
-    run = default_run(n_samples, n_pix, preferred) if run is None else run
+def check_run(run: int | None, n_samples: int, n_pix: int) -> int:
+    """The launch's run: `default_run(n_samples, n_pix)` where `run` is None, else
+    `run` capped at n_samples; raise unless run >= 1."""
+    run = default_run(n_samples, n_pix) if run is None else run
     if run < 1:
         raise ValueError(f"run must be >= 1, got {run}")
     return min(run, n_samples)
@@ -1003,7 +991,7 @@ def trace_rays_pallas_stats(table: torch.Tensor, o: torch.Tensor, d: torch.Tenso
     check_table("d", d, 3)
     if o.shape != d.shape or o.device != table.device or d.device != table.device:
         raise ValueError("o and d must be (N, 3) on the table's device")
-    run = check_run(run, n_samples, n, TRACE_RAYS_DEFAULT_RUN)
+    run = check_run(run, n_samples, n)
     if table.device.type == "cpu":
         return _trace_rays_stats_plain(table, o, d, cfg, n_samples, row_base, start_sample,
                                        scan, classes, emi_const)

@@ -14,8 +14,8 @@ largest entry (see compare_grads).
 
 The megakernel (linear_runs_agree) and the arbitrary-ray kernel
 (trace_rays_checks) are held to their plain versions bit for bit, images and
-segments, at runs of 1, 2 and all samples a lane, the tp0 peel in both designs, as
-are a ragged pixel range, a rerun and a table read from global memory. So are the
+segments, at runs of 1, 2 and all samples a lane, as are a ragged pixel range, a
+rerun and a table read from global memory. So are the
 AO and direct-NEE kernels (fast_integrator_checks), on the whole image, a ragged
 pixel range and a table in global memory, and the sorted wavefront
 (sorted_checks), which must also give the skip-link kernel's image and segments bit
@@ -108,13 +108,11 @@ class Case:
     scene: str = "cornell"
     leaf: int = 32     # BVH kernels only
     run: int | None = None  # linear kernels only: samples a lane takes at a time
-    design: str | None = None  # megakernel only: the tp0 peel's design
 
     @property
     def name(self) -> str:
         run = "" if self.run is None else f" run={self.run}"
-        design = "" if self.design is None else f" {self.design}"
-        extra = {"megakernel": f"tp0={int(self.tp0)}{design}{run}",
+        extra = {"megakernel": f"tp0={int(self.tp0)}{run}",
                  "wavefront": f"k={self.interleave}{run}"}
         return (f"{self.kernel} {self.scan} {extra.get(self.kernel, f'leaf={self.leaf}')} "
                 f"{self.scene} {self.width}x{self.height} b{self.bounces}")
@@ -241,8 +239,7 @@ def run(case: Case, tables: Tables, plain: bool = False, start: int = START_SAMP
                                                       emi_const=emi)
             return mk.render_samples_pallas_stats(table, cfg, start, n, scan=case.scan,
                                                   classes=classes, tp0=case.tp0,
-                                                  emi_const=emi, run=case.run,
-                                                  tp0_design=case.design)
+                                                  emi_const=emi, run=case.run)
         if plain:
             return wf._render_samples_wavefront_plain(table, cfg, start, n, case.interleave,
                                                       case.scan, classes, 0, cfg.n_pixels,
@@ -336,7 +333,7 @@ def matches_parity(tables: Tables, scan: str) -> dict:
 def global_table_matches_shared(tables: Tables, width, height) -> dict:
     """The Cornell table padded with zero rows past shared memory (the kernels then
     read it from global memory) renders bit for bit as the table in shared memory:
-    zero rows are never hit. Megakernel (at runs of 1, 2 and all samples a lane) and
+    zero rows are never hit. Megakernel (3 samples at runs of 1, 2 and all) and
     wavefront, each scan."""
     out = {}
     for scan in ("parity", "fast", "tp"):
@@ -346,9 +343,9 @@ def global_table_matches_shared(tables: Tables, width, height) -> dict:
         kw = dict(scan=scan, classes=classes, emi_const=emi)
         mk_kw = dict(kw, tp0=False)  # the tp0 gate counts rows: keep both launches alike
         out[f"megakernel {scan}"] = all(
-            _same(mk.render_samples_pallas_stats(table, cfg, 1, 2, run=r, **mk_kw),
-                  mk.render_samples_pallas_stats(big, cfg, 1, 2, run=r, **mk_kw))
-            for r in (1, 2))
+            _same(mk.render_samples_pallas_stats(table, cfg, 1, 3, run=r, **mk_kw),
+                  mk.render_samples_pallas_stats(big, cfg, 1, 3, run=r, **mk_kw))
+            for r in (1, 2, 3))
         out[f"wavefront {scan}"] = _same(wf.render_samples_wavefront_stats(table, cfg, 1, 2, **kw),
                                          wf.render_samples_wavefront_stats(big, cfg, 1, 2, **kw))
     return out
@@ -357,8 +354,7 @@ def global_table_matches_shared(tables: Tables, width, height) -> dict:
 def linear_runs_agree(tables: Tables, width, height) -> dict:
     """Every megakernel case of `cases` (parity, fast, tp with the tp0 peel on and
     off, 4 and 16 bounces, a ragged image) at runs of 1, 2 and all samples a lane,
-    and with the peel in each of mk.TP0_DESIGNS, bit for bit against the plain
-    version; and the pixels [1000, 1000 + 2001) of the tp0 and parity cases at 4
+    bit for bit against the plain version; and the pixels [1000, 1000 + 2001) of the tp0 and parity cases at 4
     bounces (a ragged range from a pid_base) against the plain version of that range
     and against the whole image's rows."""
     out = {}
@@ -366,12 +362,8 @@ def linear_runs_agree(tables: Tables, width, height) -> dict:
         if case.kernel != "megakernel":
             continue
         want = run(case, tables, plain=True)
-        n_tris = tables.linear(case.scene, case.scan)[0].shape[0]
-        peeled = mk.tp0_enabled(case.scan, case.tp0, n_tris, case.bounces)
-        designs = tuple(mk.TP0_DESIGNS) if peeled else (None,)
-        out[case.name] = all(
-            _same(run(dataclasses.replace(case, run=r, design=dz), tables), want)
-            for r in (1, 2, case.n_samples) for dz in designs)
+        out[case.name] = all(_same(run(dataclasses.replace(case, run=r), tables), want)
+                             for r in (1, 2, case.n_samples))
     for scan, tp0 in (("tp", True), ("parity", False)):
         table, emi, classes = tables.linear("cornell", scan)
         cfg = RenderConfig(width=width, height=height, bounces=4)

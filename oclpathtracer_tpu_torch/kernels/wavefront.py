@@ -26,7 +26,6 @@ from __future__ import annotations
 import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
-from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels.megakernel import (
     NO_EMI,
     SMEM_TABLE_MAX_BYTES,
@@ -44,11 +43,6 @@ from oclpathtracer_tpu_torch.scene.types import Scene
 # Kernel launches made by render_samples_wavefront_stats on CUDA tensors.
 LAUNCHES = 0
 
-# Samples a thread takes at a time by default (`run`), the fastest on the card
-# (PERF.md), while the scratch buffer stays within SCRATCH_MAX_BYTES; past it a
-# launch gives each pixel to one thread (no scratch).
-DEFAULT_RUN = 1
-
 
 def scan_table(table: torch.Tensor, scan: str) -> torch.Tensor:
     """The scan-only copy of a prepare_scan table, on its device: the columns the
@@ -65,12 +59,6 @@ def scan_in_shared(scan_tbl: torch.Tensor) -> bool:
     """Whether the kernel stages `scan_tbl` in shared memory (up to a block's 227 KB)
     or reads it from global memory."""
     return scan_tbl.numel() * scan_tbl.element_size() <= SMEM_TABLE_MAX_BYTES
-
-
-def default_run(n_samples: int, n_pix: int) -> int:
-    """DEFAULT_RUN while the (n_samples, n_pix, 3) f32 scratch buffer fits
-    SCRATCH_MAX_BYTES, else n_samples (no scratch)."""
-    return mk.default_run(n_samples, n_pix, DEFAULT_RUN)
 
 
 def _render_samples_wavefront_plain(table: torch.Tensor, cfg: RenderConfig,
@@ -109,14 +97,14 @@ def render_samples_wavefront_stats(table: torch.Tensor, cfg: RenderConfig,
     pixel (k ≥ 1; 1 is bitwise the megakernel without tp0, k > 1 reorders the sum).
     scan, classes, emi_const: as prepare_scan returns them. scan_tbl:
     `scan_table(table, scan)`, made once per render (without it each launch makes
-    it). run: samples a thread takes at a time (default `default_run`); it changes
-    no bit of the result.
+    it). run: samples a thread takes at a time (default `megakernel.default_run`);
+    it changes no bit of the result.
     A CUDA table launches `csrc/wavefront.cu`; a CPU table runs the plain version.
     """
     global LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     check_call(table, cfg, n_samples, scan, classes, n_pix)
-    run = check_run(run, n_samples, n_pix, DEFAULT_RUN)
+    run = check_run(run, n_samples, n_pix)
     if interleave < 1:
         raise ValueError(f"interleave must be >= 1, got {interleave}")
     if table.device.type == "cpu":

@@ -11,10 +11,13 @@ built from its own sources, and is timed through its own `kernels/selfcheck`, at
 chip_smoke.py phase 5's shapes: the wavefront kernel (tp, Cornell 512², 16
 bounces, 64 spp in one launch from sample 64); the 8-wide BVH kernel (fast, 512²,
 16 bounces, 64 spp from sample 64, on sphere_field() at leaf 32 and on
-sphere_field(80, 3) at leaf 64); the megakernel (tp with the tp0 peel, Cornell 512²,
-4 bounces, 64 spp from sample 64; and parity at the vertex recovery's launch, 64², 2
-bounces, 8 spp from sample 16); and trace_rays (parity, the rim probes' 1,572,864
-rows, 3 bounces, 2 spp). Each kernel runs at its tree's defaults. A time is device
+sphere_field(80, 3) at leaf 64); the megakernel (tp with the tp0 peel, parity and
+fast, Cornell 512², 4 bounces, 64 spp from sample 64; and parity at the vertex
+recovery's launch, 64², 2 bounces, 8 spp from sample 16); and trace_rays (parity,
+the rim probes' 1,572,864 rows, 3 bounces, 2 spp; and the row counts, bounces and
+samples of the vertex recovery step's launches, 5,184 rows at 2 bounces and 4 spp
+and 98,304 rows at 1 bounce and 2 spp; rows from selfcheck.probe_rays). Each kernel
+runs at its tree's defaults. A time is device
 time: CUDA events around the launch, queued behind a 0.1 s spin kernel, median of
 5 after a warm-up. Each line also carries the segment counts and the tree's ptxas
 lines (registers, stack, spills of every kernel), and the paired run says which
@@ -29,19 +32,44 @@ import os
 import statistics
 import subprocess
 import sys
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# (label, kernel, scan, scene, leaf, size, bounces, first sample, samples)
-CASES = (("wavefront tp cornell", "wavefront", "tp", "cornell", 32, 512, 16, 64, 64),
-         ("widebvh fast spheres5k leaf 32", "widebvh", "fast", "spheres5k", 32, 512, 16, 64, 64),
-         ("widebvh fast spheres102k leaf 64", "widebvh", "fast", "spheres102k", 64, 512, 16, 64,
-          64),
-         ("megakernel tp cornell 512 b4", "megakernel", "tp", "cornell", 32, 512, 4, 64, 64),
-         ("megakernel parity cornell 64 b2 8spp", "megakernel", "parity", "cornell", 32, 64, 2, 16,
-          8),
-         ("trace_rays parity rim 1572864 rows b3 2spp", "trace_rays", "parity", "cornell", 32, 256,
-          3, 0, 2))
-RIM_ROWS = 1_572_864  # chip_smoke.py phase 5: 256² / 4 prefix pixels x 3 edges x 2 tris x 16
+
+
+class Timed(NamedTuple):
+    label: str
+    kernel: str
+    scan: str
+    scene: str
+    leaf: int
+    size: int       # the image (or, for trace_rays, probe_rays' camera) is size²
+    bounces: int
+    start: int      # first sample (trace_rays: selfcheck.PROBE_START)
+    n: int          # samples
+    rows: int = 0   # trace_rays only: rays from selfcheck.probe_rays
+
+
+CASES = (Timed("wavefront tp cornell", "wavefront", "tp", "cornell", 32, 512, 16, 64, 64),
+         Timed("widebvh fast spheres5k leaf 32", "widebvh", "fast", "spheres5k", 32, 512, 16, 64,
+               64),
+         Timed("widebvh fast spheres102k leaf 64", "widebvh", "fast", "spheres102k", 64, 512, 16,
+               64, 64),
+         Timed("megakernel tp cornell 512 b4", "megakernel", "tp", "cornell", 32, 512, 4, 64, 64),
+         Timed("megakernel parity cornell 512 b4", "megakernel", "parity", "cornell", 32, 512, 4,
+               64, 64),
+         Timed("megakernel fast cornell 512 b4", "megakernel", "fast", "cornell", 32, 512, 4, 64,
+               64),
+         Timed("megakernel parity cornell 64 b2 8spp", "megakernel", "parity", "cornell", 32, 64,
+               2, 16, 8),
+         # chip_smoke.py phase 5: 256² / 4 prefix pixels x 3 edges x 2 tris x 16
+         Timed("trace_rays parity rim 1572864 rows b3 2spp", "trace_rays", "parity", "cornell",
+               32, 256, 3, 0, 2, rows=1_572_864),
+         # the row counts of the vertex recovery step's launches (64², 2 bounces, 8 spp)
+         Timed("trace_rays parity 5184 rows b2 4spp", "trace_rays", "parity", "cornell", 32, 64,
+               2, 0, 4, rows=5_184),
+         Timed("trace_rays parity 98304 rows b1 2spp", "trace_rays", "parity", "cornell", 32, 64,
+               1, 0, 2, rows=98_304))
 SPIN_CYCLES = 200_000_000  # about 0.1 s at the H100's boost clock
 
 
@@ -59,10 +87,10 @@ def time_tree(tree: str) -> dict:
            "ptxas": [ln.strip() for ln in info.log.splitlines()
                      if "Compiling entry" in ln or "registers" in ln or "spill" in ln],
            "ms": {}, "segments": {}}
-    for label, kernel, scan, scene, leaf, size, bounces, start, n in CASES:
+    for label, kernel, scan, scene, leaf, size, bounces, start, n, rows in CASES:
         case = selfcheck.Case(kernel, scan, size, size, bounces, scene=scene, leaf=leaf)
         if kernel == "trace_rays":
-            o, d = selfcheck.probe_rays(tables.scene(scene), RIM_ROWS, case.cfg, seed=1)
+            o, d = selfcheck.probe_rays(tables.scene(scene), rows, case.cfg, seed=1)
 
             def call(o=o, d=d, case=case, n=n):
                 return selfcheck.run_trace_rays(tables, scan, o, d, case.cfg, n)

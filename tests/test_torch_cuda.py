@@ -5,11 +5,10 @@ card run them with `python -m pytest --noconftest tests/test_torch_cuda.py -q` (
 file needs no fixture of tests/conftest.py, which imports jax). They are
 chip_smoke.py's phase-3 checks at 64×64 (kernels/selfcheck.py holds the cases and
 the pass rule), for the linear and the BVH kernels (with the megakernel's and the
-wavefront's work splits and table routes, the tp0 peel's two designs, the wide
-kernel on a 14-level tree and split into launches), the adjoint kernel and the
-arbitrary-ray kernel (at runs of 1, 2 and all samples a lane); and the vertex
-step's launches. Whether there is a card is decided inside the fixture, never at
-import.
+wavefront's work splits and table routes, the wide kernel on a 14-level tree and
+split into launches), the adjoint kernel and the arbitrary-ray kernel (at runs of
+1, 2 and all samples a lane); and the vertex step's launches. Whether there is a
+card is decided inside the fixture, never at import.
 """
 
 import pytest
@@ -70,7 +69,7 @@ def linear_runs(cuda_tables):
                                   if c.kernel == "megakernel"]
                          + ["megakernel tp tp0=1 pid_base 1000 n_rays 2001",
                             "megakernel parity tp0=0 pid_base 1000 n_rays 2001"])
-def test_megakernel_at_runs_1_2_all_and_both_tp0_designs_is_plain_bitwise(linear_runs, name):
+def test_megakernel_at_runs_1_2_all_is_plain_bitwise(linear_runs, name):
     assert linear_runs[name], linear_runs
 
 

@@ -128,5 +128,5 @@ def test_wavefront_wrapper_checks_run_and_sizes_its_split(cornell):
     assert wf.scan_in_shared(wf.scan_table(table, "parity"))  # 36 rows of 48 bytes
     huge = torch.zeros((mk.SMEM_TABLE_MAX_BYTES // 48 + 1, 12))
     assert not wf.scan_in_shared(huge)
-    assert wf.default_run(64, 512 * 512) == wf.DEFAULT_RUN  # 201 MB of scratch
-    assert wf.default_run(1024, 512 * 512) == 1024  # 3.2 GB: a pixel a thread
+    assert mk.default_run(64, 512 * 512) == mk.DEFAULT_RUN  # 201 MB of scratch
+    assert mk.default_run(1024, 512 * 512) == 1024  # 3.2 GB: a pixel a thread

@@ -13,8 +13,7 @@ float4s 0, 4 and 5 of a row. So:
     bit in each scan form;
   * those float4s of an augment_table_tp0 row hold the columns the plain tp0 scan
     reads, and a table off a 16-byte boundary is refused;
-  * both wrappers reject run < 1 (the megakernel also an unknown tp0 design) and
-    size their split as default_run says.
+  * both wrappers reject run < 1 and size their split as default_run says.
 """
 
 import pytest
@@ -93,15 +92,11 @@ def test_linear_wrappers_check_run_and_size_their_split(cornell, rays):
         mk.render_samples_pallas_stats(table, CFG, 0, 1, run=0)
     with pytest.raises(ValueError):
         mk.trace_rays_pallas_stats(table, o, d, CFG, 1, run=0)
-    with pytest.raises(ValueError):
-        mk.render_samples_pallas_stats(table, CFG, 0, 1, tp0_design="eager")
-    assert set(mk.TP0_DESIGNS) == {"lockstep", "deferred"} and mk.TP0_DESIGN in mk.TP0_DESIGNS
-    assert 1 <= mk.TP0_WAIT <= 32
     assert mk.default_run(64, 512 * 512) == mk.DEFAULT_RUN  # 201 MB of scratch
     assert mk.default_run(1024, 512 * 512) == 1024  # 3.2 GB: a pixel a lane
-    assert mk.default_run(2, 1_572_864, mk.TRACE_RAYS_DEFAULT_RUN) == mk.TRACE_RAYS_DEFAULT_RUN
-    assert mk.check_run(None, 8, 64 * 64, mk.DEFAULT_RUN) == min(mk.DEFAULT_RUN, 8)
-    assert mk.check_run(100, 8, 64 * 64, mk.DEFAULT_RUN) == 8
+    assert mk.default_run(2, 1_572_864) == mk.DEFAULT_RUN  # the rim probes: 38 MB
+    assert mk.check_run(None, 8, 64 * 64) == min(mk.DEFAULT_RUN, 8)
+    assert mk.check_run(100, 8, 64 * 64) == 8
     out, scratch, counters = mk.split_buffers(8, 10, 2, "cpu")
     assert out.shape == (10, 3) and scratch.shape == (8, 10, 3)
     assert counters.dtype == torch.int64 and counters.tolist() == [0, 0]
