@@ -24,16 +24,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
      in global memory, the same bits; the skip-link and
      8-wide BVH kernels in each leaf form on sphere_field(3, 1), sphere_field() and
      the Cornell box, wide vs skip-link bit for bit there and on
-     selfcheck.deep_scene (a 14-level tree), the wide kernel split into one-sample
-     launches and with a 454-level stack (227 KB of shared memory) the same bits as
-     one launch, and both BVH kernels against the linear
+     selfcheck.deep_scene (a 14-level tree), the wide and skip-link kernels split
+     into one-sample launches and the wide kernel with a 454-level stack (227 KB of
+     shared memory) the same bits as one launch, and both BVH kernels against the
+     linear
      kernel reading sphere_field()'s table from global memory (an independent
      brute-force search); the adjoint kernel
      (kernels/selfcheck.py grad_checks) at 128², 4 bounces, 2 spp: its forward bit
      for bit against its plain version and against the tp megakernel with tp0 off,
      the adjoint against its plain version (image and segments bit for bit, the
      (C, 6) gradients within 1e-4·max|g|) at the true, an interior and a
-     clamp-binding point, and two launches of the adjoint giving the same bits;
+     clamp-binding point, two launches of the adjoint giving the same bits, the
+     table read from global memory the same bits, and a ragged pixel range (pid_base
+     1000, 2,001 pixels) against its plain version and the whole image's rows;
      the hybrid renderer's forward (diff/fast.make_fast_renderer) at 256², 4
      bounces, 8 spp: pack_scene on the card bit for bit as on the host, and the
      forward against the megakernel's plain version on that table; the
@@ -116,8 +119,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      shape (512², 64 samples per launch; the BVH kernels' plain versions at 1
      sample, against the kernel at 1 sample), as Mrays/s = traced segments per
      second; the two results of each pair are held against each other by phase
-     3's rule; the wavefront (tp) also with runs of 1, 4 and 64 samples a lane, the
-     megakernel (tp with the tp0 peel, and parity) with runs of 1, 2, 4, 8 and 64,
+     3's rule (the skip-link kernel bit for bit); the wavefront (tp) also with runs
+     of 1, 4 and 64 samples a lane, the megakernel (tp with the tp0 peel, and parity) with runs of 1, 2, 4, 8 and 64,
      and the SM clock and power draw (nvidia-smi, every 100 ms)
      over 200 back-to-back megakernel launches. Then the linear-vs-BVH crossover:
      the megakernel against the 8-wide BVH kernel, fast scan, on sphere_field(n, 2)
@@ -153,7 +156,8 @@ triangles their plain versions tested, per segment, at the timed shape, and for 
 and direct the rays and any-hit triangles theirs counted), `library_ms` null (no
 PyTorch call computes a path trace, AO or NEE) and its launches on each path; the
 BVH kernels also their time and bound at sphere_field(80, 3) (`ms_102k`,
-`bound_ms_102k`), the megakernel and trace_rays theirs at the vertex recovery
+`bound_ms_102k`), the adjoint kernel its forward-only launch's bound
+(`forward_bound_ms`), the megakernel and trace_rays theirs at the vertex recovery
 step's launches (`ms_vertex_step`, `plain_ms_vertex_step`, `bound_ms_vertex_step`:
 sums over its `launches_vertex_step` launches).
 """
@@ -1155,11 +1159,13 @@ def phase_timing(tables):
     for scene, leaf in (("spheres5k", 32), ("spheres102k", 64)):
         for kernel in ("bvh", "widebvh"):
             case = Case(kernel, "fast", 512, 512, 16, scene=scene, leaf=leaf)
-            time_pair(f"{kernel} fast leaf {leaf} {scene} 512x512 b16",
-                      lambda n, c=case: run(c, tables, start=TIME_START, n=n),
-                      lambda n, c=case: run(c, tables, plain=True, start=TIME_START, n=n),
-                      MAIN_STEP, 1, rows, failed, kernel=kernel, scan="fast", bounces=16,
-                      scene=scene)
+            row = time_pair(f"{kernel} fast leaf {leaf} {scene} 512x512 b16",
+                            lambda n, c=case: run(c, tables, start=TIME_START, n=n),
+                            lambda n, c=case: run(c, tables, plain=True, start=TIME_START, n=n),
+                            MAIN_STEP, 1, rows, failed, kernel=kernel, scan="fast", bounces=16,
+                            scene=scene)
+            if kernel == "bvh" and not row["bitwise"]:  # the skip-link kernel: bit for bit
+                failed.append(f"{row['name']}: not bit for bit")
     require(not failed, f"kernel vs plain at the main path's shapes failed: {failed}")
     return rows
 
@@ -1595,17 +1601,21 @@ def kernel_bounds(tables, main_rows) -> dict:
             r = main_rows[name + suffix]
             per_seg = r["segments"] / r["plain_segments"]
             packed = getattr(tables, key)(scene, "fast", leaf)
-            out[name + suffix] = bounds.bound_ms(
+            out[name + suffix] = bounds.bound_ms(  # the tables in, the image and counter out
                 bounds.bvh_ops("fast", r["walk"]["boxes"] * per_seg, r["walk"]["tris"] * per_seg,
                                r["segments"]),
-                nbytes(*(t for t in packed if isinstance(t, torch.Tensor))) + 16 * n)
-    r = main_rows["grad_megakernel"]
+                nbytes(*(t for t in packed if isinstance(t, torch.Tensor))) + 12 * n + 8)
     n = TRAIN_SIZE * TRAIN_SIZE
     gtable, ct, _, _ = tables.grad("cornell")
+    r = main_rows["grad_megakernel"]  # the tables and weight in, image, counter, grads out
     out["grad_megakernel"] = bounds.bound_ms(
         bounds.linear_ops("tp", n_tris, r["segments"], n_classes=n_cls)
         + bounds.adjoint_ops(n_cls, r["segments"]),
-        nbytes(gtable, ct) + n * (12 + 12 + 4) + (n // 128) * n_cls * 6 * 4)
+        nbytes(gtable, ct) + n * (12 + 12) + 8 + n_cls * 6 * 4)
+    r = main_rows["grad_megakernel_forward"]  # the tables in, the image and counter out
+    out["grad_megakernel_forward"] = bounds.bound_ms(
+        bounds.linear_ops("tp", n_tris, r["segments"], n_classes=n_cls),
+        nbytes(gtable, ct) + n * 12 + 8)
     r = main_rows["trace_rays"]
     ptable, _, _ = tables.linear("cornell", "parity")
     out["trace_rays"] = bounds.bound_ms(bounds.linear_ops("parity", n_tris, r["segments"]),
@@ -1679,6 +1689,7 @@ def main() -> int:
                                                               adj["grad_max_abs_err"]),
                                     "spp": TRAIN_SPP, "plain_spp": TRAIN_SPP,
                                     "forward_ms": fwd["ms"], "forward_plain_ms": fwd["plain_ms"]}
+    main_rows["grad_megakernel_forward"] = fwd
     main_rows["trace_rays"] = rays_row
     sources["grad_megakernel"] = ("grad_megakernel.cu",
                                   "oclpathtracer_tpu/kernels/grad_megakernel.py:455")
@@ -1702,6 +1713,9 @@ def main() -> int:
         if name + "_102k" in main_rows:  # the BVH kernels at sphere_field(80, 3) too
             second = {"ms_102k": main_rows[name + "_102k"]["ms"],
                        "bound_ms_102k": bounds[name + "_102k"][0]}
+        if name == "grad_megakernel":  # the forward-only launch too
+            second = {"forward_bound_ms": bounds["grad_megakernel_forward"][0],
+                      "forward_bound_by": bounds["grad_megakernel_forward"][1]}
         if name in vertex_launch_rows:  # the vertex recovery step's launches too
             v = vertex_launch_rows[name]
             second = {"ms_vertex_step": v["ms"], "plain_ms_vertex_step": v["plain_ms"],

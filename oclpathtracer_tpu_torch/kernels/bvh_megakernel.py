@@ -16,9 +16,17 @@ fast-vs-parity contract. The TPU kernel's `window`, `interleave` and
 flat-table/node placement only schedule work on the TPU; results do not depend
 on them, and the port has none of them.
 
+The kernel runs one thread per (pixel, sample) path and reads a node as nodes_f's
+two float4s and nodes_i's int4, so both node tables must start on a 16-byte
+boundary. Each path's max(rad, 0) goes to a (n_samples, n_pix, 3) scratch buffer
+and a second kernel adds the samples in order, the megakernel's sum; more samples
+than `scratch_bytes` holds go to more launches, each sum going on from the last
+(`launch_split`, which the 8-wide kernel's wrapper runs too).
+
 `render_samples_bvh_stats` launches the kernel for CUDA tensors, or raises; for
 CPU tensors it runs `_render_samples_bvh_stats_plain`: the same walk vectorized
-over rays, one cursor per ray.
+over rays, one cursor per ray, through the same per-sample scratch and in-order
+sum.
 """
 
 from __future__ import annotations
@@ -200,11 +208,14 @@ def _render_samples_bvh_stats_plain(table, nodes_f, nodes_i, cfg: RenderConfig,
                                     start_sample: int, n_samples: int, max_leaf: int = 8,
                                     scan: str = "parity", emi_const: tuple = mk.NO_EMI,
                                     classes: tuple = ()):
-    """The kernel's plain PyTorch version: (img (n_pixels, 3) f32, segments int64)."""
+    """The kernel's plain PyTorch version: (img (n_pixels, 3) f32, segments int64).
+    Each sample's paths into the scratch buffer, then the in-order sum, as the
+    kernel does."""
     ps = mk._PlainScene(table, classes, scan, emi_const)
-    return mk.render_frames_plain(cfg, start_sample, n_samples, 0, cfg.n_pixels,
-                                  table.device,
-                                  _skip_walk_nearest(ps, nodes_f, nodes_i))
+    scratch, segs = mk.render_frames_split_plain(cfg, start_sample, n_samples, 0, cfg.n_pixels,
+                                                 table.device,
+                                                 _skip_walk_nearest(ps, nodes_f, nodes_i))
+    return mk.sample_sum_plain(scratch), segs
 
 
 # ---- the kernel's entry point ------------------------------------------------------
@@ -221,30 +232,64 @@ def check_bvh_call(table, nodes_f, nodes_i, cfg: RenderConfig, n_samples: int,
         raise ValueError(f"max_leaf must be >= 1, got {max_leaf}")
 
 
+def check_aligned16(**tensors) -> None:
+    """Raise unless each tensor starts on a 16-byte boundary: the BVH kernels read
+    their tables' rows as float4s and int4s."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernels read "
+                             "16-byte rows): pass a fresh contiguous tensor")
+
+
+def launch_split(fn_name: str, inputs: tuple, cfg: RenderConfig, scan: str, classes: tuple,
+                 n_tris: int, start_sample: int, n_samples: int, emi_const: tuple,
+                 n_nodes: int, depth: int = 0, scratch_bytes: int = mk.SCRATCH_MAX_BYTES):
+    """Launch a BVH kernel of the per-sample split (csrc/split.cuh) on n_samples
+    frames, in launches whose (n, n_pix, 3) f32 scratch fits scratch_bytes, each sum
+    going on from the last (the launcher's `init`): (img (n_pixels, 3) f32,
+    segments () int64, launches made)."""
+    from oclpathtracer_tpu_torch.kernels import cuda_build
+
+    n_pix, dev = cfg.n_pixels, inputs[0].device
+    chunk = max(1, scratch_bytes // (12 * n_pix))
+    scratch = torch.empty((min(chunk, n_samples), n_pix, 3), dtype=torch.float32, device=dev)
+    segs = torch.zeros((1,), dtype=torch.int64, device=dev)
+    out, launches = None, 0
+    for first in range(0, n_samples, chunk):
+        n = min(chunk, n_samples - first)
+        floats, ints = mk.host_params(cfg, scan, classes, False, n_tris, start_sample + first, n,
+                                      0, n_pix, emi_const=emi_const, n_nodes=n_nodes,
+                                      depth=depth)
+        img = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
+        cuda_build.launch(fn_name, (*inputs, out), floats, ints, img, scratch[:n], segs)
+        launches += 1
+        out = img
+    return out, segs[0], launches
+
+
 def render_samples_bvh_stats(table, nodes_f, nodes_i, cfg: RenderConfig, start_sample: int,
                              n_samples: int, max_leaf: int = 8, scan: str = "parity",
-                             emi_const: tuple = mk.NO_EMI, classes: tuple = ()):
-    """SUM of n_samples frames via the BVH megakernel + traced-segment count.
+                             emi_const: tuple = mk.NO_EMI, classes: tuple = (),
+                             scratch_bytes: int = mk.SCRATCH_MAX_BYTES):
+    """SUM of n_samples frames via the skip-link BVH kernel + traced-segment count.
 
     Returns (img (n_pixels, 3) f32, segments () int64). The arguments are what
-    prepare_bvh_scan returns; max_leaf is the build's leaf size. A CUDA table
-    launches `csrc/bvh_megakernel.cu`; a CPU table runs the plain version."""
+    prepare_bvh_scan returns; max_leaf is the build's leaf size. scratch_bytes: the
+    most scratch a launch takes; more samples go to more launches, each sum going on
+    from the last. A CUDA table launches `csrc/bvh_megakernel.cu`; a CPU table runs
+    the plain version."""
     global LAUNCHES
     check_bvh_call(table, nodes_f, nodes_i, cfg, n_samples, max_leaf, scan, classes, 8, 4)
     if table.device.type == "cpu":
         return _render_samples_bvh_stats_plain(table, nodes_f, nodes_i, cfg, start_sample,
                                                n_samples, max_leaf, scan, emi_const, classes)
-    from oclpathtracer_tpu_torch.kernels import cuda_build
-
-    floats, ints = mk.host_params(cfg, scan, classes, False, table.shape[0], start_sample,
-                                  n_samples, 0, cfg.n_pixels, emi_const=emi_const,
-                                  n_nodes=nodes_f.shape[0])
-    out = torch.empty((cfg.n_pixels, 3), dtype=torch.float32, device=table.device)
-    segs = torch.empty((cfg.n_pixels,), dtype=torch.int32, device=table.device)
-    cuda_build.launch("opt_bvh_megakernel_launch", (table, nodes_f, nodes_i), floats, ints,
-                      out, segs)
-    LAUNCHES += 1
-    return out, segs.sum(dtype=torch.int64)
+    check_aligned16(table=table, nodes_f=nodes_f, nodes_i=nodes_i)
+    out, segs, launches = launch_split("opt_bvh_megakernel_launch", (table, nodes_f, nodes_i),
+                                       cfg, scan, classes, table.shape[0], start_sample,
+                                       n_samples, emi_const, nodes_f.shape[0],
+                                       scratch_bytes=scratch_bytes)
+    LAUNCHES += launches
+    return out, segs
 
 
 def render_bvh(scene: Scene, cfg: RenderConfig, total_spp: int, samples_per_call: int = 0,

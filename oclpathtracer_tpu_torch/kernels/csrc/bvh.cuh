@@ -5,12 +5,13 @@
 // whole (8, 128) tile and descend when any lane's box test passes; a per-ray walk
 // visits fewer leaves, and an extra leaf visit cannot win a best hit). Leaves
 // are tested in leaf order with trace.cuh's tests, so parity, fast and tp leaves
-// run the linear kernels' arithmetic: the skip walk through scan_range, the wide
-// walk through scan_rows4, which reads each row as float4s.
+// run the linear kernels' arithmetic; both walks read a leaf's rows as float4s
+// (scan_rows4), which runs scan_range's tests in its order.
 //
 // What bounds the walks on the H100: dependent loads (a box test picks the next
 // node or group) and divergence (lanes walk different nodes and leaves). The
-// skip walk chains one box test to the next through its cursor. The wide walk
+// skip walk chains one box test to the next through its cursor; it reads a node,
+// box and links, in three aligned 16-byte loads issued together. The wide walk
 // reads a whole group, its 8 boxes and kinds, in 14 aligned 16-byte loads with
 // no load behind another, tests all 8 slots and masks by kind; its stack is one
 // 32-bit word a level in shared memory, sized by the tree's depth at launch.
@@ -81,23 +82,36 @@ static __device__ __forceinline__ bool box_hit(const float* __restrict__ b, cons
   return met && nearer;
 }
 
+// Leaf rows a loop iteration of the walks' leaf scans: 4 measured fastest against
+// 1, 2 and 8 for the wide walk at 5k and 102k triangles (PERF.md).
+constexpr int LEAF_UNROLL = 4;
+
 // Skip-link walk (bvh_megakernel.py make_traversal, per ray): node rows are
 // nodes_f [bmin.xyz bmax.xyz pad pad] and nodes_i [skip tri_start tri_count pad];
-// node = hit && !leaf ? node + 1 : skip[node].
+// node = hit && !leaf ? node + 1 : skip[node]. A node is read as nodes_f's two
+// float4s and nodes_i's int4, issued together (no load waits for the box test), so
+// the values and every slab test are those of the scalar rows. The walk keeps no
+// stack: any depth walks here.
 template <int SCAN>
 static __device__ __forceinline__ Hit skip_walk(const Params& P, const float* __restrict__ tbl,
-                                                const float* __restrict__ nodes_f,
-                                                const int* __restrict__ nodes_i, float3 o,
+                                                const float4* __restrict__ nodes_f,
+                                                const int4* __restrict__ nodes_i, float3 o,
                                                 float3 d) {
   Ray r = make_ray<SCAN>(o, d);
   Best best = fresh_best();
+  const float4* rows = (const float4*)tbl;
+  auto load = [&](int i) { return __ldg(rows + i); };
   int node = 0;
   while (node < P.n_nodes) {
-    bool hit = box_hit<SCAN>(nodes_f + (size_t)node * 8, r, best);
-    const int* ni = nodes_i + (size_t)node * 4;
-    int count = ni[2];
-    if (hit && count > 0) scan_range<SCAN>(tbl, ni[1], ni[1] + count, o, d, r.m, best);
-    node = hit && count == 0 ? node + 1 : ni[0];
+    float4 lo = __ldg(nodes_f + 2 * (size_t)node);
+    float4 hi = __ldg(nodes_f + 2 * (size_t)node + 1);
+    int4 link = __ldg(nodes_i + node);  // skip, tri_start, tri_count, pad
+    float b[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
+    bool hit = box_hit<SCAN>(b, r, best);
+    if (hit && link.z > 0)
+      scan_rows4<SCAN, LEAF_UNROLL>(load, TABLE_COLS / 4, link.y, link.y + link.z, o, d, r.m,
+                                    best);
+    node = hit && link.z == 0 ? node + 1 : link.x;
   }
   return decode<SCAN>(P, tbl, best);
 }
@@ -111,9 +125,6 @@ static __device__ __forceinline__ Hit skip_walk(const Params& P, const float* __
 // so every slab test and its bits are those of the (G, 8, 6) layout.
 constexpr int GROUP_BOX_VEC4S = 12;
 constexpr int GROUP_META_VEC4S = 6;
-// Leaf rows a loop iteration of the wide walk's leaf scan: 4 measured fastest
-// against 1, 2 and 8 at 5k and 102k triangles (PERF.md).
-constexpr int WIDE_LEAF_UNROLL = 4;
 
 // Bit c of the result is set where child slot c of group g is a real child
 // (kind != 0; an empty slot's inverted box passes the slab test) and the ray
@@ -183,8 +194,8 @@ static __device__ __forceinline__ Hit wide_walk(const Params& P, const float* __
       int kind = __ldg(mg + c);
       int a = __ldg(mg + WIDE + c);
       if (kind == 2) {
-        scan_rows4<SCAN, WIDE_LEAF_UNROLL>(load, TABLE_COLS / 4, a, a + __ldg(mg + 2 * WIDE + c), o,
-                                           d, r.m, best);
+        scan_rows4<SCAN, LEAF_UNROLL>(load, TABLE_COLS / 4, a, a + __ldg(mg + 2 * WIDE + c), o,
+                                      d, r.m, best);
       } else {
         uint32_t cm = expand_group(boxes, meta, a, r);
         if (cm != 0 && (top & 0xffu) == 0) {

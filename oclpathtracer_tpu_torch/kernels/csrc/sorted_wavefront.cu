@@ -19,8 +19,9 @@
 // the kernel) and assembles the image at the end.
 //
 // What the design does about that: one thread per ray, 128 threads a block, the
-// table and nodes read from global memory through read-only loads, state loads
-// and stores coalesced along R. No compaction: dead rays cost one 4-byte load.
+// table and nodes read from global memory through read-only loads (a node in three
+// 16-byte loads, leaf rows as float4s: bvh.cuh skip_walk), state loads and stores
+// coalesced along R. No compaction: dead rays cost one 4-byte load.
 #include "bvh.cuh"
 
 namespace opt {
@@ -45,8 +46,8 @@ static __device__ __forceinline__ void store3(float* __restrict__ a, int r, int 
 }
 
 __global__ void __launch_bounds__(BLOCK) sorted_bounce(const float* __restrict__ table,
-                                                     const float* __restrict__ nodes_f,
-                                                     const int* __restrict__ nodes_i,
+                                                     const float4* __restrict__ nodes_f,
+                                                     const int4* __restrict__ nodes_i,
                                                      const Params P, int first, int n_pix,
                                                      RayState S,
                                                      unsigned long long* __restrict__ segs) {
@@ -100,6 +101,7 @@ extern "C" int opt_sorted_bounce_launch(const float* table, const float* nodes_f
   opt::RayState S{o, d, mask, rad, live, (uint32_t*)rng};
   int grid = (P.n_rays + opt::BLOCK - 1) / opt::BLOCK;
   opt::sorted_bounce<<<grid, opt::BLOCK, 0, (cudaStream_t)stream>>>(
-      table, nodes_f, nodes_i, P, first, n_pix, S, (unsigned long long*)segs);
+      table, (const float4*)nodes_f, (const int4*)nodes_i, P, first, n_pix, S,
+      (unsigned long long*)segs);
   return (int)cudaGetLastError();
 }

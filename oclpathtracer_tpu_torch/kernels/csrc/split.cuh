@@ -1,8 +1,8 @@
-// Work split shared by wavefront.cu and wide_bvh.cu: threads that own fewer than
-// all samples of a pixel write each finished sample's max(rad, 0) into a
-// (n_samples, n_pix, 3) scratch buffer, and sample_sum adds the samples of each
-// pixel in the plain version's order (kernels/wavefront.py
-// _render_samples_wavefront_plain): stream i = the samples s = i mod k in
+// Work split shared by the linear kernels (regen.cuh), the BVH kernels and the
+// adjoint kernel: threads that own fewer than all samples of a pixel write each
+// finished sample's max(rad, 0) into a (n_samples, n_pix, 3) scratch buffer, and
+// sample_sum adds the samples of each pixel in the plain version's order
+// (kernels/wavefront.py _render_samples_wavefront_plain): stream i = the samples s = i mod k in
 // ascending order, each from 0, then the streams in ascending order from 0. With
 // k = 1 that is the megakernel's sum in sample order, so the bits do not depend
 // on the split. Segments go to one 64-bit counter, one atomic add a warp.
@@ -57,6 +57,33 @@ static inline int launch_sample_sum(const float* scratch, int n_samples, int n_p
   sample_sum<<<(n_pix + BLOCK - 1) / BLOCK, BLOCK, 0, stream>>>(scratch, n_samples, n_pix, k,
                                                                init, out);
   return (int)cudaGetLastError();
+}
+
+// One camera path a thread, sample-major (the BVH kernels): thread t traces sample
+// t / n_pix of pixel P.pid_base + t mod n_pix, so a warp holds 32 neighbouring
+// pixels of one sample and a long pixel's samples spread over n_samples threads;
+// `walk(o, d)` gives each segment's hit. max(rad, 0) goes to the scratch buffer and
+// every thread of the block counts its segments.
+template <typename Walk>
+static __device__ __forceinline__ void split_path(const Params& P, Walk walk,
+                                                  float* __restrict__ scratch,
+                                                  unsigned long long* __restrict__ segs) {
+  int n_pix = P.n_rays;
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int sg = 0;
+  if (t < P.n_samples * n_pix) {
+    int s = t / n_pix;
+    int idx = t - s * n_pix;
+    int pid = P.pid_base + idx;
+    Path p = camera_path(P, pid, (float)(pid % P.width), (float)(pid / P.width), s);
+    for (int b = 0; b < P.bounces; ++b) {
+      if (!p.active) break;
+      sg += 1;
+      shade(P, p, walk(p.o, p.d));
+    }
+    store_sample(scratch, s, n_pix, idx, p.rad);
+  }
+  count_segments(segs, sg);
 }
 
 // Blocks of BLOCK threads covering `threads` threads, or 0 past a 32-bit index.

@@ -1,9 +1,9 @@
 // Device-side path trace shared by every kernel of the port.
 //
-// One thread owns one pixel. Everything here is per-thread scalar code: the
-// reference's RNG (kernels/rng.py), the camera prologue, the triangle tests in
-// parity, fast and tp form over a [begin, end) range of the table, the decode of
-// each form's best hit, and the diffuse/GGX shading with the reference's quirks.
+// Everything here is per-thread scalar code: the reference's RNG (kernels/rng.py),
+// the camera prologue, the triangle tests in parity, fast and tp form over a
+// [begin, end) range of the table, the decode of each form's best hit, and the
+// diffuse/GGX shading with the reference's quirks.
 // The arithmetic follows oclpathtracer_tpu/kernels/megakernel.py:_make_kernel
 // operation by operation, so that with -fmad=false it tracks the port's plain
 // PyTorch version (kernels/megakernel.py) closely: the same f32 operations in
@@ -25,7 +25,7 @@
 
 namespace opt {
 
-constexpr int BLOCK = 128;         // threads a block, one pixel each
+constexpr int BLOCK = 128;         // threads a block
 constexpr int TABLE_COLS = 24;
 constexpr int CLASS_COLS = 8;     // albedo 3 | emissive 3 | roughness | mtype
 constexpr int TP_CLASS_CAP = 16;
@@ -519,44 +519,6 @@ static __device__ __forceinline__ void advance(const Params& P, Path& p, const H
 static __device__ __forceinline__ void shade(const Params& P, Path& p, const Hit& h) {
   if (!shade_emit(P, p, h)) return;
   advance(P, p, h, sample_lobe(p.d, h, p.rng));
-}
-
-// The per-sample bounce loop of one thread: n 1-spp samples, each at most
-// `bounces` segments, max(rad, 0) added in sample order, segments counted.
-// `start(s)` makes sample s's path (camera_path or ray_path);
-// `segment(path, bounce)` traces one segment. A dead path leaves the loop: it
-// adds no radiance and is not counted, so this is exact.
-template <typename Start, typename Segment>
-static __device__ __forceinline__ void trace_samples(const Params& P, int idx, Start start,
-                                                     Segment segment, float* __restrict__ out,
-                                                     int* __restrict__ segs) {
-  float3 acc = v3(0.0f, 0.0f, 0.0f);
-  int sg = 0;
-  for (int s = 0; s < P.n_samples; ++s) {
-    Path p = start(s);
-    for (int b = 0; b < P.bounces; ++b) {
-      if (!p.active) break;
-      sg += 1;
-      segment(p, b);
-    }
-    acc = v3(acc.x + clamp0(p.rad.x), acc.y + clamp0(p.rad.y), acc.z + clamp0(p.rad.z));
-  }
-  out[3 * idx + 0] = acc.x;
-  out[3 * idx + 1] = acc.y;
-  out[3 * idx + 2] = acc.z;
-  segs[idx] = sg;
-}
-
-// trace_samples over the camera paths of pixel P.pid_base + idx.
-template <typename Segment>
-static __device__ __forceinline__ void render_pixel(const Params& P, int idx, Segment segment,
-                                                    float* __restrict__ out,
-                                                    int* __restrict__ segs) {
-  int pid = P.pid_base + idx;
-  float px = (float)(pid % P.width);
-  float py = (float)(pid / P.width);
-  trace_samples(
-      P, idx, [&](int s) { return camera_path(P, pid, px, py, s); }, segment, out, segs);
 }
 
 // Copy the scene table into dynamic shared memory; every thread of the block

@@ -46,22 +46,12 @@ __global__ void __launch_bounds__(BLOCK) wide_bvh(const float* __restrict__ tabl
                                                 float* __restrict__ scratch,
                                                 unsigned long long* __restrict__ segs) {
   extern __shared__ uint32_t wide_stack[];
-  int n_pix = P.n_rays;
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  int sg = 0;
-  if (t < P.n_samples * n_pix) {
-    int s = t / n_pix;
-    int idx = t - s * n_pix;
-    int pid = P.pid_base + idx;
-    Path p = camera_path(P, pid, (float)(pid % P.width), (float)(pid / P.width), s);
-    for (int b = 0; b < P.bounces; ++b) {
-      if (!p.active) break;
-      sg += 1;
-      shade(P, p, wide_walk<SCAN>(P, table, boxes, meta, wide_stack + threadIdx.x, p.o, p.d));
-    }
-    store_sample(scratch, s, n_pix, idx, p.rad);
-  }
-  count_segments(segs, sg);
+  split_path(
+      P,
+      [&](float3 o, float3 d) {
+        return wide_walk<SCAN>(P, table, boxes, meta, wide_stack + threadIdx.x, o, d);
+      },
+      scratch, segs);
 }
 
 template <int SCAN>

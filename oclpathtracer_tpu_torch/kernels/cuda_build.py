@@ -38,9 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHERS = {
     "opt_megakernel_launch": (1, 3),       # table -> out, scratch, segs
     "opt_wavefront_launch": (2, 3),        # table, scan table -> out, scratch, segs
-    "opt_bvh_megakernel_launch": (3, 2),   # table, nodes_f, nodes_i -> out, segs
+    "opt_bvh_megakernel_launch": (4, 3),   # table, nodes_f, nodes_i, init -> out, scratch, segs
     "opt_wide_bvh_launch": (4, 3),         # table, boxes, meta, init -> out, scratch, segs
-    "opt_grad_megakernel_launch": (3, 3),  # table, classes, weight -> out, segs, partials
+    # table, classes, weight -> out, scratch, segs, partials, grads
+    "opt_grad_megakernel_launch": (3, 5),
     "opt_trace_rays_launch": (3, 3),       # table, o, d -> out, scratch, segs
     "opt_ao_launch": (1, 1),               # table -> out
     "opt_direct_launch": (2, 1),           # table, light table -> out

@@ -18,12 +18,19 @@ with f = albedo ⊙ q for every BRDF lobe, and the final max(radiance, 0) taken 
 identity: the adjoint is the derivative of the UNCLAMPED path sum, which equals the
 clamped one wherever the clamp does not bind (every physical parameter point).
 
+The kernel runs one thread per (pixel, sample) path: each path's max(rad, 0) goes
+to a (n_samples, n_rays, 3) scratch buffer that a second kernel adds in sample
+order, and the paths' gradient sums are reduced per block of 128 paths in a fixed
+order into (n_blocks, C, 6) partials that a third kernel adds over the blocks in a
+fixed order. No float sum goes through an atomic, so a launch repeats its bits.
+
 `render_grads_pallas` keeps the JAX entry's name and return shape, and
 `render_grads_pallas_stats` adds the segment count: for CUDA tensors it launches
 the kernel, or raises; for CPU tensors it runs the plain version
 `_render_grads_plain`, the same recursion in the same operation order vectorized
-over pixels. The JAX `resolve_grad_interleave` is TPU scheduling and has no
-counterpart here.
+over paths, in the kernel's split (or, with split=False, a pixel's samples in
+series, the form of the JAX kernel). The JAX `resolve_grad_interleave` is TPU
+scheduling and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -38,9 +45,12 @@ from oclpathtracer_tpu_torch.scene.types import Scene
 CLASS_COLS = mk.CLASS_COLS  # albedo[3] | emissive[3] | roughness | mtype
 BLOCK = 128  # threads a block (csrc/trace.cuh): one (C, 6) partial each
 
-# Static shared memory the kernel declares besides the table: the class table and
-# the per-warp gradient sums (csrc/grad_megakernel.cu), bytes rounded up.
+# Shared memory the kernel takes besides the table (csrc/grad_megakernel.cu): the
+# class table and the per-warp gradient sums (static, bytes rounded up), and the
+# carries and sums of a block's threads at the most classes (9 floats a class a
+# thread), which the table leaves room for whatever the class count.
 STATIC_SMEM_BYTES = 2048
+CARRY_SMEM_BYTES = 9 * mk.TP_CLASS_CAP * BLOCK * 4
 
 # Kernel launches made by render_grads_pallas_stats on CUDA tensors.
 LAUNCHES = 0
@@ -76,7 +86,7 @@ def prepare_grad_scene(scene: Scene):
 def grad_table_in_shared(table: torch.Tensor) -> bool:
     """Whether the kernel stages `table` in shared memory (else reads it from
     global memory): a function of its size only."""
-    return (table.numel() * table.element_size() + STATIC_SMEM_BYTES
+    return (table.numel() * table.element_size() + STATIC_SMEM_BYTES + CARRY_SMEM_BYTES
             <= mk.SMEM_TABLE_MAX_BYTES)
 
 
@@ -105,19 +115,26 @@ def _stack(v) -> torch.Tensor:
 def _render_grads_plain(table: torch.Tensor, class_table: torch.Tensor, cfg: RenderConfig,
                         start_sample: int, n_samples: int, n_classes: int,
                         weight: torch.Tensor | None = None, with_grads: bool = True,
-                        pid_base: int = 0, n_rays: int | None = None):
+                        pid_base: int = 0, n_rays: int | None = None, split: bool = True):
     """The kernel's plain version: (img (n_rays, 3), grads (C, 6) or None, segments
     int64); with_grads needs the (n_rays, 3) weight, as the wrapper passes it. Per
-    pixel the same f32 operations in the same order as the kernel; the
-    gradient sum over pixels is torch's, in another order than the kernel's blocks."""
+    path the same f32 operations in the same order as the kernel. split (the
+    kernel's form): each sample's max(rad, 0) into a (n_samples, n_rays, 3) scratch
+    buffer added in sample order (mk.sample_sum_plain), each path's gradient sums
+    over its bounces, then over all paths. split=False: a pixel's samples in series,
+    image and gradient sums carried from sample to sample, then the gradients over
+    pixels. The image bits are the same; the gradient sums add in other orders than
+    the kernel's blocks."""
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     device = table.device
     ps = mk._PlainScene(table, class_table, "tp")
     k = mk._Consts.of(cfg)
     pid = torch.arange(pid_base, pid_base + n_pix, dtype=torch.int64, device=device)
     class_ids = torch.arange(n_classes, device=device)
+    scratch = torch.empty((n_samples, n_pix, 3), dtype=torch.float32, device=device)
     acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
     segs = torch.zeros((n_pix,), dtype=torch.int32, device=device)
+    grads = torch.zeros((n_classes, 6), dtype=torch.float32, device=device)
     if with_grads:
         w = weight[:, None, :]
         g_alb = torch.zeros((n_pix, n_classes, 3), dtype=torch.float32, device=device)
@@ -125,6 +142,9 @@ def _render_grads_plain(table: torch.Tensor, class_table: torch.Tensor, cfg: Ren
     for s in range(n_samples):
         o, d, mask, rad, active, state = mk._camera_path(k, cfg, pid, int(start_sample) + s)
         pc = torch.zeros((n_pix, n_classes, 3), dtype=torch.float32, device=device)
+        if with_grads and split:  # this sample's paths start their sums at 0
+            g_alb = torch.zeros_like(g_alb)
+            g_emi = torch.zeros_like(g_alb)
         for _ in range(cfg.bounces):
             if not bool(active.any()):
                 break
@@ -155,9 +175,14 @@ def _render_grads_plain(table: torch.Tensor, class_table: torch.Tensor, cfg: Ren
                 pc = torch.where(alive[:, None, None], new, pc)
             o, d, mask, active = mk._advance(k, o, d, mask, best_t, balb, n, wi, pdf, q,
                                              active)
-        acc = acc + torch.clamp(_stack(rad), min=0.0)
-    grads = torch.cat([g_alb.sum(0), g_emi.sum(0)], dim=1) if with_grads else None
-    return acc, grads, segs.sum(dtype=torch.int64)
+        scratch[s] = torch.clamp(_stack(rad), min=0.0)
+        acc = acc + scratch[s]
+        if with_grads and split:
+            grads = grads + torch.cat([g_alb.sum(0), g_emi.sum(0)], dim=1)
+    if with_grads and not split:
+        grads = torch.cat([g_alb.sum(0), g_emi.sum(0)], dim=1)
+    img = mk.sample_sum_plain(scratch) if split else acc
+    return img, grads if with_grads else None, segs.sum(dtype=torch.int64)
 
 
 # ---- the kernel's entry point ----------------------------------------------------
@@ -193,21 +218,23 @@ def render_grads_pallas_stats(table: torch.Tensor, class_table: torch.Tensor,
                                    n_classes, weight, with_grads, pid_base, n_pix)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
+    mk.check_rows4(table)
     floats, ints = mk.host_params(cfg, "tp", (), False, table.shape[0], start_sample,
                                   n_samples, pid_base, n_pix,
                                   smem=grad_table_in_shared(table))
-    out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
-    segs = torch.empty((n_pix,), dtype=torch.int32, device=table.device)
-    partials = None
-    if with_grads:
-        n_blocks = -(-n_pix // BLOCK)
-        partials = torch.empty((n_blocks, n_classes, 6), dtype=torch.float32,
-                               device=table.device)
+    dev = table.device
+    out = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
+    scratch = torch.empty((n_samples, n_pix, 3), dtype=torch.float32, device=dev)
+    segs = torch.zeros((1,), dtype=torch.int64, device=dev)
+    partials = grads = None
+    if with_grads:  # a row for each block of BLOCK paths
+        partials = torch.empty((-(-n_samples * n_pix // BLOCK), n_classes, 6),
+                               dtype=torch.float32, device=dev)
+        grads = torch.empty((n_classes, 6), dtype=torch.float32, device=dev)
     cuda_build.launch("opt_grad_megakernel_launch", (table, class_table, weight), floats,
-                      ints + [n_classes], out, segs, partials)
+                      ints + [n_classes], out, scratch, segs, partials, grads)
     LAUNCHES += 1
-    grads = partials.sum(0) if with_grads else None
-    return out, grads, segs.sum(dtype=torch.int64)
+    return out, grads, segs[0]
 
 
 def render_grads_pallas(table: torch.Tensor, class_table: torch.Tensor, cfg: RenderConfig,

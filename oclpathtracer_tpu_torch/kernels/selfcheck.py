@@ -394,10 +394,11 @@ def wide_equals_skip_walk(tables: Tables, width, height, bounces=4) -> dict:
 
 
 def wide_chunks_agree(tables: Tables, width, height, bounces=4, n_samples=3) -> dict:
-    """The 8-wide kernel's launches split by its scratch budget (one sample a launch,
-    each sum going on from the last), and a launch with the largest stack
-    (WIDE_MAX_DEPTH levels, 227 KB of shared memory a block), against one launch
-    with the tree's own stack: bit for bit, each leaf form on sphere_field(3, 1)."""
+    """The 8-wide and skip-link kernels' launches split by their scratch budget (one
+    sample a launch, each sum going on from the last), and a wide launch with the
+    largest stack (WIDE_MAX_DEPTH levels, 227 KB of shared memory a block), against
+    one launch with the tree's own stack: bit for bit, each leaf form on
+    sphere_field(3, 1)."""
     out = {}
     for scan in ("parity", "fast", "tp"):
         case = Case("widebvh", scan, width, height, bounces, scene="spheres244")
@@ -414,6 +415,12 @@ def wide_chunks_agree(tables: Tables, width, height, bounces=4, n_samples=3) -> 
             render(max_depth=depth, scratch_bytes=12 * width * height), ref)
         out[f"{scan} {wb.WIDE_MAX_DEPTH}-level stack"] = _same(
             render(max_depth=wb.WIDE_MAX_DEPTH), ref)
+        tb, nf, ni, emi, classes = tables.bvh(case.scene, scan, case.leaf)
+        out[f"{scan} skip-link one sample a launch"] = _same(
+            bk.render_samples_bvh_stats(tb, nf, ni, case.cfg, START_SAMPLE, n_samples,
+                                        max_leaf=case.leaf, scan=scan, emi_const=emi,
+                                        classes=classes, scratch_bytes=12 * width * height),
+            run(dataclasses.replace(case, kernel="bvh"), tables, n=n_samples))
     return out
 
 
@@ -553,7 +560,9 @@ def grad_checks(tables: Tables, width, height, bounces=4, n_samples=2) -> dict:
     """The adjoint kernel on the card: the forward bit for bit against its plain
     version and against the tp megakernel (tp0 off); the adjoint against its plain
     version at the true, interior and clamp-binding points; two launches of the
-    adjoint give the same bits."""
+    adjoint give the same bits, as does the table read from global memory; and the
+    adjoint on a ragged pixel range (pid_base 1000, 2,001 pixels) against its plain
+    version, its image bit for bit the whole image's rows."""
     cfg = RenderConfig(width=width, height=height, bounces=bounces)
     points = grad_points(tables)
     w = grad_weight(cfg.n_pixels, tables.device)
@@ -585,6 +594,15 @@ def grad_checks(tables: Tables, width, height, bounces=4, n_samples=2) -> dict:
     out["table in global memory, same bits"] = {
         "ok": bool(torch.equal(far[0], first[0]) and torch.equal(far[1], first[1])
                    and int(far[2]) == int(first[2]))}
+    # A pixel range whose paths fill no whole block (blocks straddle samples).
+    kw = dict(weight=w[1000:3001], pid_base=1000, n_rays=2001)
+    part = gk.render_grads_pallas_stats(table, points["interior"], cfg, START_SAMPLE, n_samples,
+                                        n_classes, **kw)
+    r = compare_grads(part, gk._render_grads_plain(table, points["interior"], cfg, START_SAMPLE,
+                                                   n_samples, n_classes, **kw))
+    rows_ok = torch.equal(part[0], first[0][1000:3001])
+    out["adjoint on pixels [1000, 3001) vs plain and the whole image's rows"] = {
+        **r, "whole_image_rows_bitwise": bool(rows_ok), "ok": bool(r["ok"] and rows_ok)}
     return out
 
 

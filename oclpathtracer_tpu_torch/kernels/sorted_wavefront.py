@@ -102,6 +102,7 @@ def _bounce_step(table, nodes_f, nodes_i, cfg: RenderConfig, state: RayState,
                              n_pix)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
+    bk.check_aligned16(table=table, nodes_f=nodes_f, nodes_i=nodes_i)
     floats, ints = mk.host_params(cfg, "parity", (), False, table.shape[0], start_sample, 1, 0,
                                   state.live.shape[0], n_nodes=nodes_f.shape[0])
     cuda_build.launch("opt_sorted_bounce_launch", (table, nodes_f, nodes_i), floats,

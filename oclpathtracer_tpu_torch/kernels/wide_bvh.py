@@ -186,27 +186,13 @@ def render_samples_wide_bvh_stats(table, wn_f, wn_i, cfg: RenderConfig, start_sa
         return _render_samples_wide_bvh_stats_plain(table, wn_f, wn_i, cfg, start_sample,
                                                     n_samples, scan, emi_const, classes,
                                                     max_depth)
-    from oclpathtracer_tpu_torch.kernels import cuda_build
-
     boxes, meta = group_record(wn_f, wn_i) if record is None else record
     if boxes.shape != (wn_f.shape[0], 6, WIDE) or meta.shape != (wn_i.shape[0], 3, WIDE) \
             or boxes.device != table.device or meta.device != table.device:
         raise ValueError("record must be group_record(wn_f, wn_i)")
-    if any(t.data_ptr() % 16 for t in (table, boxes, meta)):
-        raise ValueError("the table and the group record must be 16-byte aligned")
-    n_pix, dev = cfg.n_pixels, table.device
-    chunk = max(1, scratch_bytes // (12 * n_pix))
-    scratch = torch.empty((min(chunk, n_samples), n_pix, 3), dtype=torch.float32, device=dev)
-    segs = torch.zeros((1,), dtype=torch.int64, device=dev)
-    out = None
-    for first in range(0, n_samples, chunk):
-        n = min(chunk, n_samples - first)
-        floats, ints = mk.host_params(cfg, scan, classes, False, table.shape[0],
-                                      start_sample + first, n, 0, n_pix, emi_const=emi_const,
-                                      n_nodes=wn_f.shape[0], depth=max_depth)
-        img = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
-        cuda_build.launch("opt_wide_bvh_launch", (table, boxes, meta, out), floats, ints, img,
-                          scratch[:n], segs)
-        LAUNCHES += 1
-        out = img
-    return out, segs[0]
+    bk.check_aligned16(table=table, boxes=boxes, meta=meta)
+    out, segs, launches = bk.launch_split("opt_wide_bvh_launch", (table, boxes, meta), cfg, scan,
+                                          classes, table.shape[0], start_sample, n_samples,
+                                          emi_const, wn_f.shape[0], max_depth, scratch_bytes)
+    LAUNCHES += launches
+    return out, segs

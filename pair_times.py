@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the linear, path-regeneration and 8-wide BVH kernels of two trees on one card.
+"""Time the kernels of two trees on one card, parent against change.
 
     python3 pair_times.py PARENT_DIR   # PARENT_DIR, this tree, this tree, PARENT_DIR
     python3 pair_times.py --tree DIR   # one tree: one JSON line
@@ -16,11 +16,21 @@ fast, Cornell 512², 4 bounces, 64 spp from sample 64; and parity at the vertex
 recovery's launch, 64², 2 bounces, 8 spp from sample 16); and trace_rays (parity,
 the rim probes' 1,572,864 rows, 3 bounces, 2 spp; and the row counts, bounces and
 samples of the vertex recovery step's launches, 5,184 rows at 2 bounces and 4 spp
-and 98,304 rows at 1 bounce and 2 spp; rows from selfcheck.probe_rays). Each kernel
-runs at its tree's defaults. A time is device
-time: CUDA events around the launch, queued behind a 0.1 s spin kernel, median of
-5 after a warm-up. Each line also carries the segment counts and the tree's ptxas
-lines (registers, stack, spills of every kernel), and the paired run says which
+and 98,304 rows at 1 bounce and 2 spp; rows from selfcheck.probe_rays); the
+skip-link BVH kernel (fast, 512², 16 bounces, 64 spp from sample 64, on
+sphere_field() at leaf 32 and on sphere_field(80, 3) at leaf 64); the sorted
+wavefront's 16 bounce launches (parity, sphere_field(), leaf 32, 512², 8 spp from
+sample 64, sort off); and the adjoint kernel, with gradients and forward only
+(Cornell, the interior class point, selfcheck.grad_weight, 8 spp from sample 0, at
+bench_train.py's 256² with 4 bounces and at the vertex recovery's 64² with 2
+bounces); and the kernel train step (diff/fast.make_kernel_train_step at those
+256² shapes, 4 adjoint-kernel launches a step). Each kernel runs at its tree's
+defaults. A kernel's time is device time: CUDA events around the launch, queued
+behind a 0.1 s spin kernel, median of 5 after a warm-up. The train step's is wall
+time, as chip_smoke.py phase 5 takes it: the host clock around a step and a
+synchronize, median of 7 after a warm-up (the host's launch work is part of it).
+Each line also carries the segment counts and the tree's ptxas lines (registers,
+stack, spills of every kernel), and the paired run says which
 kernels of both trees have the same lines. The paired order cancels drift of the
 card's clocks; compare the two trees only within one call.
 """
@@ -32,6 +42,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -69,7 +80,20 @@ CASES = (Timed("wavefront tp cornell", "wavefront", "tp", "cornell", 32, 512, 16
          Timed("trace_rays parity 5184 rows b2 4spp", "trace_rays", "parity", "cornell", 32, 64,
                2, 0, 4, rows=5_184),
          Timed("trace_rays parity 98304 rows b1 2spp", "trace_rays", "parity", "cornell", 32, 64,
-               1, 0, 2, rows=98_304))
+               1, 0, 2, rows=98_304),
+         Timed("bvh fast spheres5k leaf 32", "bvh", "fast", "spheres5k", 32, 512, 16, 64, 64),
+         Timed("bvh fast spheres102k leaf 64", "bvh", "fast", "spheres102k", 64, 512, 16, 64,
+               64),
+         Timed("sorted bounce x16 parity spheres5k leaf 32 8spp", "sorted", "parity",
+               "spheres5k", 32, 512, 16, 64, 8),
+         Timed("adjoint cornell 256 b4 8spp", "adjoint", "tp", "cornell", 32, 256, 4, 0, 8),
+         Timed("forward cornell 256 b4 8spp", "forward", "tp", "cornell", 32, 256, 4, 0, 8),
+         Timed("adjoint cornell 64 b2 8spp", "adjoint", "tp", "cornell", 32, 64, 2, 0, 8),
+         Timed("forward cornell 64 b2 8spp", "forward", "tp", "cornell", 32, 64, 2, 0, 8),
+         # chip_smoke.py phase 5's kernel train step (host clock: it waits on the host)
+         Timed("kernel train step cornell 256 b4 8spp", "train", "tp", "cornell", 32, 256, 4, 0,
+               8))
+TRAIN_REPS = 7
 SPIN_CYCLES = 200_000_000  # about 0.1 s at the H100's boost clock
 
 
@@ -77,7 +101,10 @@ def time_tree(tree: str) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.diff import fast
     from oclpathtracer_tpu_torch.kernels import cuda_build, selfcheck
+    from oclpathtracer_tpu_torch.kernels import sorted_wavefront as sw
 
     if not torch.cuda.is_available():
         sys.exit("pair_times: needs a CUDA device")
@@ -94,22 +121,50 @@ def time_tree(tree: str) -> dict:
 
             def call(o=o, d=d, case=case, n=n):
                 return selfcheck.run_trace_rays(tables, scan, o, d, case.cfg, n)
+        elif kernel == "sorted":  # the 16 bounce launches of one render_sorted call
+            tb, nf, ni, _, _ = tables.bvh(scene, scan, leaf)
+
+            def call(tb=tb, nf=nf, ni=ni, case=case, start=start, n=n):
+                return sw._trace_sorted(sw._bounce_step, tb, nf, ni, case.cfg, start, n, False)
+        elif kernel in ("adjoint", "forward"):
+            cfg = RenderConfig(size, size, bounces=bounces)
+            ct = selfcheck.grad_points(tables)["interior"]
+            w = selfcheck.grad_weight(cfg.n_pixels, "cuda") if kernel == "adjoint" else None
+
+            def call(cfg=cfg, ct=ct, w=w, start=start, n=n):
+                return selfcheck.run_grad(tables, cfg, ct, w, start=start, n=n)
+        elif kernel == "train":
+            cornell = tables.scene(scene)
+            cfg = RenderConfig(size, size, bounces=bounces)
+            step = fast.make_kernel_train_step(cornell, cfg, n, lr=1e-3)
+            params = fast.extract_class_params(cornell)
+            target = torch.zeros((cfg.n_pixels, 3), device="cuda")
+
+            def call(step=step, params=params, target=target, start=start):
+                return step(params, target, start)
         else:
             def call(case=case, start=start, n=n):
                 return selfcheck.run(case, tables, start=start, n=n)
 
         call()
         torch.cuda.synchronize()
-        times = []
-        for _ in range(5):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SPIN_CYCLES)
-            a.record()
-            _, segs = call()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
+        times, segs = [], 0  # a train step's segments are its adjoint launches'
+        if kernel == "train":
+            for _ in range(TRAIN_REPS):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        else:
+            for _ in range(5):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(SPIN_CYCLES)
+                a.record()
+                segs = call()[-1]
+                b.record()
+                torch.cuda.synchronize()
+                times.append(a.elapsed_time(b))
         out["ms"][label] = statistics.median(times)
         out["segments"][label] = int(segs)
     return out
@@ -141,8 +196,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     runs = []
-    for label, tree in (("parent", sys.argv[1]), ("change", ROOT), ("change", ROOT),
-                        ("parent", sys.argv[1])):
+    parent = os.path.abspath(sys.argv[1])  # the tree processes run from ROOT
+    for label, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                        ("parent", parent)):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree],
                              capture_output=True, text=True, check=True, cwd=ROOT)
         row = json.loads(res.stdout.strip().splitlines()[-1])

@@ -6,8 +6,10 @@ file needs no fixture of tests/conftest.py, which imports jax). They are
 chip_smoke.py's phase-3 checks at 64×64 (kernels/selfcheck.py holds the cases and
 the pass rule), for the linear and the BVH kernels (with the megakernel's and the
 wavefront's work splits and table routes, the wide kernel on a 14-level tree and
-split into launches), the adjoint kernel and the arbitrary-ray kernel (at runs of
-1, 2 and all samples a lane); and the vertex step's launches. Whether there is a
+split into launches, the skip-link kernel bit for bit in each leaf form, split into
+launches and on the driver's route for trees deeper than the wide kernel's stack),
+the adjoint kernel (on a ragged pixel range too) and the arbitrary-ray kernel (at
+runs of 1, 2 and all samples a lane); and the vertex step's launches. Whether there is a
 card is decided inside the fixture, never at import.
 """
 
@@ -73,6 +75,36 @@ def test_megakernel_at_runs_1_2_all_is_plain_bitwise(linear_runs, name):
     assert linear_runs[name], linear_runs
 
 
+@pytest.mark.parametrize("case", [c for c in selfcheck.bvh_cases(SIZE, SIZE) if c.kernel == "bvh"],
+                         ids=lambda c: c.name)
+def test_skip_kernel_is_its_plain_version_bitwise(cuda_tables, case):
+    result = selfcheck.check_case(case, cuda_tables)
+    assert result["bitwise"], result
+
+
+def test_skip_kernel_renders_a_tree_deeper_than_the_wide_stack(cuda_tables, monkeypatch):
+    """render/driver.py's route: with the wide kernel's stack cut to 13 levels, the
+    14-level deep_scene goes to the skip-link kernel, which gives the wide kernel's
+    image bit for bit."""
+    from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
+    from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
+    from oclpathtracer_tpu_torch.render import driver
+
+    deep = cuda_tables.scene("deep")
+    cfg = selfcheck.scene_cfg("deep", SIZE, SIZE, 4)
+
+    def render():
+        return driver.render_progressive(deep, cfg, total_spp=4, samples_per_step=2,
+                                         backend="auto")
+
+    wide = render()
+    monkeypatch.setattr(wb, "WIDE_MAX_DEPTH", 13)
+    before = (bk.LAUNCHES, wb.LAUNCHES)
+    img = render()
+    assert (bk.LAUNCHES - before[0], wb.LAUNCHES - before[1]) == (2, 0)
+    assert torch.equal(img, wide)
+
+
 def test_wide_kernel_is_the_skip_kernel_bitwise(cuda_tables):
     assert all(selfcheck.wide_equals_skip_walk(cuda_tables, SIZE, SIZE).values())
 
@@ -127,6 +159,11 @@ def test_grad_kernel_rerun_gives_the_same_bits(grad_results):
 
 def test_grad_kernel_table_in_global_memory_gives_the_same_bits(grad_results):
     assert grad_results["table in global memory, same bits"]["ok"]
+
+
+def test_grad_kernel_on_a_ragged_pixel_range_matches_plain(grad_results):
+    result = grad_results["adjoint on pixels [1000, 3001) vs plain and the whole image's rows"]
+    assert result["ok"], result
 
 
 def test_kernel_train_step_launches_the_grad_kernel_four_times(cuda_tables):

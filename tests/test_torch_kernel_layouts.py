@@ -7,7 +7,7 @@
   * the split render (each sample's max(rad, 0) into a (n_samples, n_pix, 3)
     scratch buffer, then the in-order sum of csrc/split.cuh) equals the unsplit
     plain versions bit for bit: the wavefront's at k = 1 and k = 3 and the 8-wide
-    walk's, on the inputs the JAX-matched tests use (the Cornell box through
+    and skip-link walks', on the inputs the JAX-matched tests use (the Cornell box through
     convert.scene_from_numpy, sphere_field(3, 1, seed=2)).
 """
 
@@ -19,6 +19,7 @@ from oclpathtracer_tpu.kernels import wide_bvh as jwb
 from oclpathtracer_tpu.scene import procgen as jprocgen
 from oclpathtracer_tpu_torch.config import CameraConfig, RenderConfig
 from oclpathtracer_tpu_torch.convert import scene_from_numpy
+from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import wavefront as wf
 from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
@@ -92,6 +93,9 @@ def test_split_render_is_the_wavefront_plain_version_bitwise(cornell, scan, k):
 
 
 def test_split_render_is_the_wide_walks_unsplit_sum_bitwise(spheres):
+    """The 8-wide walk's and the skip-link walk's plain versions (each sample into
+    the scratch buffer, then the in-order sum) against the unsplit sum of the same
+    walk, in each leaf form."""
     _, tsf = spheres
     for scan in SCANS:
         emi = mk.scene_emissive_const(tsf) if scan == "fast" else mk.NO_EMI
@@ -103,6 +107,14 @@ def test_split_render_is_the_wide_walks_unsplit_sum_bitwise(spheres):
         want = mk.render_frames_plain(SPHERES_CFG, 3, 3, 0, SPHERES_CFG.n_pixels, "cpu",
                                       nearest)
         assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+        _, table, nodes_f, nodes_i, emi, classes = bk.prepare_bvh_scan(tsf, scan, leaf_size=8)
+        got = bk._render_samples_bvh_stats_plain(table, nodes_f, nodes_i, SPHERES_CFG, 3, 3,
+                                                 8, scan, emi, classes)
+        nearest = bk._skip_walk_nearest(mk._PlainScene(table, classes, scan, emi), nodes_f,
+                                        nodes_i)
+        skip = mk.render_frames_plain(SPHERES_CFG, 3, 3, 0, SPHERES_CFG.n_pixels, "cpu", nearest)
+        assert torch.equal(got[0], skip[0]) and int(got[1]) == int(skip[1])
+        assert torch.equal(got[0], want[0])  # the two walks' bits
 
 
 def test_sample_sum_adds_streams_in_the_plain_versions_order():
