@@ -51,10 +51,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      direct-NEE kernels (fast_integrators.cu, kernels/selfcheck.py
      fast_integrator_checks) on the Cornell box at 128², 4 spp: bit for bit against
      their plain versions on the whole image, on a ragged range (pid_base 1000,
-     5,001 pixels; also the whole image's rows) and with the table in global memory.
+     5,001 pixels; also the whole image's rows) and with the table in global memory;
+     AO at 1, 2 and 32 lanes a pixel, the same bits.
      The sorted wavefront's bounce kernel (sorted_wavefront.cu, sorted_checks) on the
      Cornell box and sphere_field(), leaf 32, 4 bounces, 2 spp, sort off and on: bit
-     for bit against its plain version and against the skip-link kernel;
+     for bit against its plain version and against the skip-link kernel; also on
+     the Cornell box at 13x11, 3 spp (429 rays, no multiple of the block) and looking
+     out of its open side (every ray dies in the first launch);
   4. main path, with every launch counter set to 0 first:
      render_progressive(backend="auto") at 512², 16 bounces on the Cornell box
      (16384 spp, wavefront kernel), on sphere_field() (5,124 tris) and on
@@ -144,7 +147,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      render_sorted's shape (512², 16 bounces, 8 spp a call, leaf 32) on sphere_field()
      and the Cornell box: its 16 bounce launches, whole calls with the sort off and
      on (and the bounce kernels' own device time in each, from events around each
-     launch, which says whether the sort buys kernel time), and the skip-link kernel
+     launch, which says whether the sort buys kernel time; each launch's device time
+     and traced rays are logged), and the skip-link kernel
      at the same samples (whose image it must equal bit for bit); the plain version at 1 spp
      against the kernel at 1 spp, bit for bit.
 
@@ -1417,11 +1421,12 @@ def phase_sorted_timing(tables):
         def plain(scene=scene, cfg=cfg):
             return selfcheck.run_sorted(tables, scene, cfg, TIME_START, 1, plain=True)
 
-        ms, (_, _, segs) = cuda_time_ms(launches, launches)
+        ms, (_, segs) = cuda_time_ms(launches, launches)
         off_ms, got = cuda_time_ms(lambda: call(False), lambda: call(False))
         on_ms, got_on = cuda_time_ms(lambda: call(True), lambda: call(True))
-        bounce_ms = {f"sort {'on' if sort else 'off'}": bounce_device_ms(tb, nf, ni, cfg, sort)
-                     for sort in (False, True)}
+        bounce = {f"sort {'on' if sort else 'off'}": bounce_device_ms(tb, nf, ni, cfg, sort)
+                  for sort in (False, True)}
+        bounce_ms = {k: v["ms"] for k, v in bounce.items()}
         skip_ms, ref = cuda_time_ms(skip, skip)
         same = {"sort off": selfcheck._same(got, ref), "sort on": selfcheck._same(got_on, ref)}
         bk.WALK_COUNTS.update(boxes=0, tris=0)
@@ -1433,6 +1438,7 @@ def phase_sorted_timing(tables):
         rows[scene] = {"ms": ms, "launches": cfg.bounces, "segments": segs,
                        "mrays": segs / (ms * 1e3), "call_ms_sort_off": off_ms,
                        "call_ms_sort_on": on_ms, "bounce_device_ms": bounce_ms,
+                       "bounce_launches": bounce,
                        "skip_link_ms": skip_ms,
                        "sorted_over_skip_link": ms / skip_ms, "spp": n, "plain_spp": 1,
                        "plain_ms": plain_ms, "plain_segments": int(want[1]), "walk": walk,
@@ -1445,40 +1451,50 @@ def phase_sorted_timing(tables):
             f"{skip_ms:.3f} ms (launches / skip-link {ms / skip_ms:.3f}); image == skip-link "
             f"{same}; plain {plain_ms:.1f} ms at 1spp, kernel vs plain at 1spp bitwise "
             f"{r['bitwise']}")
+        for key, v in bounce.items():
+            log(f"[time] sorted wavefront {scene} {key}, each launch: device ms "
+                f"{[round(x, 4) for x in v['ms_by_launch']]}, rays traced "
+                f"{v['traced_by_launch']}")
         require(all(same.values()) and r["bitwise"],
                 f"sorted wavefront {scene}: not bit for bit ({same}, plain {r})")
     return rows
 
 
-def bounce_device_ms(tb, nf, ni, cfg, sort: bool) -> float:
-    """The bounce kernels' own device time (ms) in one render_samples_sorted_stats
-    call of SORTED_CALL_SPP samples from TIME_START: events around each launch, the
-    call queued behind a spin, so the sort between launches is left out. Median of
-    3 calls after a warm-up."""
+def bounce_device_ms(tb, nf, ni, cfg, sort: bool) -> dict:
+    """The bounce kernels' own device time in one render_samples_sorted_stats call of
+    SORTED_CALL_SPP samples from TIME_START: events around each launch, the call
+    queued behind a spin, so the sort between launches is left out. "ms": the
+    median of 3 calls' sums after a warm-up; "ms_by_launch" and "traced_by_launch":
+    that call's time and traced rays of each launch."""
     import torch
 
     from oclpathtracer_tpu_torch.kernels import selfcheck
     from oclpathtracer_tpu_torch.kernels import sorted_wavefront as sw
 
     def run():
-        marks = []
+        marks, segs = [], []
 
-        def step(*args):
+        def step(ctx, state, lists, seg, mode, dst):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            sw._bounce_step(*args)
+            sw._bounce_step(ctx, state, lists, seg, mode, dst)
             b.record()
             marks.append((a, b))
+            segs.append(seg.clone())
 
         queue_behind_spin()
         sw._render_sorted_stats(step, tb, nf, ni, cfg, TIME_START, SORTED_CALL_SPP,
                                 selfcheck.SORTED_LEAF, sort)
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in marks)
+        ms = [a.elapsed_time(b) for a, b in marks]
+        total = [int(x) for x in segs]
+        return sum(ms), ms, [n - m for n, m in zip(total, [0] + total[:-1])]
 
     run()
-    return statistics.median(run() for _ in range(3))
+    runs = sorted((run() for _ in range(3)), key=lambda r: r[0])
+    ms, by_launch, traced = runs[1]
+    return {"ms": ms, "ms_by_launch": by_launch, "traced_by_launch": traced}
 
 
 def profile_device_ms(fn, top: int = 3):

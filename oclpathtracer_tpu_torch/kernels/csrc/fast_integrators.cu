@@ -13,18 +13,29 @@
 // each) and, where it is cast, a second ray with an any-hit scan; device memory
 // carries only the table (staged once a block) and 12 bytes out per pixel.
 //
-// What the design does about that: the megakernel's camera, scan and decode
-// (trace.cuh camera_path, scan_linear<SCAN_PARITY>, decode_parity), one thread per
-// pixel, 128 threads a block, the table in shared memory when it fits, else read
-// from global memory. The any-hit scan returns at the first blocker: the JAX scan
-// ORs every triangle's test with no nearest-hit term, so the first blocker decides
-// the same boolean. The second ray is skipped where the JAX kernel masks it: on a
-// miss (both), on the light itself and where the light lies behind the surface
-// (direct); each sample reseeds its stream, so skipping draws nothing from the
-// next. The AO direction is sample_lobe's diffuse lobe (trace.cuh cosine_dir). The
-// direct kernel evaluates the BRDF as the JAX kernel does, not as
+// What the direct kernel's design does about that: the megakernel's camera, scan
+// and decode (trace.cuh camera_path, scan_linear<SCAN_PARITY>, decode_parity), one
+// thread per pixel, 128 threads a block, the table in shared memory when it fits,
+// else read from global memory. The any-hit scan returns at the first blocker: the
+// JAX scan ORs every triangle's test with no nearest-hit term, so the first
+// blocker decides the same boolean. The second ray is skipped where the JAX kernel
+// masks it: on a miss (both), on the light itself and where the light lies behind
+// the surface (direct); each sample reseeds its stream, so skipping draws nothing
+// from the next. The AO direction is sample_lobe's diffuse lobe (trace.cuh
+// cosine_dir). The direct kernel evaluates the BRDF as the JAX kernel does, not as
 // core/brdf.eval_brdf: max(4 (wi.n)(wo.n), 1e-8) and mtype >= 1.5. The light table
 // ((L, 16) f32) is read from global memory, a broadcast every thread shares.
+//
+// What the AO kernel's design does about it (helpers the direct kernel can take,
+// its camera scan being the same parity scan from the eye): a pixel's samples are
+// split over `lanes` adjacent lanes, so the launch runs several waves, and the
+// lanes' integer counts of visible samples are added by shuffles (no scratch
+// buffer: the count is the sample-order sum's bits). Each block computes once the
+// terms of each row that depend on the eye alone and keeps the rows a camera ray
+// can hit (eye_rows), so a camera ray tests 36 of a row's 53 operations over the
+// kept rows only, in a warp-uniform loop (every lane runs every sample of its run).
+// Both scans read rows as float4s; the any-hit scan returns lane by lane at the
+// first blocker.
 #include "trace.cuh"
 
 namespace opt {
@@ -41,40 +52,169 @@ static __device__ __forceinline__ bool any_hit(const float* tbl, int n_tris, flo
   return false;
 }
 
-static __device__ __forceinline__ void ao_pixel(const Params& P, const float* tbl, float radius,
-                                                float* __restrict__ out) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= P.n_rays) return;
+// ---- AO: pixels split into sample runs, the camera scan over eye rows ----------
+//
+// A warp's 32 lanes hold 32 / lanes pixels, `lanes` (a power of two up to 32)
+// adjacent lanes a pixel, each lane a run of `run` = ceil(n / lanes) of its samples
+// (lane k of a pixel's group: samples [k run, (k + 1) run)). A lane counts its
+// visible samples as an integer; the group adds its counts with shuffles and its
+// first lane writes (float)count. A visibility is 0 or 1, so for n < 2^24 every
+// partial sum of the sample-order float sum is an exact integer and (float)count
+// has its bits. Every lane runs every sample of its run (a lane past the image or
+// past n drops its results), so the camera scan's loop and its row address are
+// the same in every lane.
+
+enum { AO_GLOBAL = 0, AO_SHARED = 1 };
+
+// A row the camera scan can take, as eye_rows keeps it: 4 float4s, e1 | row index,
+// e2 | tnum, tvec, qvec.
+constexpr int EYE_VEC4S = 4;
+
+// Warp 0 of a block writes the rows of a staged (T, 24) table (6 float4s a row)
+// that a ray from the eye can hit in front of it to `out` in table order, and their
+// count to *n_out. A row's eye terms are parity_candidate's with o = eye: tvec = eye
+// - p1, qvec = cross(tvec, e1), tnum = dot3(e2, qvec), the same operations on the
+// same inputs, so the same bits. t = tnum * inv_det, and inv_det > 0 wherever the
+// row can pass (front: det >= 1e-8), so t > 0 needs tnum > 0; a NaN tnum fails both
+// tests. A row left out is never taken, and the nearest hit keeps its bits.
+static __device__ __forceinline__ void eye_rows(const float4* table4, int n_tris, float3 eye,
+                                                float4* out, int* n_out) {
+  const unsigned lane = threadIdx.x & 31u;
+  int count = 0;
+  for (int base = 0; base < n_tris; base += 32) {
+    int j = base + (int)lane;
+    float3 e1 = v3(0.0f, 0.0f, 0.0f), e2 = e1, tvec = e1, qvec = e1;
+    float tnum = 0.0f;
+    if (j < n_tris) {
+      float4 a = table4[6 * j], b = table4[6 * j + 1], c = table4[6 * j + 2];
+      e1 = v3(a.w, b.x, b.y);
+      e2 = v3(b.z, b.w, c.x);
+      tvec = v3(eye.x - a.x, eye.y - a.y, eye.z - a.z);
+      qvec = cross3(tvec, e1);
+      tnum = dot3(e2, qvec);
+    }
+    bool keep = j < n_tris && tnum > 0.0f;
+    unsigned mask = __ballot_sync(0xffffffffu, keep);
+    if (keep) {
+      float4* q = out + EYE_VEC4S * (count + __popc(mask & ((1u << lane) - 1u)));
+      q[0] = make_float4(e1.x, e1.y, e1.z, __int_as_float(j));
+      q[1] = make_float4(e2.x, e2.y, e2.z, tnum);
+      q[2] = make_float4(tvec.x, tvec.y, tvec.z, 0.0f);
+      q[3] = make_float4(qvec.x, qvec.y, qvec.z, 0.0f);
+    }
+    count += __popc(mask);
+  }
+  if (lane == 0) *n_out = count;
+}
+
+// The parity scan of a camera ray (origin the eye) over the rows eye_rows kept, in
+// table order: test_parity without the terms that depend on the eye alone. The
+// values and tests are test_parity's, so is the best hit.
+static __device__ __forceinline__ void scan_eye_rows4(const float4* rows, int n_rows, float3 d,
+                                                      Best& b) {
+#pragma unroll 2
+  for (int q = 0; q < n_rows; ++q) {
+    float4 a = rows[EYE_VEC4S * q], e = rows[EYE_VEC4S * q + 1];
+    float4 tv = rows[EYE_VEC4S * q + 2], qv = rows[EYE_VEC4S * q + 3];
+    float3 pvec = cross3(d, v3(e.x, e.y, e.z));
+    float det = dot3(v3(a.x, a.y, a.z), pvec);
+    bool front = det >= 1e-8f;
+    float inv_det = 1.0f / (front ? det : 1.0f);
+    float u = dot3(v3(tv.x, tv.y, tv.z), pvec) * inv_det;
+    float v = dot3(d, v3(qv.x, qv.y, qv.z)) * inv_det;
+    float t = e.w * inv_det;
+    if (front && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
+        t < b.num) {
+      b.num = t;
+      b.idx = __float_as_int(a.w);
+    }
+  }
+}
+
+// any_hit over rows read as 3 float4s each (`load(i)`: the i-th float4 of the
+// (T, 24) table): whether a row in table order is a parity candidate with t <
+// t_max. Each lane returns at its first blocker (a warp that left the scan only
+// once every lane was done measured slower).
+template <typename Load>
+static __device__ __forceinline__ bool any_hit_rows4(Load load, int n_tris, float3 o, float3 d,
+                                                     float t_max) {
+  constexpr int STRIDE4 = TABLE_COLS / 4;
+  for (int j = 0; j < n_tris; ++j) {
+    float4 x = load(j * STRIDE4), y = load(j * STRIDE4 + 1), z = load(j * STRIDE4 + 2);
+    float r[9] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w, z.x};
+    float t;
+    if (parity_candidate(r, o, d, t) && t < t_max) return true;
+  }
+  return false;
+}
+
+// The AO kernel's dynamic shared memory on the shared route: the table, the kept
+// eye rows and their count.
+static inline size_t ao_smem_bytes(int n_tris) {
+  return (size_t)n_tris * (TABLE_COLS * sizeof(float) + EYE_VEC4S * sizeof(float4)) +
+         sizeof(float4);
+}
+
+// ROUTE AO_SHARED: the table staged in shared memory and the camera scan over its
+// eye rows; AO_GLOBAL: the table read from global memory, the camera scan over
+// every row (scan_rows4, the same best hit).
+template <int ROUTE>
+__global__ void __launch_bounds__(BLOCK) ao_kernel(const float* __restrict__ table, const Params P,
+                                                 float radius, int lanes, int run,
+                                                 float* __restrict__ out) {
+  constexpr int STRIDE4 = TABLE_COLS / 4;
+  extern __shared__ float4 ao_smem4[];
+  const float4* rows = (const float4*)table;
+  float4* eye4 = ao_smem4 + P.n_tris * STRIDE4;
+  int* n_eye_at = (int*)(eye4 + EYE_VEC4S * P.n_tris);
+  int n_eye = 0;
+  if (ROUTE == AO_SHARED) {
+    for (int i = threadIdx.x; i < P.n_tris * STRIDE4; i += blockDim.x) ao_smem4[i] = rows[i];
+    __syncthreads();
+    if (threadIdx.x < 32)
+      eye_rows(ao_smem4, P.n_tris, v3(P.eye[0], P.eye[1], P.eye[2]), eye4, n_eye_at);
+    __syncthreads();
+    n_eye = *n_eye_at;
+  }
+  auto load = [&](int i) { return ROUTE == AO_SHARED ? ao_smem4[i] : __ldg(rows + i); };
+  const float* tbl = ROUTE == AO_SHARED ? (const float*)ao_smem4 : table;
+
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int idx = (int)(t / lanes);
+  int part = (int)(t - (long long)idx * lanes);
+  bool on_image = idx < P.n_rays;
   int pid = P.pid_base + idx;
   float px = (float)(pid % P.width);
   float py = (float)(pid / P.width);
-  float acc = 0.0f;
-  for (int s = 0; s < P.n_samples; ++s) {
+  int count = 0;
+  for (int i = 0; i < run; ++i) {
+    int s = part * run + i;
     Path p = camera_path(P, pid, px, py, s);
-    Hit h = scan_linear<SCAN_PARITY>(P, tbl, p.o, p.d);
-    float vis = 1.0f;
-    if (h.t < T_MAX) {
-      float3 n = face_forward(h.n, p.d);
-      float ud1 = next_float(p.rng);
-      float ud2 = next_float(p.rng);
-      float3 wi = cosine_dir(n, ud1, ud2);
-      float3 hitp = add3(p.o, scale3(p.d, h.t));
-      float3 so = add3(hitp, scale3(wi, P.roffset));
-      vis = any_hit(tbl, P.n_tris, so, wi, radius) ? 0.0f : 1.0f;
-    }
-    acc = acc + vis;
+    Best best = fresh_best();
+    if (ROUTE == AO_SHARED)
+      scan_eye_rows4(eye4, n_eye, p.d, best);
+    else
+      scan_rows4<SCAN_PARITY, 2>(load, STRIDE4, 0, P.n_tris, p.o, p.d, v3(0.0f, 0.0f, 0.0f),
+                                 best);
+    Hit h = decode_parity(tbl, best);
+    bool hit = h.t < T_MAX;
+    float3 n = face_forward(h.n, p.d);
+    float ud1 = next_float(p.rng);
+    float ud2 = next_float(p.rng);
+    float3 wi = cosine_dir(n, ud1, ud2);
+    float3 hitp = add3(p.o, scale3(p.d, h.t));
+    float3 so = add3(hitp, scale3(wi, P.roffset));
+    bool sampled = on_image && s < P.n_samples;
+    bool blocked = sampled && hit && any_hit_rows4(load, P.n_tris, so, wi, radius);
+    count += sampled && !blocked ? 1 : 0;
   }
-  out[3 * idx + 0] = acc;
-  out[3 * idx + 1] = acc;
-  out[3 * idx + 2] = acc;
-}
-
-__global__ void __launch_bounds__(BLOCK) ao_kernel(const float* __restrict__ table, const Params P,
-                                                 float radius, float* __restrict__ out) {
-  if (P.smem)
-    ao_pixel(P, stage_table(table, P.n_tris), radius, out);
-  else
-    ao_pixel(P, table, radius, out);
+  for (int off = lanes >> 1; off > 0; off >>= 1) count += __shfl_xor_sync(0xffffffffu, count, off);
+  if (part == 0 && on_image) {
+    float acc = (float)count;
+    out[3 * idx + 0] = acc;
+    out[3 * idx + 1] = acc;
+    out[3 * idx + 2] = acc;
+  }
 }
 
 // One direct-NEE sample at a hit (fast_integrators.py:264-329).
@@ -171,16 +311,35 @@ __global__ void __launch_bounds__(BLOCK) direct_kernel(const float* __restrict__
 // The parity scan carries no class values, so the host floats end at
 // N_HOST_FLOATS; each launcher's own values follow them (and the ints).
 
-// host_f[N_HOST_FLOATS] = the AO radius.
+// host_f[N_HOST_FLOATS] = the AO radius; host_i[N_HOST_INTS] = lanes a pixel (a
+// power of two up to 32). P.smem = 1 takes the shared route (ao_smem_bytes must fit).
 extern "C" int opt_ao_launch(const float* table, const float* host_f, const int* host_i,
                              float* out, void* stream) {
   opt::Params P = opt::params_from_host(host_f, host_i);
   float radius = host_f[opt::N_HOST_FLOATS];
-  size_t smem;
-  cudaError_t err = opt::table_smem(opt::ao_kernel, P, &smem);
-  if (err != cudaSuccess) return (int)err;
-  int grid = (P.n_rays + opt::BLOCK - 1) / opt::BLOCK;
-  opt::ao_kernel<<<grid, opt::BLOCK, smem, (cudaStream_t)stream>>>(table, P, radius, out);
+  int lanes = host_i[opt::N_HOST_INTS];
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || P.n_samples < 1 ||
+      P.n_rays < 1)
+    return (int)cudaErrorInvalidValue;
+  int run = (P.n_samples + lanes - 1) / lanes;
+  long long threads = (long long)P.n_rays * lanes;
+  if (threads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int grid = (int)((threads + opt::BLOCK - 1) / opt::BLOCK);
+  auto s = (cudaStream_t)stream;
+  if (!P.smem) {
+    opt::ao_kernel<opt::AO_GLOBAL><<<grid, opt::BLOCK, 0, s>>>(table, P, radius, lanes, run,
+                                                               out);
+    return (int)cudaGetLastError();
+  }
+  size_t smem = opt::ao_smem_bytes(P.n_tris);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(opt::ao_kernel<opt::AO_SHARED>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess)
+    return (int)err;
+  opt::ao_kernel<opt::AO_SHARED><<<grid, opt::BLOCK, smem, s>>>(table, P, radius, lanes, run,
+                                                                out);
   return (int)cudaGetLastError();
 }
 

@@ -45,8 +45,9 @@ LAUNCHERS = {
     "opt_trace_rays_launch": (3, 3),       # table, o, d -> out, scratch, segs
     "opt_ao_launch": (1, 1),               # table -> out
     "opt_direct_launch": (2, 1),           # table, light table -> out
-    # table, nodes_f, nodes_i -> the ray state in place (o, d, mask, rad, live, rng), segs
-    "opt_sorted_bounce_launch": (3, 7),
+    # table, nodes_f, nodes_i -> the ray state rows in place, segs, the live lists, their
+    # counts, the sort keys (or None)
+    "opt_sorted_bounce_launch": (3, 5),
 }
 
 
@@ -121,30 +122,57 @@ def load_library():
     return lib, BuildInfo(path, built, time.perf_counter() - t0, log)
 
 
+class Launch:
+    """One kernel's launch with its inputs and host arrays checked and packed once:
+    a caller that launches the same kernel many times (the sorted wavefront's
+    bounce launches) builds it once and calls it with the outputs, changing only
+    host ints in place (`ints[k] = v`) between launches. The C function reads the
+    host arrays when it is called, so a change reaches the next launch only."""
+
+    def __init__(self, fn_name: str, inputs: tuple, host_f, host_i):
+        self.fn_name = fn_name
+        self._arity(len(inputs), 0)
+        self.device = inputs[0].device
+        self._check(inputs)
+        self.lib, _ = load_library()
+        self.fn = getattr(self.lib, fn_name)
+        self.floats = (ctypes.c_float * len(host_f))(*host_f)
+        self.ints = (ctypes.c_int * len(host_i))(*host_i)
+        self.head = [None if t is None else t.data_ptr() for t in inputs]
+        self.head += [ctypes.addressof(self.floats), ctypes.addressof(self.ints)]
+
+    def _arity(self, n, side: int) -> None:
+        want = LAUNCHERS[self.fn_name]
+        if n != want[side]:
+            raise ValueError(f"{self.fn_name} takes (inputs, outputs) = {want} tensors")
+
+    def _check(self, tensors) -> None:
+        for t in tensors:
+            if t is not None and (t.device != self.device or not t.is_contiguous()):
+                raise ValueError(f"{self.fn_name}: every tensor must be contiguous on "
+                                 f"{self.device}")
+
+    def __call__(self, *outputs) -> None:
+        """Launch on the current stream of the inputs' device; raise if the launch is
+        refused (cudaGetLastError is not 0)."""
+        import torch
+
+        self._arity(len(outputs), 1)
+        self._check(outputs)
+        args = (*self.head, *(None if t is None else t.data_ptr() for t in outputs),
+                torch.cuda.current_stream(self.device).cuda_stream)
+        if self.device.index == torch.cuda.current_device():
+            err = self.fn(*args)
+        else:  # a kernel launches on the calling thread's current device
+            with torch.cuda.device(self.device):
+                err = self.fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.fn_name}: CUDA error {err}: "
+                               f"{self.lib.opt_error_string(err).decode()}")
+
+
 def launch(fn_name: str, inputs: tuple, host_f, host_i, *outputs) -> None:
     """Launch one kernel on the current stream of the inputs' device; raise if the
     launch is refused (cudaGetLastError is not 0). An input or output given as None
     passes a null pointer (an optional buffer the kernel then does not touch)."""
-    import torch
-
-    if (len(inputs), len(outputs)) != LAUNCHERS[fn_name]:
-        raise ValueError(f"{fn_name} takes (inputs, outputs) = {LAUNCHERS[fn_name]} tensors")
-    device = inputs[0].device
-    tensors = [t for t in (*inputs, *outputs) if t is not None]
-    for t in tensors:
-        if t.device != device or not t.is_contiguous():
-            raise ValueError(f"{fn_name}: every tensor must be contiguous on {device}")
-    lib, _ = load_library()
-    f_arr = (ctypes.c_float * len(host_f))(*host_f)
-    i_arr = (ctypes.c_int * len(host_i))(*host_i)
-
-    def ptrs(ts):
-        return [None if t is None else t.data_ptr() for t in ts]
-
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn_name)(*ptrs(inputs), ctypes.addressof(f_arr),
-                                    ctypes.addressof(i_arr), *ptrs(outputs), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {err}: "
-                           f"{lib.opt_error_string(err).decode()}")
+    Launch(fn_name, inputs, host_f, host_i)(*outputs)

@@ -22,6 +22,13 @@ the JAX package's do.
 return the SUM of `n_samples` frames, (n_rays, 3). A CUDA table launches the kernel;
 a CPU table runs the plain version (`_render_ao_plain`, `_render_direct_plain`), the
 same f32 operations in the same order vectorized over pixels.
+
+The AO kernel splits each pixel's samples over `ao_lanes(n)` lanes and adds their
+integer counts of visible samples: a sum of 0s and 1s is exact in f32 below 2^24,
+so `(float)count` has the sample-order sum's bits (the wrapper refuses n >= 2^24).
+Its camera scan runs over the rows a ray from the eye can hit (`_eye_rows`), with
+the terms that depend on the eye alone computed once (`_scan_eye`): the same f32
+operations on the same inputs as the full parity scan, so the same nearest hit.
 """
 
 from __future__ import annotations
@@ -42,6 +49,27 @@ LIGHT_COLS = 16
 # Kernel launches made by render_ao_pallas and render_direct_pallas on CUDA tensors.
 AO_LAUNCHES = 0
 DIRECT_LAUNCHES = 0
+
+# The AO kernel's lanes a pixel (a power of two up to 32; fewer for n < AO_LANES).
+AO_LANES = 8
+# Below 2^24 every partial sum of 0s and 1s is an exact f32 integer.
+AO_MAX_SAMPLES = (1 << 24) - 1
+# The AO kernel's shared route: the (T, 24) table and its kept eye rows (4 float4s a
+# row) and their count (csrc/fast_integrators.cu ao_smem_bytes).
+_EYE_ROW_BYTES = 64
+
+
+def ao_lanes(n_samples: int) -> int:
+    """Lanes a pixel of the AO kernel for n samples: AO_LANES, or the power of two at
+    or above n where that is fewer."""
+    return min(AO_LANES, 1 << max(n_samples - 1, 0).bit_length())
+
+
+def ao_in_shared(table: torch.Tensor) -> bool:
+    """Whether the AO kernel stages `table` and its eye rows in shared memory (and
+    scans the eye rows) or reads the table from global memory."""
+    n = table.shape[0]
+    return n * (mk.TABLE_COLS * 4 + _EYE_ROW_BYTES) + 16 <= mk.SMEM_TABLE_MAX_BYTES
 
 
 def pack_lights(scene: Scene):
@@ -84,6 +112,45 @@ def _any_hit(ps: mk._PlainScene, o, d, t_max, cast, counts):
     return blocked
 
 
+def _eye_rows(table: torch.Tensor, eye: tuple) -> list:
+    """The rows a ray from `eye` can hit in front of it, in table order, with the
+    terms of parity_candidate that depend on the eye alone (csrc/fast_integrators.cu
+    eye_rows): [(j, e1, e2, tvec, qvec, tnum)] as Python floats (each an f32 value),
+    the rows with tnum = dot3(e2, cross(eye - p1, e1)) > 0."""
+    col = [table[:, c] for c in range(9)]
+    p1, e1, e2 = (tuple(col[3 * v:3 * v + 3]) for v in range(3))
+    tvec = tuple(torch.full_like(p1[a], eye[a]) - p1[a] for a in range(3))
+    qvec = mk._cross3(tvec, e1)
+    tnum = mk._dot3(e2, qvec)
+    rows = torch.stack([*e1, *e2, *tvec, *qvec, tnum], dim=1)
+    return [(j, r[0:3], r[3:6], r[6:9], r[9:12], r[12])
+            for j, (r, keep) in enumerate(zip(rows.tolist(), (tnum > 0.0).tolist())) if keep]
+
+
+def _tri_parity_eye(row, d):
+    """parity_candidate of a camera ray (origin the eye) on a kept eye row:
+    (candidate, t), the same values as mk._tri_parity's."""
+    _, e1, e2, tvec, qvec, tnum = row
+    pvec = mk._cross3(d, e2)
+    det = mk._dot3(e1, pvec)
+    front = det >= 1e-8
+    inv_det = torch.reciprocal(torch.where(front, det, 1.0))
+    u = mk._dot3(tvec, pvec) * inv_det
+    v = mk._dot3(d, qvec) * inv_det
+    t = tnum * inv_det
+    return front & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0), t
+
+
+def _scan_eye(ps: mk._PlainScene, rows: list, d):
+    """The camera ray's nearest hit over the kept eye rows, decoded
+    (csrc/fast_integrators.cu scan_eye_rows4 and decode_parity)."""
+    best = mk._fresh_best(ps, d[0].shape[0], d[0].device)
+    for row in rows:
+        cand, t = _tri_parity_eye(row, d)
+        best = mk._take(cand, t, None, row[0], best)
+    return mk._decode(ps, best)
+
+
 def _cosine_dir(n, ud1, ud2):
     """csrc/trace.cuh cosine_dir: sample_lobe's diffuse lobe."""
     ss, tt = mk._tangent_frame(n)
@@ -92,18 +159,19 @@ def _cosine_dir(n, ud1, ud2):
                            torch.sqrt(1.0 - ud2))
 
 
-def _camera_hit(ps, k, cfg, pid, frame, counts):
-    """Camera ray and its decoded nearest hit: (o, d, rng state, hit mask, hit)."""
+def _camera_hit(ps, k, cfg, pid, frame, counts, eye_rows=None):
+    """Camera ray and its decoded nearest hit: (o, d, rng state, hit mask, hit); the
+    scan over `eye_rows` (_eye_rows) where given, else over every row."""
     o, d, _, _, _, state = mk._camera_path(k, cfg, pid, frame)
-    hit = mk._scan_linear(ps, o, d)
+    hit = mk._scan_linear(ps, o, d) if eye_rows is None else _scan_eye(ps, eye_rows, d)
     mask = hit[0] < mk.T_MAX
     counts["camera"] += int(pid.shape[0])
     counts["hits"] += int(mask.sum())
     return o, d, state, mask, hit
 
 
-def _ao_sample(ps, k, cfg, pid, frame, radius, counts):
-    o, d, state, hit, (best_t, bn, *_) = _camera_hit(ps, k, cfg, pid, frame, counts)
+def _ao_sample(ps, k, cfg, pid, frame, radius, counts, eye_rows=None):
+    o, d, state, hit, (best_t, bn, *_) = _camera_hit(ps, k, cfg, pid, frame, counts, eye_rows)
     n = mk._face_forward(bn, d)
     state, ud1 = krng.next_float(state)
     state, ud2 = krng.next_float(state)
@@ -111,7 +179,7 @@ def _ao_sample(ps, k, cfg, pid, frame, radius, counts):
     hitp = mk._add3(o, mk._scale3(d, best_t))
     so = mk._add3(hitp, mk._scale3(wi, k.roffset))
     blocked = _any_hit(ps, so, wi, radius, hit, counts)
-    return torch.where(hit, torch.where(blocked, 0.0, 1.0), 1.0)
+    return hit & blocked
 
 
 def _direct_sample(ps, k, cfg, pid, frame, lights, pdf_a, counts):
@@ -171,26 +239,46 @@ def _direct_sample(ps, k, cfg, pid, frame, lights, pdf_a, counts):
 
 def _new_counts() -> dict:
     """What the kernel does, as the plain versions count it: camera rays and their
-    hits, second rays cast, triangles its any-hit scans test, and (direct)
-    unblocked shadow rays, whose BRDF it evaluates."""
-    return {"camera": 0, "hits": 0, "rays": 0, "tris": 0, "lit": 0}
+    hits, second rays cast, triangles its any-hit scans test, (direct) unblocked
+    shadow rays, whose BRDF it evaluates, and (AO) the eye rows its camera scan
+    tests (_eye_rows)."""
+    return {"camera": 0, "hits": 0, "rays": 0, "tris": 0, "lit": 0, "eye_rows": 0}
 
 
 def _render_ao_plain(table, cfg: RenderConfig, start_sample: int, n_samples: int,
                      radius: float = DEFAULT_AO_RADIUS, pid_base: int = 0,
-                     n_rays: int | None = None, counts: dict | None = None):
+                     n_rays: int | None = None, counts: dict | None = None,
+                     lanes: int | None = None):
     """The AO kernel's plain PyTorch version: the (n_rays, 3) SUM of n_samples
-    frames. `counts` (a _new_counts dict), if given, gains the rays cast."""
+    frames. With `lanes` it computes as the kernel splits: a pixel's samples in
+    `lanes` runs of ceil(n / lanes), the camera scan over the eye rows, each run's
+    integer count of visible samples, the runs' counts added as integers and the
+    sum written as f32. Without, the frames' visibilities are added as f32 in
+    sample order, the camera scan over every row (the JAX kernel's form). `counts`
+    (a _new_counts dict), if given, gains the rays cast."""
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     counts = _new_counts() if counts is None else counts
     ps = mk._PlainScene(table, (), "parity")
     k = mk._Consts.of(cfg)
     r = float(np.float32(radius))
     pid = torch.arange(pid_base, pid_base + n_pix, dtype=torch.int64, device=table.device)
-    acc = torch.zeros((n_pix,), dtype=torch.float32, device=table.device)
-    for s in range(n_samples):
-        acc = acc + _ao_sample(ps, k, cfg, pid, int(start_sample) + s, r, counts)
-    return acc[:, None].expand(n_pix, 3).contiguous()
+    eye_rows = _eye_rows(table, k.eye)
+    counts["eye_rows"] = len(eye_rows)
+    if lanes is None:
+        acc = torch.zeros((n_pix,), dtype=torch.float32, device=table.device)
+        for s in range(n_samples):
+            blocked = _ao_sample(ps, k, cfg, pid, int(start_sample) + s, r, counts)
+            acc = acc + torch.where(blocked, 0.0, 1.0)
+        return acc[:, None].expand(n_pix, 3).contiguous()
+    run = -(-n_samples // lanes)
+    total = torch.zeros((n_pix,), dtype=torch.int32, device=table.device)
+    for part in range(lanes):
+        count = torch.zeros((n_pix,), dtype=torch.int32, device=table.device)
+        for s in range(part * run, min(part * run + run, n_samples)):
+            blocked = _ao_sample(ps, k, cfg, pid, int(start_sample) + s, r, counts, eye_rows)
+            count = count + (~blocked).to(torch.int32)
+        total = total + count
+    return total.to(torch.float32)[:, None].expand(n_pix, 3).contiguous()
 
 
 def _render_direct_plain(table, light_table, total_area, cfg: RenderConfig,
@@ -226,18 +314,26 @@ def render_ao_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
 
     `table` is pack_scene's. Pixels [pid_base, pid_base + n_rays) keep streams and
     camera keyed on absolute ids. A CUDA table launches `csrc/fast_integrators.cu`
-    (table in shared memory where `table_in_shared`, else global memory); a CPU table
-    runs the plain version."""
+    (the table and its eye rows in shared memory where `ao_in_shared`, else the
+    table read from global memory); a CPU table runs the plain version, split as the
+    kernel splits (ao_lanes)."""
     global AO_LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
-    floats, ints = _launch_params(table, cfg, start_sample, n_samples, pid_base, n_pix)
+    mk.check_call(table, cfg, n_samples, "parity", (), n_pix)
+    if n_samples > AO_MAX_SAMPLES:
+        raise ValueError(f"n_samples must be below 2^24 (the count is exact in f32 "
+                         f"there), got {n_samples}")
+    lanes = ao_lanes(n_samples)
     if table.device.type == "cpu":
-        return _render_ao_plain(table, cfg, start_sample, n_samples, radius, pid_base, n_pix)
+        return _render_ao_plain(table, cfg, start_sample, n_samples, radius, pid_base, n_pix,
+                                lanes=lanes)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
+    floats, ints = mk.host_params(cfg, "parity", (), False, table.shape[0], start_sample,
+                                  n_samples, pid_base, n_pix, smem=ao_in_shared(table))
     out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
-    cuda_build.launch("opt_ao_launch", (table,), floats + [float(np.float32(radius))], ints,
-                      out)
+    cuda_build.launch("opt_ao_launch", (table,), floats + [float(np.float32(radius))],
+                      ints + [lanes], out)
     AO_LAUNCHES += 1
     return out
 

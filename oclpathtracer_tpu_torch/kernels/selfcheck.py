@@ -17,9 +17,11 @@ The megakernel (linear_runs_agree) and the arbitrary-ray kernel
 segments, at runs of 1, 2 and all samples a lane, as are a ragged pixel range, a
 rerun and a table read from global memory. So are the
 AO and direct-NEE kernels (fast_integrator_checks), on the whole image, a ragged
-pixel range and a table in global memory, and the sorted wavefront
-(sorted_checks), which must also give the skip-link kernel's image and segments bit
-for bit, with its sort on and off.
+pixel range and a table in global memory (AO also at 1, 2 and 32 lanes a pixel),
+and the sorted wavefront (sorted_checks), which must also give the skip-link
+kernel's image and segments bit for bit, with its sort on and off, also on a ray
+count that is no multiple of the block and on a call whose rays all die in the
+first launch.
 
 Scenes: the Cornell box with its own camera; sphere_field(3, 1, seed=2) (244
 triangles, tp-capable), sphere_field() (5,124 triangles, 18 material classes, so
@@ -709,7 +711,8 @@ def run_fast(kind: str, tables: Tables, cfg: RenderConfig, start: int, n: int,
     kw = dict(pid_base=pid_base, n_rays=n_rays)
     if kind == "ao":
         if plain:
-            return fi._render_ao_plain(table, cfg, start, n, counts=counts, **kw)
+            return fi._render_ao_plain(table, cfg, start, n, counts=counts,
+                                       lanes=fi.ao_lanes(n), **kw)
         return fi.render_ao_pallas(table, cfg, start, n, **kw)
     lt, area = tables.lights("cornell")
     if plain:
@@ -721,11 +724,12 @@ def fast_integrator_checks(tables: Tables, width, height, n_samples: int = 4) ->
     """The AO and direct kernels on the Cornell box, bit for bit: against their plain
     versions on the whole image; on pixels [1000, 1000 + 5001) (a ragged count from a
     pid_base), against the plain version and against the whole image's rows; with the
-    table padded past shared memory (read from global memory), the same bits."""
+    table padded past shared memory (read from global memory), the same bits; AO at
+    1, 2 and 32 lanes a pixel, the same bits."""
     cfg = RenderConfig(width=width, height=height)
-    out = {}
+    out, fulls = {}, {}
     for kind in ("ao", "direct"):
-        full = run_fast(kind, tables, cfg, START_SAMPLE, n_samples)
+        full = fulls[kind] = run_fast(kind, tables, cfg, START_SAMPLE, n_samples)
         torch.cuda.synchronize()
         want = run_fast(kind, tables, cfg, START_SAMPLE, n_samples, plain=True)
         out[f"{kind} kernel vs plain"] = {
@@ -740,6 +744,15 @@ def fast_integrator_checks(tables: Tables, width, height, n_samples: int = 4) ->
         big = padded_past_shared(tables.linear("cornell", "parity")[0])
         far = run_fast(kind, tables, cfg, START_SAMPLE, n_samples, table=big)
         out[f"{kind} table in global memory, same bits"] = {"ok": bool(torch.equal(far, full))}
+    same = {}
+    for lanes in (1, 2, 32):
+        default, fi.AO_LANES = fi.AO_LANES, lanes
+        try:
+            same[lanes] = bool(torch.equal(run_fast("ao", tables, cfg, START_SAMPLE, n_samples),
+                                           fulls["ao"]))
+        finally:
+            fi.AO_LANES = default
+    out["ao at 1, 2 and 32 lanes a pixel, same bits"] = {"ok": all(same.values()), **same}
     return out
 
 
@@ -760,19 +773,28 @@ def run_sorted(tables: Tables, scene: str, cfg: RenderConfig, start: int, n: int
 def sorted_checks(tables: Tables, width, height, bounces: int = 4, n_samples: int = 2) -> dict:
     """The sorted wavefront on the Cornell box and sphere_field(), sort off and on, bit
     for bit (images and segments) against its plain version and against the skip-link
-    kernel (parity, the same leaf)."""
+    kernel (parity, the same leaf); also on the Cornell box at 13x11 with 3 samples
+    (429 rays, no multiple of the block) and looking out of its open side (every ray
+    dies in the first launch)."""
     out = {}
-    for scene in ("cornell", "spheres5k"):
-        cfg = scene_cfg(scene, width, height, bounces)
+    away = RenderConfig(width=width, height=height, bounces=bounces,
+                        camera=CameraConfig(look=(0.0, 0.0, 1.0)))
+    for scene, name, cfg, n in (
+            ("cornell", "cornell", scene_cfg("cornell", width, height, bounces), n_samples),
+            ("spheres5k", "spheres5k", scene_cfg("spheres5k", width, height, bounces),
+             n_samples),
+            ("cornell", "cornell 13x11 3spp", scene_cfg("cornell", 13, 11, bounces), 3),
+            ("cornell", "cornell looking away", away, n_samples)):
         tb, nf, ni, _, _ = tables.bvh(scene, "parity", SORTED_LEAF)
-        ref = bk.render_samples_bvh_stats(tb, nf, ni, cfg, START_SAMPLE, n_samples,
-                                          max_leaf=SORTED_LEAF)
+        ref = bk.render_samples_bvh_stats(tb, nf, ni, cfg, START_SAMPLE, n, max_leaf=SORTED_LEAF)
         for sort in (False, True):
-            got = run_sorted(tables, scene, cfg, START_SAMPLE, n_samples, sort)
+            got = run_sorted(tables, scene, cfg, START_SAMPLE, n, sort)
             torch.cuda.synchronize()
-            want = run_sorted(tables, scene, cfg, START_SAMPLE, n_samples, sort, plain=True)
-            out[f"{scene} sort={sort} kernel vs plain"] = {
+            want = run_sorted(tables, scene, cfg, START_SAMPLE, n, sort, plain=True)
+            out[f"{name} sort={sort} kernel vs plain"] = {
                 "ok": _same(got, want), "segments": int(got[1]),
                 "max_abs_err": float((got[0] - want[0]).abs().max())}
-            out[f"{scene} sort={sort} vs the skip-link kernel"] = {"ok": _same(got, ref)}
+            out[f"{name} sort={sort} vs the skip-link kernel"] = {"ok": _same(got, ref)}
+        if name == "cornell looking away":
+            out[f"{name}: one segment a ray"] = {"ok": int(ref[1]) == cfg.n_pixels * n}
     return out

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time the kernels of two trees on one card, parent against change.
 
-    python3 pair_times.py PARENT_DIR   # PARENT_DIR, this tree, this tree, PARENT_DIR
-    python3 pair_times.py --tree DIR   # one tree: one JSON line
+    python3 pair_times.py PARENT_DIR [WORD ...]   # PARENT_DIR, this tree, this tree, PARENT_DIR
+    python3 pair_times.py --tree DIR [WORD ...]   # one tree: one JSON line
+
+With WORDs, only the cases whose label holds one of them are timed.
 
 PARENT_DIR is an unpacked checkout of another commit (for example
 `git archive HEAD | tar -x -C .scratch/parent`). Each tree runs in its own
@@ -19,8 +21,14 @@ samples of the vertex recovery step's launches, 5,184 rows at 2 bounces and 4 sp
 and 98,304 rows at 1 bounce and 2 spp; rows from selfcheck.probe_rays); the
 skip-link BVH kernel (fast, 512², 16 bounces, 64 spp from sample 64, on
 sphere_field() at leaf 32 and on sphere_field(80, 3) at leaf 64); the sorted
-wavefront's 16 bounce launches (parity, sphere_field(), leaf 32, 512², 8 spp from
-sample 64, sort off); and the adjoint kernel, with gradients and forward only
+wavefront at render_sorted's shape (parity, leaf 32, 512², 16 bounces, 8 spp from
+sample 64): its 16 bounce launches with the sort off on sphere_field() and on the
+Cornell box, the bounce launches' own device time in a call with the sort on and
+off on the Cornell box (events around each launch, summed: the sort's torch ops
+between launches left out), and a whole render_samples_sorted_stats call on
+sphere_field() with the sort off on the host clock, not queued behind a spin (the
+host's launch work is part of it; median of 7); the AO kernel at the CLI's shape
+(Cornell 512², 64 spp in one launch, selfcheck.run_fast); and the adjoint kernel, with gradients and forward only
 (Cornell, the interior class point, selfcheck.grad_weight, 8 spp from sample 0, at
 bench_train.py's 256² with 4 bounces and at the vertex recovery's 64² with 2
 bounces); and the kernel train step (diff/fast.make_kernel_train_step at those
@@ -86,6 +94,16 @@ CASES = (Timed("wavefront tp cornell", "wavefront", "tp", "cornell", 32, 512, 16
                64),
          Timed("sorted bounce x16 parity spheres5k leaf 32 8spp", "sorted", "parity",
                "spheres5k", 32, 512, 16, 64, 8),
+         Timed("sorted bounce x16 parity cornell leaf 32 8spp", "sorted", "parity", "cornell",
+               32, 512, 16, 64, 8),
+         Timed("sorted bounce kernels sort off parity cornell leaf 32 8spp", "sorted_kernels",
+               "parity", "cornell", 32, 512, 16, 64, 8),
+         Timed("sorted bounce kernels sort on parity cornell leaf 32 8spp",
+               "sorted_kernels_sort_on", "parity", "cornell", 32, 512, 16, 64, 8),
+         # host clock, not queued: the call's launch work on the host is part of it
+         Timed("sorted call host clock sort off parity spheres5k leaf 32 8spp", "sorted_call",
+               "parity", "spheres5k", 32, 512, 16, 64, 8),
+         Timed("ao cornell 512 64spp", "ao", "parity", "cornell", 32, 512, 16, 64, 64),
          Timed("adjoint cornell 256 b4 8spp", "adjoint", "tp", "cornell", 32, 256, 4, 0, 8),
          Timed("forward cornell 256 b4 8spp", "forward", "tp", "cornell", 32, 256, 4, 0, 8),
          Timed("adjoint cornell 64 b2 8spp", "adjoint", "tp", "cornell", 32, 64, 2, 0, 8),
@@ -97,7 +115,7 @@ TRAIN_REPS = 7
 SPIN_CYCLES = 200_000_000  # about 0.1 s at the H100's boost clock
 
 
-def time_tree(tree: str) -> dict:
+def time_tree(tree: str, words=()) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -115,6 +133,8 @@ def time_tree(tree: str) -> dict:
                      if "Compiling entry" in ln or "registers" in ln or "spill" in ln],
            "ms": {}, "segments": {}}
     for label, kernel, scan, scene, leaf, size, bounces, start, n, rows in CASES:
+        if words and not any(w in label for w in words):
+            continue
         case = selfcheck.Case(kernel, scan, size, size, bounces, scene=scene, leaf=leaf)
         if kernel == "trace_rays":
             o, d = selfcheck.probe_rays(tables.scene(scene), rows, case.cfg, seed=1)
@@ -126,6 +146,33 @@ def time_tree(tree: str) -> dict:
 
             def call(tb=tb, nf=nf, ni=ni, case=case, start=start, n=n):
                 return sw._trace_sorted(sw._bounce_step, tb, nf, ni, case.cfg, start, n, False)
+        elif kernel.startswith("sorted_kernels"):  # (events around each launch, segments)
+            tb, nf, ni, _, _ = tables.bvh(scene, scan, leaf)
+
+            def call(tb=tb, nf=nf, ni=ni, case=case, start=start, n=n,
+                     sort=kernel.endswith("sort_on")):
+                marks = []
+
+                def step(*args):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    sw._bounce_step(*args)
+                    b.record()
+                    marks.append((a, b))
+
+                segs = sw._trace_sorted(step, tb, nf, ni, case.cfg, start, n, sort)[-1]
+                torch.cuda.synchronize()
+                return sum(a.elapsed_time(b) for a, b in marks), segs
+        elif kernel == "sorted_call":
+            tb, nf, ni, _, _ = tables.bvh(scene, scan, leaf)
+
+            def call(tb=tb, nf=nf, ni=ni, case=case, start=start, n=n, leaf=leaf):
+                return sw.render_samples_sorted_stats(tb, nf, ni, case.cfg, start, n,
+                                                      max_leaf=leaf)
+        elif kernel == "ao":
+            def call(case=case, start=start, n=n):
+                return selfcheck.run_fast("ao", tables, case.cfg, start, n), 0
         elif kernel in ("adjoint", "forward"):
             cfg = RenderConfig(size, size, bounces=bounces)
             ct = selfcheck.grad_points(tables)["interior"]
@@ -149,22 +196,24 @@ def time_tree(tree: str) -> dict:
         call()
         torch.cuda.synchronize()
         times, segs = [], 0  # a train step's segments are its adjoint launches'
-        if kernel == "train":
+        if kernel in ("train", "sorted_call"):
             for _ in range(TRAIN_REPS):
                 t0 = time.perf_counter()
-                call()
+                got = call()
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
+                segs = got[-1] if kernel == "sorted_call" else 0
         else:
             for _ in range(5):
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 torch.cuda._sleep(SPIN_CYCLES)
                 a.record()
-                segs = call()[-1]
+                got = call()
                 b.record()
                 torch.cuda.synchronize()
-                times.append(a.elapsed_time(b))
+                segs = got[-1]
+                times.append(got[0] if kernel.startswith("sorted_kernels") else a.elapsed_time(b))
         out["ms"][label] = statistics.median(times)
         out["segments"][label] = int(segs)
     return out
@@ -187,10 +236,10 @@ def by_kernel(ptxas: list) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--tree":
-        print(json.dumps(time_tree(sys.argv[2])), flush=True)
+    if len(sys.argv) >= 3 and sys.argv[1] == "--tree":
+        print(json.dumps(time_tree(sys.argv[2], sys.argv[3:])), flush=True)
         return 0
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2 or sys.argv[1].startswith("-"):
         sys.exit(__doc__)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
@@ -199,13 +248,14 @@ def main() -> int:
     parent = os.path.abspath(sys.argv[1])  # the tree processes run from ROOT
     for label, tree in (("parent", parent), ("change", ROOT), ("change", ROOT),
                         ("parent", parent)):
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree],
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree", tree,
+                              *sys.argv[2:]],
                              capture_output=True, text=True, check=True, cwd=ROOT)
         row = json.loads(res.stdout.strip().splitlines()[-1])
         runs.append((label, row))
         print(f"[pair] {label}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in row["ms"].items()),
               flush=True)
-    for label, *_ in CASES:
+    for label in runs[0][1]["ms"]:
         seg = {lab: row["segments"][label] for lab, row in runs}
         print(f"[pair] {label}: parent, change, change, parent = "
               f"{[round(row['ms'][label], 3) for _, row in runs]} ms; segments {seg}", flush=True)

@@ -9,7 +9,10 @@ wavefront's work splits and table routes, the wide kernel on a 14-level tree and
 split into launches, the skip-link kernel bit for bit in each leaf form, split into
 launches and on the driver's route for trees deeper than the wide kernel's stack),
 the adjoint kernel (on a ragged pixel range too) and the arbitrary-ray kernel (at
-runs of 1, 2 and all samples a lane); and the vertex step's launches. Whether there is a
+runs of 1, 2 and all samples a lane); the AO kernel (at 1, 2 and 32 lanes a pixel,
+and at the CLI's shape) and the direct kernel; the sorted wavefront's live-list
+launches (on a ray count no multiple of the block, and on a call whose rays all die
+in the first launch); and the vertex step's launches. Whether there is a
 card is decided inside the fixture, never at import.
 """
 
@@ -268,6 +271,22 @@ def test_fast_integrator_kernels_are_their_plain_versions_bitwise(fast_results, 
     assert result["ok"], result
 
 
+def test_ao_kernel_at_1_2_and_32_lanes_gives_the_same_bits(fast_results):
+    result = fast_results["ao at 1, 2 and 32 lanes a pixel, same bits"]
+    assert result["ok"], result
+
+
+def test_ao_kernel_is_its_plain_version_at_the_cli_shape(cuda_tables):
+    """512², 64 spp in one launch (the CLI's ao-pallas): the split and the eye rows
+    at the shape the main path runs."""
+    from oclpathtracer_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=512, height=512)
+    got = selfcheck.run_fast("ao", cuda_tables, cfg, 0, 64)
+    want = selfcheck.run_fast("ao", cuda_tables, cfg, 0, 64, plain=True)
+    assert torch.equal(got, want) and 10.0 < float(got.mean()) < 64.0
+
+
 @pytest.fixture(scope="module")
 def sorted_results(cuda_tables):
     return selfcheck.sorted_checks(cuda_tables, SIZE, SIZE, bounces=4, n_samples=2)
@@ -275,9 +294,15 @@ def sorted_results(cuda_tables):
 
 @pytest.mark.parametrize("check", ["kernel vs plain", "vs the skip-link kernel"])
 @pytest.mark.parametrize("sort", [False, True])
-@pytest.mark.parametrize("scene", ["cornell", "spheres5k"])
+@pytest.mark.parametrize("scene", ["cornell", "spheres5k", "cornell 13x11 3spp",
+                                   "cornell looking away"])
 def test_sorted_wavefront_kernel_is_bitwise(sorted_results, scene, sort, check):
     result = sorted_results[f"{scene} sort={sort} {check}"]
+    assert result["ok"], result
+
+
+def test_sorted_wavefront_when_every_ray_dies_in_the_first_launch(sorted_results):
+    result = sorted_results["cornell looking away: one segment a ray"]
     assert result["ok"], result
 
 

@@ -18,11 +18,12 @@ from oclpathtracer_tpu.integrators.ao import render_ao_sample_ref as jao_ref
 from oclpathtracer_tpu.integrators.direct import render_direct_sample_ref as jdirect_ref
 from oclpathtracer_tpu.kernels import fast_integrators as jfi
 from oclpathtracer_tpu.kernels.megakernel import pack_scene as jpack_scene
-from oclpathtracer_tpu_torch.config import RenderConfig
+from oclpathtracer_tpu_torch.config import CameraConfig, RenderConfig
 from oclpathtracer_tpu_torch.convert import scene_from_numpy
 from oclpathtracer_tpu_torch.integrators import ao, direct
 from oclpathtracer_tpu_torch.kernels import fast_integrators as fi
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
+from oclpathtracer_tpu_torch.scene.procgen import sphere_field
 
 torch.set_num_threads(1)
 
@@ -140,7 +141,87 @@ def test_wrappers_check_their_inputs(tables):
         fi.render_ao_pallas(table[:, :20].contiguous(), cfg, 0, 1)
     with pytest.raises(ValueError):
         fi.render_ao_pallas(table, cfg, 0, 0)
+    with pytest.raises(ValueError):  # the count would no longer be the f32 sum's bits
+        fi.render_ao_pallas(table, cfg, 0, 1 << 24)
     with pytest.raises(ValueError):
         fi.render_direct_pallas(table, lt[:, :15].contiguous(), area, cfg, 0, 1)
     with pytest.raises(ValueError):
         fi.render_direct_pallas(table, lt[:0], area, cfg, 0, 1)
+
+
+# ---- the AO kernel's split and its camera scan over eye rows ------------------------
+
+def _eye_cases(tables):
+    """(table, cfg): the Cornell box from its camera, and a sphere field seen from
+    inside it, so that rows lie behind the eye and to every side of it."""
+    field = sphere_field(8, 1, seed=2, device="cpu")
+    eye = (0.0, 2.0, 3.0)
+    return {"cornell": (tables[0], RenderConfig(width=20, height=16)),
+            "inside a sphere field": (mk.pack_scene(field),
+                                      RenderConfig(width=20, height=16,
+                                                   camera=CameraConfig(eye=eye)))}
+
+
+def _camera_rays(cfg, n_samples=2):
+    k = mk._Consts.of(cfg)
+    pid = torch.arange(cfg.n_pixels, dtype=torch.int64)
+    rays = [mk._camera_path(k, cfg, pid, s)[:2] for s in range(n_samples)]
+    o = tuple(torch.cat([r[0][a] for r in rays]) for a in range(3))
+    d = tuple(torch.cat([r[1][a] for r in rays]) for a in range(3))
+    return k, o, d
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["cornell", "inside a sphere field"])
+def test_eye_rows_are_parity_candidate_row_by_row(tables, case):
+    """Each kept eye row gives mk._tri_parity's candidacy and t bit for bit on camera
+    rays; each row left out is a candidate for none of them."""
+    table, cfg = _eye_cases(tables)[case]
+    k, o, d = _camera_rays(cfg)
+    kept = {row[0]: row for row in fi._eye_rows(table, k.eye)}
+    rows = table.tolist()
+    assert 0 < len(kept) < len(rows)
+    for j, r in enumerate(rows):
+        cand, t, _ = mk._tri_parity(r.__getitem__, o, d, None)
+        if j in kept:
+            cand_e, t_e = fi._tri_parity_eye(kept[j], d)
+            assert torch.equal(cand_e, cand) and torch.equal(_bits(t_e), _bits(t))
+        else:
+            assert not bool(cand.any())
+
+
+@pytest.mark.parametrize("case", ["cornell", "inside a sphere field"])
+def test_eye_scan_nearest_hit_is_the_linear_scan(tables, case):
+    table, cfg = _eye_cases(tables)[case]
+    k, o, d = _camera_rays(cfg)
+    ps = mk._PlainScene(table, (), "parity")
+    want = mk._scan_linear(ps, o, d)
+    got = fi._scan_eye(ps, fi._eye_rows(table, k.eye), d)
+    flat = lambda h: [x for v in h for x in (v if isinstance(v, tuple) else (v,))]
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(flat(got), flat(want)))
+    assert 0.05 < float((want[0] < mk.T_MAX).float().mean())
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 32])
+def test_ao_split_plain_is_the_unsplit_plain_bitwise(tables, lanes):
+    """Runs of ceil(n / lanes) samples, integer counts added as integers, the camera
+    scan over eye rows: the sample-order f32 sum's bits, on a ragged pixel range
+    from a pid_base, with n not a multiple of the lanes."""
+    table = tables[0]
+    cfg = RenderConfig(width=24, height=16)
+    kw = dict(pid_base=37, n_rays=301)
+    want = fi._render_ao_plain(table, cfg, 11, 5, **kw)
+    got = fi._render_ao_plain(table, cfg, 11, 5, lanes=lanes, **kw)
+    assert got.shape == (301, 3) and torch.equal(got, want)
+    assert 1.0 < float(want.mean()) < 5.0
+
+
+def test_ao_lanes_and_route(tables):
+    assert [fi.ao_lanes(n) for n in (1, 2, 3, 5, 8, 64)] == [1, 2, 4, 8, 8, 8]
+    assert fi.ao_in_shared(tables[0])
+    rows = mk.SMEM_TABLE_MAX_BYTES // (mk.TABLE_COLS * 4 + 64)
+    assert not fi.ao_in_shared(torch.zeros((rows + 1, mk.TABLE_COLS)))
+    assert mk.table_in_shared(torch.zeros((rows + 1, mk.TABLE_COLS)))

@@ -21,6 +21,8 @@ from oclpathtracer_tpu.kernels import sorted_wavefront as jsw
 from oclpathtracer_tpu_torch.config import CameraConfig, RenderConfig
 from oclpathtracer_tpu_torch.convert import scene_from_numpy
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
+from oclpathtracer_tpu_torch.kernels import megakernel as mk
+from oclpathtracer_tpu_torch.kernels import rng as krng
 from oclpathtracer_tpu_torch.kernels import sorted_wavefront as sw
 from oclpathtracer_tpu_torch.kernels.selfcheck import PROCGEN_EYE
 from oclpathtracer_tpu_torch.scene.procgen import sphere_field
@@ -104,22 +106,87 @@ def test_sort_key_matches_jax_bitwise():
                           torch.argsort(got, stable=True).numpy())
 
 
-def test_bounce_step_leaves_dead_rays_alone(packed):
-    """After the first launch every dead ray's state is what it was, bit for bit, and
-    the counter gains exactly the live rays."""
+def _full_batch_bounce(ctx, state, first):
+    """The bounce over the whole batch, as the plain version ran before the live
+    lists: every ray computed, the dead ones' old state kept by a select."""
+    k = mk._Consts.of(ctx.cfg)
+    n = state.live.shape[0]
+    vecs = (state.o, state.d, state.mask, state.rad)
+    if first:
+        r = torch.arange(n, dtype=torch.int64)
+        path = mk._camera_path(k, ctx.cfg, r % ctx.n_pix, ctx.start_sample + r // ctx.n_pix)
+    else:
+        path = (*(tuple(x) for x in vecs), state.live > 0.5,
+                state.rng.to(torch.int64) & krng.MASK32)
+    live = path[4]
+    nearest = bk._skip_walk_nearest(mk._PlainScene(ctx.table, (), "parity"), ctx.nodes_f,
+                                    ctx.nodes_i)
+    new = mk._shade(k, path, nearest(0, path[0], path[1], live))
+    for dst, old, val in zip(vecs, path[:4], new[:4]):
+        dst.copy_(torch.stack(mk._where3(live, val, old)))
+    state.live.copy_(torch.where(live, new[4].to(torch.float32), state.live))
+    state.rng.copy_(torch.where(live, new[5], path[5]).to(torch.int32))
+    return int(live.sum())
+
+
+def _bits(state):
+    """The state rows' bits (column 13 holds the rng's, which can read as a NaN)."""
+    return state.rows.view(torch.int32)
+
+
+def _start(packed, cfg, n_samples, start=0, sort=False):
     tb, nf, ni = packed[8]
+    n = cfg.n_pixels * n_samples
+    ctx = sw.Bounce.of(tb, nf, ni, cfg, start, n, cfg.n_pixels)
+    return (ctx, sw.RayState.empty(n, "cpu"), sw.LiveLists.empty(n, "cpu", sort),
+            torch.zeros((1,), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("mode", ["list", "sort"])
+def test_live_list_bounces_are_the_full_batch_bounces_bitwise(packed, mode):
+    """Bounce by bounce, the plain version tracing only the live list (or, with the
+    sort on, the list the keys' argsort makes) leaves the state of the full-batch
+    bounce bit for bit, its list holds exactly the live slots, and its keys are
+    _sort_key of the state."""
+    cfg = RenderConfig(width=16, height=12, bounces=5)
+    ctx, state, lists, segs = _start(packed, cfg, 2, start=3, sort=mode == "sort")
+    ref = sw.RayState.empty(state.live.shape[0], "cpu")
+    lo, hi = ctx.nodes_f[0, 0:3], ctx.nodes_f[0, 3:6]
+    traced = 0
+    for b in range(cfg.bounces):
+        if b > 0 and mode == "sort":
+            lists.slots[1 - b % 2] = torch.argsort(lists.keys, stable=True)
+        sw._bounce_step(ctx, state, lists, segs, sw.MODE_FIRST if b == 0 else sw.MODE_LIST,
+                        b % 2)
+        traced += _full_batch_bounce(ctx, ref, b == 0)
+        used = slice(0, sw._RNG + 1)  # the row's last two columns are never read
+        assert torch.equal(_bits(state)[:, used], _bits(ref)[:, used]) and int(segs) == traced
+        count = int(lists.count(b % 2))
+        listed = lists.slots[b % 2, :count].sort().values
+        assert torch.equal(listed, (state.live > 0.5).nonzero().squeeze(1).to(torch.int32))
+        if mode == "sort":
+            assert torch.equal(lists.keys, sw._sort_key(state.o, state.d, state.live, lo, hi))
+    assert 0 < count < cfg.n_pixels  # some rays still live after the last bounce
+
+
+@pytest.mark.parametrize("mode", ["list", "sort"])
+def test_bounce_step_leaves_dead_rays_alone(packed, mode):
+    """After the first launch every dead ray's state is what it was, bit for bit, and
+    the counter gains exactly the live rays: from the live list, or from the list
+    the sort keys' argsort makes."""
     cfg = RenderConfig(width=16, height=8, bounces=4)
-    state = sw.RayState.empty(cfg.n_pixels * 2, "cpu")
-    segs = torch.zeros((1,), dtype=torch.int64)
-    sw._bounce_step(tb, nf, ni, cfg, state, segs, True, 0, cfg.n_pixels)
-    assert int(segs) == cfg.n_pixels * 2
-    before = [x.clone() for x in state]
+    ctx, state, lists, segs = _start(packed, cfg, 2, sort=mode == "sort")
+    n = cfg.n_pixels * 2
+    sw._bounce_step(ctx, state, lists, segs, sw.MODE_FIRST, 0)
+    assert int(segs) == n
+    if mode == "sort":
+        lists.slots[0] = torch.argsort(lists.keys, stable=True)
+    before = state.rows.clone()
     live = state.live > 0.5
-    sw._bounce_step(tb, nf, ni, cfg, state, segs, False, 0, cfg.n_pixels)
-    assert int(segs) == cfg.n_pixels * 2 + int(live.sum())
-    assert 0 < int(live.sum()) < cfg.n_pixels * 2
-    for old, new in zip(before, state):
-        assert torch.equal(old[..., ~live], new[..., ~live])
+    sw._bounce_step(ctx, state, lists, segs, sw.MODE_LIST, 1)
+    assert int(segs) == n + int(live.sum())
+    assert 0 < int(live.sum()) < n
+    assert torch.equal(before.view(torch.int32)[~live], _bits(state)[~live])
 
 
 def test_render_sorted_is_render_bvh_parity(port_scene):
