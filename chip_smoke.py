@@ -52,7 +52,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      fast_integrator_checks) on the Cornell box at 128², 4 spp: bit for bit against
      their plain versions on the whole image, on a ragged range (pid_base 1000,
      5,001 pixels; also the whole image's rows) and with the table in global memory;
-     AO at 1, 2 and 32 lanes a pixel, the same bits.
+     AO at 1, 2 and 32 lanes a pixel, the same bits; direct at 1, 2, 8 and 32 lanes
+     a pixel and 3 and 5 spp, with the tables in shared and in global memory and (8
+     lanes) on the ragged range, the plain version's bits.
      The sorted wavefront's bounce kernel (sorted_wavefront.cu, sorted_checks) on the
      Cornell box and sphere_field(), leaf 32, 4 bounces, 2 spp, sort off and on: bit
      for bit against its plain version and against the skip-link kernel; also on
@@ -143,7 +145,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (kernel probes, twin probes) in ms/step with one profiled step each. The AO and direct kernels
      against their plain versions at the CLI's shape (Cornell 512², 64 spp in one
      launch), bit for bit, as Mrays/s of the rays they cast (camera rays, and the
-     second rays where cast, counted by the plain versions). The sorted wavefront at
+     second rays where cast, counted by the plain versions), and each at 1, 2, 4, 8,
+     16 and 32 lanes a pixel, the same bits (`ms_by_lanes`). The sorted wavefront at
      render_sorted's shape (512², 16 bounces, 8 spp a call, leaf 32) on sphere_field()
      and the Cornell box: its 16 bounce launches, whole calls with the sort off and
      on (and the bounce kernels' own device time in each, from events around each
@@ -157,7 +160,7 @@ kernels as JSON, each with its bound (kernels/bounds.py: the larger of its FP32
 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, from this run's segment
 counts and, for the BVH walks (the sorted wavefront's too), the boxes and leaf
 triangles their plain versions tested, per segment, at the timed shape, and for AO
-and direct the rays and any-hit triangles theirs counted), `library_ms` null (no
+and direct the rays, eye rows and any-hit triangles theirs counted), `library_ms` null (no
 PyTorch call computes a path trace, AO or NEE) and its launches on each path; the
 BVH kernels also their time and bound at sphere_field(80, 3) (`ms_102k`,
 `bound_ms_102k`), the adjoint kernel its forward-only launch's bound
@@ -1356,7 +1359,8 @@ def phase_vertex_timing(tables):
 def phase_fast_timing(tables):
     """The AO and direct kernels against their plain versions at the CLI's shape
     (Cornell 512², 64 spp in one launch, from sample TIME_START), held bit for bit;
-    Mrays/s of the rays they cast, counted by the plain version."""
+    Mrays/s of the rays they cast, counted by the plain version; each kernel's time
+    at every lane count a pixel (`ms_by_lanes`), each held bit for bit too."""
     import torch
 
     from oclpathtracer_tpu_torch.config import RenderConfig
@@ -1389,6 +1393,16 @@ def phase_fast_timing(tables):
             f"{plain_ms:.1f} ms ({rows[kind]['plain_mrays']:.3f} Mrays/s); bitwise "
             f"{rows[kind]['bitwise']} max|diff| {rows[kind]['max_abs_err']:.3g}")
         require(rows[kind]["bitwise"], f"{kind} kernel vs plain at the CLI's shape: not bitwise")
+        by_lanes = {}
+        for lanes in (1, 2, 4, 8, 16, 32):
+            def at(kind=kind, lanes=lanes):
+                return selfcheck.run_fast(kind, tables, cfg, TIME_START, MAIN_STEP, lanes=lanes)
+            by_lanes[lanes], img = cuda_time_ms(at, at)
+            require(bool(torch.equal(img, got)), f"{kind} kernel at {lanes} lanes: not bitwise")
+        rows[kind]["ms_by_lanes"] = by_lanes
+        log(f"[time] {kind} Cornell {FULL_SIZE}x{FULL_SIZE} {MAIN_STEP}spp by lanes a pixel "
+            f"(default {fi.ao_lanes(MAIN_STEP) if kind == 'ao' else fi.direct_lanes(MAIN_STEP)}), "
+            f"ms, each bitwise: {by_lanes}")
     return rows
 
 
@@ -1640,7 +1654,7 @@ def kernel_bounds(tables, main_rows) -> dict:
         r = main_rows[kind]
         lights = tables.lights("cornell")[0]
         out[kind] = bounds.bound_ms(
-            bounds.fast_ops(kind, n_tris, r["counts"], lights.shape[0]),
+            bounds.fast_ops(kind, r["counts"], lights.shape[0]),
             nbytes(ptable) + (nbytes(lights) if kind == "direct" else 0)
             + 12 * FULL_SIZE * FULL_SIZE)
     r = main_rows["sorted_bounce"]
@@ -1744,8 +1758,8 @@ def main() -> int:
             "launches_by_path": {path: c[name] for path, c in paths.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
-            **{k: row[k] for k in ("spp", "plain_spp", "forward_ms", "forward_plain_ms", "rows")
-               if k in row}, **second})
+            **{k: row[k] for k in ("spp", "plain_spp", "forward_ms", "forward_plain_ms", "rows",
+                                    "ms_by_lanes") if k in row}, **second})
     log(f"[done] {card}; all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)  # nvidia-smi's name and power limit, as it gives them
     print(json.dumps({"timing": rows, "grad_timing": grad_rows, "train_timing": train_rows,

@@ -16,14 +16,14 @@ box's 36 triangles, where the scan dominates.
 The AO and direct kernels (csrc/fast_integrators.cu) are counted as they cast rays:
 every camera ray with its scan, and the second ray (AO's cosine ray, direct's
 shadow ray) only where the kernel casts it, its any-hit scan up to and including
-the first blocker; the plain versions count these at the timed shape. The direct
-kernel's camera scan tests every row in full; the AO kernel's tests only the rows
-a ray from the eye can hit, each in its collapsed form (EYE_TRI_OPS), and the plain
-version reports how many rows it keeps (the terms computed once a block, 18
-operations a row, are left out: under 0.1 % at the Cornell box). The sorted
-wavefront's bounce kernel is counted as the skip-link walk (`bvh_ops`, parity), the
-camera of each ray on the first launch, and RAY_STATE_BYTES written per live ray
-per launch and read per live ray per launch after the first.
+the first blocker; the plain versions count these at the timed shape. Both
+kernels' camera scans test only the rows a ray from the eye can hit, each in its
+collapsed form (EYE_TRI_OPS), and the plain versions report how many rows they keep
+(`counts["eye_rows"]`; the terms computed once a block, 18 operations a row, are
+left out: under 0.1 % at the Cornell box). The sorted wavefront's bounce kernel is
+counted as the skip-link walk (`bvh_ops`, parity), the camera of each ray on the
+first launch, and RAY_STATE_BYTES written per live ray per launch and read per live
+ray per launch after the first.
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ H100_HBM_BYTES = 3.35e12  # device-memory bytes per second
 # collapsed bounce-0 form): products, differences, the inside test and the ordering.
 TRI_OPS = {"parity": 53, "fast": 51, "tp": 43}
 TP0_TRI_OPS = 25
-# The AO kernel's camera-ray row (fast_integrators.cu scan_eye_rows4): the parity
-# test without tvec, qvec and tnum, which depend on the eye alone (17 operations).
+# The AO and direct kernels' camera-ray row (fast_integrators.cu scan_eye_rows4):
+# the parity test without tvec, qvec and tnum, which depend on the eye alone (17 operations).
 EYE_TRI_OPS = 36
 TP_RAY_OPS = 9  # m = cross(o, d), once per tp scan
 # decode_parity / decode_fast / decode_tp (+ 3 per material class for tp's select).
@@ -104,13 +104,12 @@ def adjoint_ops(n_classes: int, segments: int) -> float:
     return segments * (ADJOINT_SEG_OPS + ADJOINT_CLASS_OPS * n_classes)
 
 
-def fast_ops(kind: str, n_tris: int, counts: dict, n_lights: int = 0) -> float:
+def fast_ops(kind: str, counts: dict, n_lights: int = 0) -> float:
     """FP32 operations of the AO ("ao") or direct ("direct") kernel for the work the
-    plain version counted (fast_integrators._new_counts): every camera ray scans every
-    triangle (AO: the `eye_rows` rows kept, collapsed), and the second rays test
-    `tris` triangles in all."""
-    scan = (EYE_TRI_OPS * counts["eye_rows"] if kind == "ao" else TRI_OPS["parity"] * n_tris)
-    per_camera = CAMERA_OPS + 1 + scan + (1 if kind == "ao" else 3)
+    plain version counted (fast_integrators._new_counts): every camera ray scans the
+    `eye_rows` rows kept, collapsed, and the second rays test `tris` triangles in
+    all."""
+    per_camera = CAMERA_OPS + 1 + EYE_TRI_OPS * counts["eye_rows"] + (1 if kind == "ao" else 3)
     ops = counts["camera"] * per_camera + counts["tris"] * TRI_OPS["parity"]
     if kind == "ao":
         return ops + counts["rays"] * AO_RAY_OPS

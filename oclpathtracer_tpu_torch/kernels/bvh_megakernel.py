@@ -233,8 +233,8 @@ def check_bvh_call(table, nodes_f, nodes_i, cfg: RenderConfig, n_samples: int,
 
 
 def check_aligned16(**tensors) -> None:
-    """Raise unless each tensor starts on a 16-byte boundary: the BVH kernels read
-    their tables' rows as float4s and int4s."""
+    """Raise unless each tensor starts on a 16-byte boundary: the BVH, AO and direct
+    kernels read their tables' rows as float4s and int4s."""
     for name, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernels read "

@@ -9,48 +9,41 @@
 // and draws jitter x, y, then AO's phi, sin^2 theta or direct's light pick, u, v.
 //
 // What bounds them on the H100: FP32 work of the linear scans. Each sample is a
-// camera ray with the nearest-hit scan over every triangle (about 53 operations
-// each) and, where it is cast, a second ray with an any-hit scan; device memory
-// carries only the table (staged once a block) and 12 bytes out per pixel.
+// camera ray with the nearest-hit scan and, where it is cast, a second ray with an
+// any-hit scan; device memory carries only the table (staged once a block) and 12
+// bytes out per pixel.
 //
-// What the direct kernel's design does about that: the megakernel's camera, scan
-// and decode (trace.cuh camera_path, scan_linear<SCAN_PARITY>, decode_parity), one
-// thread per pixel, 128 threads a block, the table in shared memory when it fits,
-// else read from global memory. The any-hit scan returns at the first blocker: the
-// JAX scan ORs every triangle's test with no nearest-hit term, so the first
-// blocker decides the same boolean. The second ray is skipped where the JAX kernel
-// masks it: on a miss (both), on the light itself and where the light lies behind
-// the surface (direct); each sample reseeds its stream, so skipping draws nothing
-// from the next. The AO direction is sample_lobe's diffuse lobe (trace.cuh
-// cosine_dir). The direct kernel evaluates the BRDF as the JAX kernel does, not as
-// core/brdf.eval_brdf: max(4 (wi.n)(wo.n), 1e-8) and mtype >= 1.5. The light table
-// ((L, 16) f32) is read from global memory, a broadcast every thread shares.
+// What both kernels' design does about that. A pixel's samples are split over
+// `lanes` adjacent lanes (a power of two up to 32), so a launch runs several waves
+// of lanes. Each block stages the table and computes once the terms of each row
+// that depend on the eye alone, keeping the rows a camera ray can hit (eye_rows):
+// a camera ray then tests 36 of a row's 53 operations over the kept rows only, in
+// a warp-uniform loop (every lane runs every sample of its share; a lane past the
+// image or past n drops its results). Both scans read rows as float4s; the any-hit
+// scan returns lane by lane at the first blocker: the JAX scan ORs every
+// triangle's test with no nearest-hit term, so the first blocker decides the same
+// boolean. A table too big for shared memory is read from global memory, with the
+// camera scan over every row. The second ray is skipped where the JAX kernel masks
+// it: on a miss (both), on the light itself and where the light lies behind the
+// surface (direct); each sample reseeds its stream, so skipping draws nothing from
+// the next.
 //
-// What the AO kernel's design does about it (helpers the direct kernel can take,
-// its camera scan being the same parity scan from the eye): a pixel's samples are
-// split over `lanes` adjacent lanes, so the launch runs several waves, and the
-// lanes' integer counts of visible samples are added by shuffles (no scratch
-// buffer: the count is the sample-order sum's bits). Each block computes once the
-// terms of each row that depend on the eye alone and keeps the rows a camera ray
-// can hit (eye_rows), so a camera ray tests 36 of a row's 53 operations over the
-// kept rows only, in a warp-uniform loop (every lane runs every sample of its run).
-// Both scans read rows as float4s; the any-hit scan returns lane by lane at the
-// first blocker.
+// AO adds its lanes' integer counts of visible samples by shuffles (the count is
+// the sample-order f32 sum's bits). Direct's radiance is a float sum, whose bits
+// depend on the order, so its lanes trace in interleaved rounds (lane k of a
+// pixel's group traces sample i lanes + k in round i) and after each round every
+// lane adds the group's radiances, taken by shuffles in lane order: the sum of
+// samples 0, 1, ..., n-1 in order, with no scratch buffer. The AO direction is
+// sample_lobe's diffuse lobe (trace.cuh cosine_dir). The direct kernel evaluates
+// the BRDF as the JAX kernel does, not as core/brdf.eval_brdf: max(4 (wi.n)(wo.n),
+// 1e-8) and mtype >= 1.5; its light table ((L, 16) f32, four float4s a light) is
+// staged beside the table on the shared route.
 #include "trace.cuh"
 
 namespace opt {
 
 constexpr int LIGHT_COLS = 16;  // p1 3 | p2 3 | p3 3 | normal 3 | emissive 3 | cdf
-
-// Whether any triangle blocks the ray before t_max (parity tests, table order).
-static __device__ __forceinline__ bool any_hit(const float* tbl, int n_tris, float3 o, float3 d,
-                                               float t_max) {
-  for (int j = 0; j < n_tris; ++j) {
-    float t;
-    if (parity_candidate(tbl + (size_t)j * TABLE_COLS, o, d, t) && t < t_max) return true;
-  }
-  return false;
-}
+constexpr int LIGHT_VEC4S = LIGHT_COLS / 4;
 
 // ---- AO: pixels split into sample runs, the camera scan over eye rows ----------
 //
@@ -63,8 +56,6 @@ static __device__ __forceinline__ bool any_hit(const float* tbl, int n_tris, flo
 // has its bits. Every lane runs every sample of its run (a lane past the image or
 // past n drops its results), so the camera scan's loop and its row address are
 // the same in every lane.
-
-enum { AO_GLOBAL = 0, AO_SHARED = 1 };
 
 // A row the camera scan can take, as eye_rows keeps it: 4 float4s, e1 | row index,
 // e2 | tnum, tvec, qvec.
@@ -148,15 +139,15 @@ static __device__ __forceinline__ bool any_hit_rows4(Load load, int n_tris, floa
   return false;
 }
 
-// The AO kernel's dynamic shared memory on the shared route: the table, the kept
-// eye rows and their count.
-static inline size_t ao_smem_bytes(int n_tris) {
+// Dynamic shared memory on the shared route: the table, its kept eye rows, the
+// light table (direct; AO has none) and the eye rows' count.
+static inline size_t fast_smem_bytes(int n_tris, int n_lights) {
   return (size_t)n_tris * (TABLE_COLS * sizeof(float) + EYE_VEC4S * sizeof(float4)) +
-         sizeof(float4);
+         (size_t)n_lights * LIGHT_COLS * sizeof(float) + sizeof(float4);
 }
 
-// ROUTE AO_SHARED: the table staged in shared memory and the camera scan over its
-// eye rows; AO_GLOBAL: the table read from global memory, the camera scan over
+// ROUTE_SHARED: the table staged in shared memory and the camera scan over its
+// eye rows; ROUTE_GLOBAL: the table read from global memory, the camera scan over
 // every row (scan_rows4, the same best hit).
 template <int ROUTE>
 __global__ void __launch_bounds__(BLOCK) ao_kernel(const float* __restrict__ table, const Params P,
@@ -168,7 +159,7 @@ __global__ void __launch_bounds__(BLOCK) ao_kernel(const float* __restrict__ tab
   float4* eye4 = ao_smem4 + P.n_tris * STRIDE4;
   int* n_eye_at = (int*)(eye4 + EYE_VEC4S * P.n_tris);
   int n_eye = 0;
-  if (ROUTE == AO_SHARED) {
+  if (ROUTE == ROUTE_SHARED) {
     for (int i = threadIdx.x; i < P.n_tris * STRIDE4; i += blockDim.x) ao_smem4[i] = rows[i];
     __syncthreads();
     if (threadIdx.x < 32)
@@ -176,8 +167,8 @@ __global__ void __launch_bounds__(BLOCK) ao_kernel(const float* __restrict__ tab
     __syncthreads();
     n_eye = *n_eye_at;
   }
-  auto load = [&](int i) { return ROUTE == AO_SHARED ? ao_smem4[i] : __ldg(rows + i); };
-  const float* tbl = ROUTE == AO_SHARED ? (const float*)ao_smem4 : table;
+  auto load = [&](int i) { return ROUTE == ROUTE_SHARED ? ao_smem4[i] : __ldg(rows + i); };
+  const float* tbl = ROUTE == ROUTE_SHARED ? (const float*)ao_smem4 : table;
 
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   int idx = (int)(t / lanes);
@@ -191,7 +182,7 @@ __global__ void __launch_bounds__(BLOCK) ao_kernel(const float* __restrict__ tab
     int s = part * run + i;
     Path p = camera_path(P, pid, px, py, s);
     Best best = fresh_best();
-    if (ROUTE == AO_SHARED)
+    if (ROUTE == ROUTE_SHARED)
       scan_eye_rows4(eye4, n_eye, p.d, best);
     else
       scan_rows4<SCAN_PARITY, 2>(load, STRIDE4, 0, P.n_tris, p.o, p.d, v3(0.0f, 0.0f, 0.0f),
@@ -217,10 +208,23 @@ __global__ void __launch_bounds__(BLOCK) ao_kernel(const float* __restrict__ tab
   }
 }
 
-// One direct-NEE sample at a hit (fast_integrators.py:264-329).
-static __device__ __forceinline__ float3 direct_at_hit(const Params& P, const float* tbl,
-                                                       const float* __restrict__ lights,
-                                                       int n_lights, float pdf_a, Path& p,
+// ---- direct NEE: interleaved rounds, the sample-order sum by shuffles ------------
+//
+// As AO's split, `lanes` adjacent lanes a pixel, but lane k of a pixel's group
+// traces sample i lanes + k in round i, and after each round every lane of the
+// group adds the group's radiances, taken by full-warp shuffles in lane order 0 ..
+// lanes-1, skipping samples >= n (adding 0.0 would turn a -0.0 sum into +0.0).
+// Every lane so holds acc = (((0 + rad_0) + rad_1) + ...) + rad_{n-1}, the
+// sample-order sum's bits; the group's first lane writes it. No lane leaves the
+// rounds early: each round ends in shuffles over the full warp.
+
+// One direct-NEE sample at a hit (fast_integrators.py:264-329). `light(i)` is the
+// i-th float4 of the (L, 16) light table, `load(i)` of the (T, 24) table; a lane
+// whose sample is not `sampled` casts no shadow ray (its result is dropped).
+template <typename Load, typename LightLoad>
+static __device__ __forceinline__ float3 direct_at_hit(const Params& P, Load load,
+                                                       LightLoad light, int n_lights,
+                                                       float pdf_a, bool sampled, Path& p,
                                                        const Hit& h) {
   float3 n = face_forward(h.n, p.d);
   float3 hitp = add3(p.o, scale3(p.d, h.t));
@@ -232,10 +236,12 @@ static __device__ __forceinline__ float3 direct_at_hit(const Params& P, const fl
 
   // The JAX kernel's pick: the count of cdf entries below u_tri, clamped.
   int li = 0;
-  for (int l = 0; l < n_lights; ++l) li += u_tri > lights[l * LIGHT_COLS + 15] ? 1 : 0;
+  for (int l = 0; l < n_lights; ++l) li += u_tri > light(l * LIGHT_VEC4S + 3).w ? 1 : 0;
   li = min(li, n_lights - 1);
-  const float* L = lights + li * LIGHT_COLS;
-  float3 a = row3(L, 0), b = row3(L, 3), c = row3(L, 6), ln = row3(L, 9), le = row3(L, 12);
+  float4 x = light(li * LIGHT_VEC4S), y = light(li * LIGHT_VEC4S + 1);
+  float4 z = light(li * LIGHT_VEC4S + 2), w = light(li * LIGHT_VEC4S + 3);
+  float3 a = v3(x.x, x.y, x.z), b = v3(x.w, y.x, y.y), c = v3(y.z, y.w, z.x);
+  float3 ln = v3(z.y, z.z, z.w), le = v3(w.x, w.y, w.z);
 
   float su = sqrtf(ua);
   float w0 = 1.0f - su;
@@ -250,10 +256,10 @@ static __device__ __forceinline__ float3 direct_at_hit(const Params& P, const fl
   float cos_x = dot3(wi, n);
   float cos_l = fabsf(dot3(neg3(wi), ln));
   bool on_light = fmaxf(fmaxf(h.emi.x, h.emi.y), h.emi.z) > 0.0f;
-  if (!(cos_x > 0.0f) || on_light) return rad;
+  if (!sampled || !(cos_x > 0.0f) || on_light) return rad;
 
   float3 so = add3(hitp, scale3(wi, P.roffset));
-  if (any_hit(tbl, P.n_tris, so, wi, dist - 2.0f * P.roffset)) return rad;
+  if (any_hit_rows4(load, P.n_tris, so, wi, dist - 2.0f * P.roffset)) return rad;
 
   float3 wo = neg3(p.d);
   float3 f;
@@ -273,87 +279,143 @@ static __device__ __forceinline__ float3 direct_at_hit(const Params& P, const fl
             rad.z + f.z * le.z * P.eboost * geom);
 }
 
-static __device__ __forceinline__ void direct_pixel(const Params& P, const float* tbl,
-                                                    const float* __restrict__ lights,
-                                                    int n_lights, float total_area,
-                                                    float* __restrict__ out) {
-  int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= P.n_rays) return;
+// ROUTE_SHARED: the table and the light table staged in shared memory, the camera
+// scan over the eye rows; ROUTE_GLOBAL: both read from global memory, the camera
+// scan over every row (scan_rows4, the same best hit). `rounds` = ceil(n / lanes).
+template <int ROUTE>
+__global__ void __launch_bounds__(BLOCK) direct_kernel(const float* __restrict__ table,
+                                                     const float* __restrict__ lights,
+                                                     const Params P, int n_lights,
+                                                     float total_area, int lanes, int rounds,
+                                                     float* __restrict__ out) {
+  constexpr int STRIDE4 = TABLE_COLS / 4;
+  extern __shared__ float4 direct_smem4[];
+  const float4* rows = (const float4*)table;
+  const float4* lights4 = (const float4*)lights;
+  float4* eye4 = direct_smem4 + P.n_tris * STRIDE4;
+  float4* light_smem4 = eye4 + EYE_VEC4S * P.n_tris;
+  int* n_eye_at = (int*)(light_smem4 + LIGHT_VEC4S * n_lights);
+  int n_eye = 0;
+  if (ROUTE == ROUTE_SHARED) {
+    for (int i = threadIdx.x; i < P.n_tris * STRIDE4; i += blockDim.x) direct_smem4[i] = rows[i];
+    for (int i = threadIdx.x; i < n_lights * LIGHT_VEC4S; i += blockDim.x)
+      light_smem4[i] = lights4[i];
+    __syncthreads();
+    if (threadIdx.x < 32)
+      eye_rows(direct_smem4, P.n_tris, v3(P.eye[0], P.eye[1], P.eye[2]), eye4, n_eye_at);
+    __syncthreads();
+    n_eye = *n_eye_at;
+  }
+  auto load = [&](int i) { return ROUTE == ROUTE_SHARED ? direct_smem4[i] : __ldg(rows + i); };
+  auto light = [&](int i) {
+    return ROUTE == ROUTE_SHARED ? light_smem4[i] : __ldg(lights4 + i);
+  };
+  const float* tbl = ROUTE == ROUTE_SHARED ? (const float*)direct_smem4 : table;
+
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int idx = (int)(t / lanes);
+  int part = (int)(t - (long long)idx * lanes);
+  bool on_image = idx < P.n_rays;
   int pid = P.pid_base + idx;
   float px = (float)(pid % P.width);
   float py = (float)(pid / P.width);
   float pdf_a = 1.0f / total_area;
   float3 acc = v3(0.0f, 0.0f, 0.0f);
-  for (int s = 0; s < P.n_samples; ++s) {
+  for (int i = 0; i < rounds; ++i) {
+    int s = i * lanes + part;
     Path p = camera_path(P, pid, px, py, s);
-    Hit h = scan_linear<SCAN_PARITY>(P, tbl, p.o, p.d);
-    float3 rad = h.t < T_MAX ? direct_at_hit(P, tbl, lights, n_lights, pdf_a, p, h)
+    Best best = fresh_best();
+    if (ROUTE == ROUTE_SHARED)
+      scan_eye_rows4(eye4, n_eye, p.d, best);
+    else
+      scan_rows4<SCAN_PARITY, 2>(load, STRIDE4, 0, P.n_tris, p.o, p.d, v3(0.0f, 0.0f, 0.0f),
+                                 best);
+    Hit h = decode_parity(tbl, best);
+    bool sampled = on_image && s < P.n_samples;
+    float3 rad = h.t < T_MAX ? direct_at_hit(P, load, light, n_lights, pdf_a, sampled, p, h)
                              : v3(P.bg[0], P.bg[1], P.bg[2]);
-    acc = add3(acc, rad);
+    for (int k = 0; k < lanes; ++k) {
+      float3 r = v3(__shfl_sync(0xffffffffu, rad.x, k, lanes),
+                    __shfl_sync(0xffffffffu, rad.y, k, lanes),
+                    __shfl_sync(0xffffffffu, rad.z, k, lanes));
+      if (i * lanes + k < P.n_samples) acc = add3(acc, r);
+    }
   }
-  out[3 * idx + 0] = acc.x;
-  out[3 * idx + 1] = acc.y;
-  out[3 * idx + 2] = acc.z;
+  if (part == 0 && on_image) {
+    out[3 * idx + 0] = acc.x;
+    out[3 * idx + 1] = acc.y;
+    out[3 * idx + 2] = acc.z;
+  }
 }
 
-__global__ void __launch_bounds__(BLOCK) direct_kernel(const float* __restrict__ table,
-                                                     const float* __restrict__ lights,
-                                                     const Params P, int n_lights,
-                                                     float total_area, float* __restrict__ out) {
-  if (P.smem)
-    direct_pixel(P, stage_table(table, P.n_tris), lights, n_lights, total_area, out);
-  else
-    direct_pixel(P, table, lights, n_lights, total_area, out);
+// The grid of a launch that gives each of P.n_rays pixels `lanes` threads; refuse
+// (cudaErrorInvalidValue) lanes that are not a power of two up to 32, n or n_rays
+// below 1, or more threads than an int counts.
+static inline cudaError_t lane_grid(const Params& P, int lanes, int* grid) {
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || P.n_samples < 1 ||
+      P.n_rays < 1)
+    return cudaErrorInvalidValue;
+  long long threads = (long long)P.n_rays * lanes;
+  if (threads > 0x7fffffffLL) return cudaErrorInvalidValue;
+  *grid = (int)((threads + BLOCK - 1) / BLOCK);
+  return cudaSuccess;
 }
 
 }  // namespace opt
 
 // The parity scan carries no class values, so the host floats end at
-// N_HOST_FLOATS; each launcher's own values follow them (and the ints).
+// N_HOST_FLOATS; each launcher's own values follow them (and the ints). P.smem = 1
+// takes the shared route (fast_smem_bytes must fit).
 
 // host_f[N_HOST_FLOATS] = the AO radius; host_i[N_HOST_INTS] = lanes a pixel (a
-// power of two up to 32). P.smem = 1 takes the shared route (ao_smem_bytes must fit).
+// power of two up to 32).
 extern "C" int opt_ao_launch(const float* table, const float* host_f, const int* host_i,
                              float* out, void* stream) {
   opt::Params P = opt::params_from_host(host_f, host_i);
   float radius = host_f[opt::N_HOST_FLOATS];
   int lanes = host_i[opt::N_HOST_INTS];
-  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 || P.n_samples < 1 ||
-      P.n_rays < 1)
-    return (int)cudaErrorInvalidValue;
+  int grid;
+  cudaError_t err = opt::lane_grid(P, lanes, &grid);
+  if (err != cudaSuccess) return (int)err;
   int run = (P.n_samples + lanes - 1) / lanes;
-  long long threads = (long long)P.n_rays * lanes;
-  if (threads > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  int grid = (int)((threads + opt::BLOCK - 1) / opt::BLOCK);
   auto s = (cudaStream_t)stream;
   if (!P.smem) {
-    opt::ao_kernel<opt::AO_GLOBAL><<<grid, opt::BLOCK, 0, s>>>(table, P, radius, lanes, run,
-                                                               out);
+    opt::ao_kernel<opt::ROUTE_GLOBAL><<<grid, opt::BLOCK, 0, s>>>(table, P, radius, lanes, run,
+                                                                  out);
     return (int)cudaGetLastError();
   }
-  size_t smem = opt::ao_smem_bytes(P.n_tris);
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024 &&
-      (err = cudaFuncSetAttribute(opt::ao_kernel<opt::AO_SHARED>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-          cudaSuccess)
+  size_t smem = opt::fast_smem_bytes(P.n_tris, 0);
+  if ((err = opt::allow_smem(opt::ao_kernel<opt::ROUTE_SHARED>, smem)) != cudaSuccess)
     return (int)err;
-  opt::ao_kernel<opt::AO_SHARED><<<grid, opt::BLOCK, smem, s>>>(table, P, radius, lanes, run,
-                                                                out);
+  opt::ao_kernel<opt::ROUTE_SHARED><<<grid, opt::BLOCK, smem, s>>>(table, P, radius, lanes, run,
+                                                                   out);
   return (int)cudaGetLastError();
 }
 
-// host_f[N_HOST_FLOATS] = the total light area, host_i[N_HOST_INTS] = the light count.
+// host_f[N_HOST_FLOATS] = the total light area; host_i[N_HOST_INTS] = the light
+// count (at least 1), host_i[N_HOST_INTS + 1] = lanes a pixel (a power of two up to
+// 32).
 extern "C" int opt_direct_launch(const float* table, const float* lights, const float* host_f,
                                  const int* host_i, float* out, void* stream) {
   opt::Params P = opt::params_from_host(host_f, host_i);
   float total_area = host_f[opt::N_HOST_FLOATS];
   int n_lights = host_i[opt::N_HOST_INTS];
-  size_t smem;
-  cudaError_t err = opt::table_smem(opt::direct_kernel, P, &smem);
+  int lanes = host_i[opt::N_HOST_INTS + 1];
+  int grid;
+  cudaError_t err = opt::lane_grid(P, lanes, &grid);
   if (err != cudaSuccess) return (int)err;
-  int grid = (P.n_rays + opt::BLOCK - 1) / opt::BLOCK;
-  opt::direct_kernel<<<grid, opt::BLOCK, smem, (cudaStream_t)stream>>>(table, lights, P,
-                                                                       n_lights, total_area, out);
+  if (n_lights < 1) return (int)cudaErrorInvalidValue;
+  int rounds = (P.n_samples + lanes - 1) / lanes;
+  auto s = (cudaStream_t)stream;
+  if (!P.smem) {
+    opt::direct_kernel<opt::ROUTE_GLOBAL><<<grid, opt::BLOCK, 0, s>>>(
+        table, lights, P, n_lights, total_area, lanes, rounds, out);
+    return (int)cudaGetLastError();
+  }
+  size_t smem = opt::fast_smem_bytes(P.n_tris, n_lights);
+  if ((err = opt::allow_smem(opt::direct_kernel<opt::ROUTE_SHARED>, smem)) != cudaSuccess)
+    return (int)err;
+  opt::direct_kernel<opt::ROUTE_SHARED><<<grid, opt::BLOCK, smem, s>>>(
+      table, lights, P, n_lights, total_area, lanes, rounds, out);
   return (int)cudaGetLastError();
 }

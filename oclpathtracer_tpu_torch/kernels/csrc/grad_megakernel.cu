@@ -181,11 +181,8 @@ static int launch_route(const float* table, const float* classes, const float* w
                         float* partials, float* grads, cudaStream_t stream) {
   auto kernel = grad_megakernel<GRADS, ROUTE>;
   size_t smem = grad_smem_bytes(P, ROUTE == ROUTE_SHARED, GRADS);
-  cudaError_t err;
-  if (smem > 48 * 1024 &&
-      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
-    return (int)err;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   int grid = split_grid((long long)P.n_samples * P.n_rays);
   if (grid == 0) return (int)cudaErrorInvalidValue;
   kernel<<<grid, BLOCK, smem, stream>>>(table, classes, weight, P, scratch, segs, partials);

@@ -37,7 +37,6 @@
 
 namespace opt {
 
-enum { ROUTE_GLOBAL = 0, ROUTE_SHARED = 1 };
 enum { PEEL_NONE = 0, PEEL_LOCKSTEP = 1 };
 
 // Where an item's paths start: pixel P.pid_base + idx's camera paths.
@@ -221,11 +220,8 @@ static __device__ __forceinline__ void regen_loop(const Params& P, const float* 
 template <typename Kernel>
 static inline cudaError_t persistent_grid(Kernel kernel, size_t smem, long long n_items,
                                           int* grid) {
-  cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024 &&
-      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
-    return err;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   *grid = split_grid(n_items);
   if (*grid == 0) return cudaErrorInvalidValue;
   int device, sms, per_sm;

@@ -36,6 +36,8 @@ constexpr float INV_PI = 0.31830988618f;
 constexpr float TWO_PI = 6.28318530718f;
 
 enum { SCAN_PARITY = 0, SCAN_TP = 1, SCAN_FAST = 2 };
+// Where a kernel reads its table: staged in shared memory, or from global memory.
+enum { ROUTE_GLOBAL = 0, ROUTE_SHARED = 1 };
 
 // Host-computed constants, passed by value. Floats arrive as
 // [view3 hol3 upd3 eye3 bg3 angle aspect inv_w inv_h eboost roffset emi3] then
@@ -521,22 +523,11 @@ static __device__ __forceinline__ void shade(const Params& P, Path& p, const Hit
   advance(P, p, h, sample_lobe(p.d, h, p.rng));
 }
 
-// Copy the scene table into dynamic shared memory; every thread of the block
-// calls this before any returns.
-static __device__ __forceinline__ const float* stage_table(const float* table, int n_tris) {
-  extern __shared__ float smem_table[];
-  for (int i = threadIdx.x; i < n_tris * TABLE_COLS; i += blockDim.x) smem_table[i] = table[i];
-  __syncthreads();
-  return smem_table;
-}
-
-// Dynamic shared memory for the table where P.smem says it fits, opting the
-// kernel in past 48 KB; 0 bytes when the table is read from global memory.
+// Let `kernel` take `smem` bytes of dynamic shared memory (an opt-in above 48 KB).
 template <typename Kernel>
-static inline cudaError_t table_smem(Kernel kernel, const Params& P, size_t* smem) {
-  *smem = P.smem ? (size_t)P.n_tris * TABLE_COLS * sizeof(float) : 0;
-  if (*smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+static inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace opt

@@ -60,17 +60,13 @@ static int launch_wide(const float* table, const float* boxes, const int* meta, 
                        cudaStream_t stream) {
   auto kernel = wide_bvh<SCAN>;
   size_t smem = (size_t)P.depth * BLOCK * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   int grid = split_grid((long long)P.n_samples * P.n_rays);
   if (grid == 0) return (int)cudaErrorInvalidValue;
   kernel<<<grid, BLOCK, smem, stream>>>(table, (const float4*)boxes, (const int4*)meta, P, scratch,
                                         segs);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return launch_sample_sum(scratch, P.n_samples, P.n_rays, 1, init, out, stream);
 }
 

@@ -23,12 +23,17 @@ return the SUM of `n_samples` frames, (n_rays, 3). A CUDA table launches the ker
 a CPU table runs the plain version (`_render_ao_plain`, `_render_direct_plain`), the
 same f32 operations in the same order vectorized over pixels.
 
-The AO kernel splits each pixel's samples over `ao_lanes(n)` lanes and adds their
-integer counts of visible samples: a sum of 0s and 1s is exact in f32 below 2^24,
-so `(float)count` has the sample-order sum's bits (the wrapper refuses n >= 2^24).
-Its camera scan runs over the rows a ray from the eye can hit (`_eye_rows`), with
-the terms that depend on the eye alone computed once (`_scan_eye`): the same f32
-operations on the same inputs as the full parity scan, so the same nearest hit.
+Both kernels split each pixel's samples over lanes and, where the table fits in
+shared memory (`ao_in_shared`, `direct_in_shared`), run the camera scan over the
+rows a ray from the eye can hit (`_eye_rows`), with the terms that depend on the
+eye alone computed once (`_scan_eye`): the same f32 operations on the same inputs
+as the full parity scan, so the same nearest hit. The AO kernel gives each of
+`ao_lanes(n)` lanes a run of samples and adds their integer counts of visible
+samples: a sum of 0s and 1s is exact in f32 below 2^24, so `(float)count` has the
+sample-order sum's bits (the wrapper refuses n >= 2^24). The direct kernel's
+`direct_lanes(n)` lanes trace interleaved rounds (lane k sample i·lanes + k) and
+add each round's radiances in lane order, so its sum is the sample-order f32 sum
+the plain version takes.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.integrators.ao import DEFAULT_AO_RADIUS
+from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import rng as krng
 from oclpathtracer_tpu_torch.scene.types import Scene
@@ -50,26 +56,48 @@ LIGHT_COLS = 16
 AO_LAUNCHES = 0
 DIRECT_LAUNCHES = 0
 
-# The AO kernel's lanes a pixel (a power of two up to 32; fewer for n < AO_LANES).
+# The kernels' lanes a pixel (a power of two up to 32; fewer for n below it).
 AO_LANES = 8
+DIRECT_LANES = 8
 # Below 2^24 every partial sum of 0s and 1s is an exact f32 integer.
 AO_MAX_SAMPLES = (1 << 24) - 1
-# The AO kernel's shared route: the (T, 24) table and its kept eye rows (4 float4s a
-# row) and their count (csrc/fast_integrators.cu ao_smem_bytes).
+# A kept eye row: 4 float4s.
 _EYE_ROW_BYTES = 64
+
+
+def _lanes(n_samples: int, most: int) -> int:
+    return min(most, 1 << max(n_samples - 1, 0).bit_length())
 
 
 def ao_lanes(n_samples: int) -> int:
     """Lanes a pixel of the AO kernel for n samples: AO_LANES, or the power of two at
     or above n where that is fewer."""
-    return min(AO_LANES, 1 << max(n_samples - 1, 0).bit_length())
+    return _lanes(n_samples, AO_LANES)
+
+
+def direct_lanes(n_samples: int) -> int:
+    """Lanes a pixel of the direct kernel for n samples: DIRECT_LANES, or the power
+    of two at or above n where that is fewer."""
+    return _lanes(n_samples, DIRECT_LANES)
+
+
+def fast_smem_bytes(n_tris: int, n_lights: int = 0) -> int:
+    """Shared memory of the kernels' shared route (csrc/fast_integrators.cu
+    fast_smem_bytes): the (T, 24) table, its kept eye rows, the (L, 16) light table
+    (direct) and the rows' count."""
+    return n_tris * (mk.TABLE_COLS * 4 + _EYE_ROW_BYTES) + n_lights * LIGHT_COLS * 4 + 16
 
 
 def ao_in_shared(table: torch.Tensor) -> bool:
     """Whether the AO kernel stages `table` and its eye rows in shared memory (and
     scans the eye rows) or reads the table from global memory."""
-    n = table.shape[0]
-    return n * (mk.TABLE_COLS * 4 + _EYE_ROW_BYTES) + 16 <= mk.SMEM_TABLE_MAX_BYTES
+    return fast_smem_bytes(table.shape[0]) <= mk.SMEM_TABLE_MAX_BYTES
+
+
+def direct_in_shared(table: torch.Tensor, light_table: torch.Tensor) -> bool:
+    """Whether the direct kernel stages `table`, its eye rows and `light_table` in
+    shared memory (and scans the eye rows) or reads both tables from global memory."""
+    return fast_smem_bytes(table.shape[0], light_table.shape[0]) <= mk.SMEM_TABLE_MAX_BYTES
 
 
 def pack_lights(scene: Scene):
@@ -182,9 +210,9 @@ def _ao_sample(ps, k, cfg, pid, frame, radius, counts, eye_rows=None):
     return hit & blocked
 
 
-def _direct_sample(ps, k, cfg, pid, frame, lights, pdf_a, counts):
+def _direct_sample(ps, k, cfg, pid, frame, lights, pdf_a, counts, eye_rows=None):
     o, d, state, hit, (best_t, bn, balb, bemi, brough, bmty) = _camera_hit(
-        ps, k, cfg, pid, frame, counts)
+        ps, k, cfg, pid, frame, counts, eye_rows)
     n = mk._face_forward(bn, d)
     hitp = mk._add3(o, mk._scale3(d, best_t))
     rad = tuple(torch.where(hit, bemi[c] * k.eboost, 0.0) for c in range(3))
@@ -240,8 +268,8 @@ def _direct_sample(ps, k, cfg, pid, frame, lights, pdf_a, counts):
 def _new_counts() -> dict:
     """What the kernel does, as the plain versions count it: camera rays and their
     hits, second rays cast, triangles its any-hit scans test, (direct) unblocked
-    shadow rays, whose BRDF it evaluates, and (AO) the eye rows its camera scan
-    tests (_eye_rows)."""
+    shadow rays, whose BRDF it evaluates, and the eye rows its camera scan tests
+    (_eye_rows; 0 for a scan over every row)."""
     return {"camera": 0, "hits": 0, "rays": 0, "tris": 0, "lit": 0, "eye_rows": 0}
 
 
@@ -283,52 +311,63 @@ def _render_ao_plain(table, cfg: RenderConfig, start_sample: int, n_samples: int
 
 def _render_direct_plain(table, light_table, total_area, cfg: RenderConfig,
                          start_sample: int, n_samples: int, pid_base: int = 0,
-                         n_rays: int | None = None, counts: dict | None = None):
+                         n_rays: int | None = None, counts: dict | None = None,
+                         full_scan: bool = False):
     """The direct kernel's plain PyTorch version: the (n_rays, 3) SUM of n_samples
-    frames. `counts` (a _new_counts dict), if given, gains the rays cast."""
+    frames, added as f32 in sample order (the order the kernel's rounds keep). The
+    camera scan runs over the eye rows, as the kernel's shared route does; with
+    `full_scan` over every row (the JAX kernel's form, and the global route's),
+    which gives the same nearest hit. `counts` (a _new_counts dict), if given,
+    gains the rays cast."""
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     counts = _new_counts() if counts is None else counts
     ps = mk._PlainScene(table, (), "parity")
     k = mk._Consts.of(cfg)
     pdf_a = float(np.float32(1.0) / np.float32(total_area))
     pid = torch.arange(pid_base, pid_base + n_pix, dtype=torch.int64, device=table.device)
+    eye_rows = None
+    if not full_scan:
+        eye_rows = _eye_rows(table, k.eye)
+        counts["eye_rows"] = len(eye_rows)
     acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=table.device)
     for s in range(n_samples):
         acc = acc + _direct_sample(ps, k, cfg, pid, int(start_sample) + s, light_table,
-                                   pdf_a, counts)
+                                   pdf_a, counts, eye_rows)
     return acc
 
 
 # ---- the kernels' entry points ---------------------------------------------------
 
-def _launch_params(table, cfg, start_sample, n_samples, pid_base, n_pix):
-    mk.check_call(table, cfg, n_samples, "parity", (), n_pix)
-    return mk.host_params(cfg, "parity", (), False, table.shape[0], start_sample, n_samples,
-                          pid_base, n_pix, smem=mk.table_in_shared(table))
+def _check_lanes(lanes: int) -> int:
+    if not (isinstance(lanes, int) and 1 <= lanes <= 32 and lanes & (lanes - 1) == 0):
+        raise ValueError(f"lanes must be a power of two from 1 to 32, got {lanes!r}")
+    return lanes
 
 
 def render_ao_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
                      n_samples: int, radius: float = DEFAULT_AO_RADIUS, pid_base: int = 0,
-                     n_rays: int | None = None) -> torch.Tensor:
+                     n_rays: int | None = None, lanes: int | None = None) -> torch.Tensor:
     """SUM of n_samples 1-spp AO frames (reference streams): (n_rays, 3) f32.
 
     `table` is pack_scene's. Pixels [pid_base, pid_base + n_rays) keep streams and
     camera keyed on absolute ids. A CUDA table launches `csrc/fast_integrators.cu`
-    (the table and its eye rows in shared memory where `ao_in_shared`, else the
-    table read from global memory); a CPU table runs the plain version, split as the
-    kernel splits (ao_lanes)."""
+    with `lanes` lanes a pixel (default `ao_lanes(n_samples)`; any power of two up to
+    32 gives the same bits), the table and its eye rows in shared memory where
+    `ao_in_shared`, else the table read from global memory; a CPU table runs the
+    plain version, split as the kernel splits."""
     global AO_LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     mk.check_call(table, cfg, n_samples, "parity", (), n_pix)
     if n_samples > AO_MAX_SAMPLES:
         raise ValueError(f"n_samples must be below 2^24 (the count is exact in f32 "
                          f"there), got {n_samples}")
-    lanes = ao_lanes(n_samples)
+    lanes = ao_lanes(n_samples) if lanes is None else _check_lanes(lanes)
     if table.device.type == "cpu":
         return _render_ao_plain(table, cfg, start_sample, n_samples, radius, pid_base, n_pix,
                                 lanes=lanes)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
+    bk.check_aligned16(table=table)
     floats, ints = mk.host_params(cfg, "parity", (), False, table.shape[0], start_sample,
                                   n_samples, pid_base, n_pix, smem=ao_in_shared(table))
     out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
@@ -340,15 +379,20 @@ def render_ao_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
 
 def render_direct_pallas(table: torch.Tensor, light_table: torch.Tensor, total_area,
                          cfg: RenderConfig, start_sample: int, n_samples: int,
-                         pid_base: int = 0, n_rays: int | None = None) -> torch.Tensor:
+                         pid_base: int = 0, n_rays: int | None = None,
+                         lanes: int | None = None) -> torch.Tensor:
     """SUM of n_samples 1-spp direct-NEE frames (reference streams): (n_rays, 3) f32.
 
     `light_table, total_area` are pack_lights' (the area itself: the kernel divides
     1 / area as the JAX kernel does). A CUDA table launches
-    `csrc/fast_integrators.cu`; a CPU table runs the plain version."""
+    `csrc/fast_integrators.cu` with `lanes` lanes a pixel (default
+    `direct_lanes(n_samples)`; any power of two up to 32 gives the same bits), the
+    tables and the eye rows in shared memory where `direct_in_shared`, else the
+    tables read from global memory; a CPU table runs the plain version."""
     global DIRECT_LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
-    floats, ints = _launch_params(table, cfg, start_sample, n_samples, pid_base, n_pix)
+    mk.check_call(table, cfg, n_samples, "parity", (), n_pix)
+    lanes = direct_lanes(n_samples) if lanes is None else _check_lanes(lanes)
     mk.check_table("light_table", light_table, LIGHT_COLS)
     if light_table.device != table.device or light_table.shape[0] < 1:
         raise ValueError("light_table must hold at least one light, on the table's device")
@@ -357,9 +401,13 @@ def render_direct_pallas(table: torch.Tensor, light_table: torch.Tensor, total_a
                                     n_samples, pid_base, n_pix)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
+    bk.check_aligned16(table=table, light_table=light_table)
+    floats, ints = mk.host_params(cfg, "parity", (), False, table.shape[0], start_sample,
+                                  n_samples, pid_base, n_pix,
+                                  smem=direct_in_shared(table, light_table))
     out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
     cuda_build.launch("opt_direct_launch", (table, light_table),
                       floats + [float(np.float32(total_area))],
-                      ints + [light_table.shape[0]], out)
+                      ints + [light_table.shape[0], lanes], out)
     DIRECT_LAUNCHES += 1
     return out

@@ -17,7 +17,8 @@ The megakernel (linear_runs_agree) and the arbitrary-ray kernel
 segments, at runs of 1, 2 and all samples a lane, as are a ragged pixel range, a
 rerun and a table read from global memory. So are the
 AO and direct-NEE kernels (fast_integrator_checks), on the whole image, a ragged
-pixel range and a table in global memory (AO also at 1, 2 and 32 lanes a pixel),
+pixel range and a table in global memory (AO also at 1, 2 and 32 lanes a pixel,
+direct at 1, 2, 8 and 32 and n = 3 and 5 on both routes),
 and the sorted wavefront (sorted_checks), which must also give the skip-link
 kernel's image and segments bit for bit, with its sort on and off, also on a ray
 count that is no multiple of the block and on a call whose rays all die in the
@@ -702,10 +703,10 @@ def trace_rays_checks(tables: Tables, n_rows: int, bounces: int = 4, n_samples: 
 
 def run_fast(kind: str, tables: Tables, cfg: RenderConfig, start: int, n: int,
              plain: bool = False, pid_base: int = 0, n_rays: int | None = None, table=None,
-             counts: dict | None = None):
-    """The (n_rays, 3) SUM of the AO ("ao") or direct ("direct") kernel, or of its
-    plain version (which adds to `counts`), on the Cornell box's parity table (or on
-    `table`)."""
+             counts: dict | None = None, lanes: int | None = None):
+    """The (n_rays, 3) SUM of the AO ("ao") or direct ("direct") kernel (at `lanes`
+    lanes a pixel, default the wrapper's), or of its plain version (which adds to
+    `counts`), on the Cornell box's parity table (or on `table`)."""
     own, _, _ = tables.linear("cornell", "parity")
     table = own if table is None else table
     kw = dict(pid_base=pid_base, n_rays=n_rays)
@@ -713,11 +714,14 @@ def run_fast(kind: str, tables: Tables, cfg: RenderConfig, start: int, n: int,
         if plain:
             return fi._render_ao_plain(table, cfg, start, n, counts=counts,
                                        lanes=fi.ao_lanes(n), **kw)
-        return fi.render_ao_pallas(table, cfg, start, n, **kw)
+        return fi.render_ao_pallas(table, cfg, start, n, lanes=lanes, **kw)
     lt, area = tables.lights("cornell")
     if plain:
         return fi._render_direct_plain(table, lt, area, cfg, start, n, counts=counts, **kw)
-    return fi.render_direct_pallas(table, lt, area, cfg, start, n, **kw)
+    return fi.render_direct_pallas(table, lt, area, cfg, start, n, lanes=lanes, **kw)
+
+
+DIRECT_SPLIT_SAMPLES = (3, 5)  # no multiple of 2, 8 or 32 lanes
 
 
 def fast_integrator_checks(tables: Tables, width, height, n_samples: int = 4) -> dict:
@@ -725,8 +729,11 @@ def fast_integrator_checks(tables: Tables, width, height, n_samples: int = 4) ->
     versions on the whole image; on pixels [1000, 1000 + 5001) (a ragged count from a
     pid_base), against the plain version and against the whole image's rows; with the
     table padded past shared memory (read from global memory), the same bits; AO at
-    1, 2 and 32 lanes a pixel, the same bits."""
+    1, 2 and 32 lanes a pixel, the same bits; direct at 1, 2, 8 and 32 lanes a pixel
+    and n = 3 and 5, on both routes and (8 lanes) on pixels [1000, 6001), the plain
+    version's bits and the default's. The image holds at least 6001 pixels."""
     cfg = RenderConfig(width=width, height=height)
+    big = padded_past_shared(tables.linear("cornell", "parity")[0])
     out, fulls = {}, {}
     for kind in ("ao", "direct"):
         full = fulls[kind] = run_fast(kind, tables, cfg, START_SAMPLE, n_samples)
@@ -741,18 +748,27 @@ def fast_integrator_checks(tables: Tables, width, height, n_samples: int = 4) ->
                           pid_base=1000, n_rays=5001)
         out[f"{kind} pid_base 1000 n_rays 5001 vs plain and vs the image's rows"] = {
             "ok": bool(torch.equal(part, part_p) and torch.equal(part, full[1000:6001]))}
-        big = padded_past_shared(tables.linear("cornell", "parity")[0])
         far = run_fast(kind, tables, cfg, START_SAMPLE, n_samples, table=big)
         out[f"{kind} table in global memory, same bits"] = {"ok": bool(torch.equal(far, full))}
-    same = {}
-    for lanes in (1, 2, 32):
-        default, fi.AO_LANES = fi.AO_LANES, lanes
-        try:
-            same[lanes] = bool(torch.equal(run_fast("ao", tables, cfg, START_SAMPLE, n_samples),
-                                           fulls["ao"]))
-        finally:
-            fi.AO_LANES = default
+    same = {lanes: bool(torch.equal(run_fast("ao", tables, cfg, START_SAMPLE, n_samples,
+                                             lanes=lanes), fulls["ao"]))
+            for lanes in (1, 2, 32)}
     out["ao at 1, 2 and 32 lanes a pixel, same bits"] = {"ok": all(same.values()), **same}
+    same = {}
+    for n in DIRECT_SPLIT_SAMPLES:
+        want = run_fast("direct", tables, cfg, START_SAMPLE, n, plain=True)
+        default = run_fast("direct", tables, cfg, START_SAMPLE, n)
+        same[f"n={n} default"] = bool(torch.equal(default, want))
+        for lanes in (1, 2, 8, 32):
+            for route, table in (("shared", None), ("global", big)):
+                got = run_fast("direct", tables, cfg, START_SAMPLE, n, table=table, lanes=lanes)
+                same[f"n={n} {lanes} lanes {route}"] = bool(torch.equal(got, want))
+        part = run_fast("direct", tables, cfg, START_SAMPLE, n, pid_base=1000, n_rays=5001,
+                        lanes=8)
+        same[f"n={n} 8 lanes pid_base 1000 n_rays 5001"] = bool(torch.equal(part,
+                                                                            want[1000:6001]))
+    out["direct at 1, 2, 8 and 32 lanes a pixel, n = 3 and 5, both routes, same bits"] = {
+        "ok": all(same.values()), **same}
     return out
 
 

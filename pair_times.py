@@ -27,8 +27,9 @@ Cornell box, the bounce launches' own device time in a call with the sort on and
 off on the Cornell box (events around each launch, summed: the sort's torch ops
 between launches left out), and a whole render_samples_sorted_stats call on
 sphere_field() with the sort off on the host clock, not queued behind a spin (the
-host's launch work is part of it; median of 7); the AO kernel at the CLI's shape
-(Cornell 512², 64 spp in one launch, selfcheck.run_fast); and the adjoint kernel, with gradients and forward only
+host's launch work is part of it; median of 7); the AO and direct-NEE kernels at
+the CLI's shape (Cornell 512², 64 spp in one launch from sample 64,
+selfcheck.run_fast); and the adjoint kernel, with gradients and forward only
 (Cornell, the interior class point, selfcheck.grad_weight, 8 spp from sample 0, at
 bench_train.py's 256² with 4 bounces and at the vertex recovery's 64² with 2
 bounces); and the kernel train step (diff/fast.make_kernel_train_step at those
@@ -104,6 +105,7 @@ CASES = (Timed("wavefront tp cornell", "wavefront", "tp", "cornell", 32, 512, 16
          Timed("sorted call host clock sort off parity spheres5k leaf 32 8spp", "sorted_call",
                "parity", "spheres5k", 32, 512, 16, 64, 8),
          Timed("ao cornell 512 64spp", "ao", "parity", "cornell", 32, 512, 16, 64, 64),
+         Timed("direct cornell 512 64spp", "direct", "parity", "cornell", 32, 512, 16, 64, 64),
          Timed("adjoint cornell 256 b4 8spp", "adjoint", "tp", "cornell", 32, 256, 4, 0, 8),
          Timed("forward cornell 256 b4 8spp", "forward", "tp", "cornell", 32, 256, 4, 0, 8),
          Timed("adjoint cornell 64 b2 8spp", "adjoint", "tp", "cornell", 32, 64, 2, 0, 8),
@@ -170,9 +172,9 @@ def time_tree(tree: str, words=()) -> dict:
             def call(tb=tb, nf=nf, ni=ni, case=case, start=start, n=n, leaf=leaf):
                 return sw.render_samples_sorted_stats(tb, nf, ni, case.cfg, start, n,
                                                       max_leaf=leaf)
-        elif kernel == "ao":
-            def call(case=case, start=start, n=n):
-                return selfcheck.run_fast("ao", tables, case.cfg, start, n), 0
+        elif kernel in ("ao", "direct"):
+            def call(kernel=kernel, case=case, start=start, n=n):
+                return selfcheck.run_fast(kernel, tables, case.cfg, start, n), 0
         elif kernel in ("adjoint", "forward"):
             cfg = RenderConfig(size, size, bounces=bounces)
             ct = selfcheck.grad_points(tables)["interior"]

@@ -10,7 +10,9 @@ split into launches, the skip-link kernel bit for bit in each leaf form, split i
 launches and on the driver's route for trees deeper than the wide kernel's stack),
 the adjoint kernel (on a ragged pixel range too) and the arbitrary-ray kernel (at
 runs of 1, 2 and all samples a lane); the AO kernel (at 1, 2 and 32 lanes a pixel,
-and at the CLI's shape) and the direct kernel; the sorted wavefront's live-list
+and at the CLI's shape) and the direct kernel (at 1, 2, 8 and 32 lanes a pixel and
+n = 3 and 5 on both table routes, and at the CLI's shape), neither taking a table
+off a 16-byte boundary; the sorted wavefront's live-list
 launches (on a ray count no multiple of the block, and on a call whose rays all die
 in the first launch); and the vertex step's launches. Whether there is a
 card is decided inside the fixture, never at import.
@@ -276,6 +278,14 @@ def test_ao_kernel_at_1_2_and_32_lanes_gives_the_same_bits(fast_results):
     assert result["ok"], result
 
 
+def test_direct_kernel_at_1_2_8_and_32_lanes_and_n_3_and_5_gives_the_same_bits(fast_results):
+    """Lanes past n trace samples they drop; each round adds the group's radiances in
+    lane order, on the shared route (eye rows) and the global one (every row)."""
+    result = fast_results["direct at 1, 2, 8 and 32 lanes a pixel, n = 3 and 5, both routes, "
+                          "same bits"]
+    assert result["ok"], result
+
+
 def test_ao_kernel_is_its_plain_version_at_the_cli_shape(cuda_tables):
     """512², 64 spp in one launch (the CLI's ao-pallas): the split and the eye rows
     at the shape the main path runs."""
@@ -285,6 +295,30 @@ def test_ao_kernel_is_its_plain_version_at_the_cli_shape(cuda_tables):
     got = selfcheck.run_fast("ao", cuda_tables, cfg, 0, 64)
     want = selfcheck.run_fast("ao", cuda_tables, cfg, 0, 64, plain=True)
     assert torch.equal(got, want) and 10.0 < float(got.mean()) < 64.0
+
+
+def test_direct_kernel_is_its_plain_version_at_the_cli_shape(cuda_tables):
+    """512², 64 spp in one launch (the CLI's direct-pallas): 8 lanes a pixel, 8
+    rounds, the eye rows and the staged lights at the shape the main path runs."""
+    from oclpathtracer_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(width=512, height=512)
+    got = selfcheck.run_fast("direct", cuda_tables, cfg, 0, 64)
+    want = selfcheck.run_fast("direct", cuda_tables, cfg, 0, 64, plain=True)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    assert float(got.mean()) > 64 * 0.1  # lit
+
+
+@pytest.mark.parametrize("kind", ["ao", "direct"])
+def test_fast_integrator_wrappers_refuse_a_table_off_16_bytes(cuda_tables, kind):
+    """The kernels read table rows (and light rows) as float4s."""
+    from oclpathtracer_tpu_torch.config import RenderConfig
+
+    table = cuda_tables.linear("cornell", "parity")[0]
+    off = torch.empty(table.numel() + 1, device="cuda")[1:].view(table.shape)
+    off.copy_(table)
+    with pytest.raises(ValueError, match="16-byte"):
+        selfcheck.run_fast(kind, cuda_tables, RenderConfig(width=8, height=8), 0, 1, table=off)
 
 
 @pytest.fixture(scope="module")

@@ -64,15 +64,21 @@ def test_ao_plain_matches_jax_interpret_kernel(scene, tables):
     assert 0.3 < got.mean() < 1.0  # partially occluded
 
 
-def test_direct_plain_matches_jax_interpret_kernel(scene, tables):
-    """32×32, 1 spp: the JAX Pallas kernel in interpret mode (about 20 s on a CPU).
+@pytest.fixture(scope="module")
+def jax_direct_32(scene):
+    """The JAX Pallas direct kernel in interpret mode at 32×32, 1 spp (about 20 s on
+    a CPU), computed once for the tests below."""
+    jlt, jarea = jfi.pack_lights(scene)
+    return np.asarray(jfi.render_direct_pallas(jpack_scene(scene), jlt, jarea,
+                                               JCfg(width=32, height=32), 0, 1))
+
+
+def test_direct_plain_matches_jax_interpret_kernel(jax_direct_32, tables):
+    """32×32, 1 spp: the JAX Pallas kernel in interpret mode, through the wrapper.
     At 2 spp one pixel of the JAX kernel sits 1.006× the tolerance from its own twin
     and from this plain version alike, which agree with each other to 0.007× of it."""
-    jlt, jarea = jfi.pack_lights(scene)
-    want = np.asarray(jfi.render_direct_pallas(jpack_scene(scene), jlt, jarea,
-                                               JCfg(width=32, height=32), 0, 1))
     got = _port("direct", tables, RenderConfig(width=32, height=32), 0, 1)
-    np.testing.assert_allclose(got, want, **TOL["direct"])
+    np.testing.assert_allclose(got, jax_direct_32, **TOL["direct"])
     assert got.mean() > 0.1  # lit
 
 
@@ -225,3 +231,75 @@ def test_ao_lanes_and_route(tables):
     rows = mk.SMEM_TABLE_MAX_BYTES // (mk.TABLE_COLS * 4 + 64)
     assert not fi.ao_in_shared(torch.zeros((rows + 1, mk.TABLE_COLS)))
     assert mk.table_in_shared(torch.zeros((rows + 1, mk.TABLE_COLS)))
+
+
+# ---- the direct kernel's camera scan over eye rows ----------------------------------
+
+def _eye_lights(tables, case):
+    """(light table, total area) of the scene of _eye_cases' `case`."""
+    if case == "cornell":
+        return tables[1], tables[2]
+    return fi.pack_lights(sphere_field(8, 1, seed=2, device="cpu"))
+
+
+@pytest.mark.parametrize("case", ["cornell", "inside a sphere field"])
+def test_direct_eye_plain_is_the_full_scan_plain_bitwise(tables, case):
+    """The camera scan over the eye rows (the kernel's shared route) against the scan
+    over every row (the JAX kernel's form and the global route), on a ragged pixel
+    range from a pid_base: the same sample-order sums, bit for bit."""
+    table, cfg = _eye_cases(tables)[case]
+    lt, area = _eye_lights(tables, case)
+    kw = dict(pid_base=23, n_rays=281)
+    eye, full = fi._new_counts(), fi._new_counts()
+    got = fi._render_direct_plain(table, lt, area, cfg, 5, 2, counts=eye, **kw)
+    want = fi._render_direct_plain(table, lt, area, cfg, 5, 2, counts=full, full_scan=True, **kw)
+    assert got.shape == (281, 3) and torch.equal(_bits(got), _bits(want))
+    assert 0 < eye["eye_rows"] < table.shape[0] and full["eye_rows"] == 0
+    assert {k: v for k, v in eye.items() if k != "eye_rows"} == {
+        k: v for k, v in full.items() if k != "eye_rows"}
+    assert eye["lit"] > 0
+
+
+def test_direct_eye_plain_matches_jax_interpret_kernel(jax_direct_32, tables):
+    """The eye-row plain version, called as such, within the JAX interpret-mode
+    kernel's tolerance (test_direct_plain_matches_jax_interpret_kernel)."""
+    table, lt, area = tables
+    counts = fi._new_counts()
+    got = fi._render_direct_plain(table, lt, area, RenderConfig(width=32, height=32), 0, 1,
+                                  counts=counts)
+    assert counts["eye_rows"] == 20
+    np.testing.assert_allclose(got.numpy(), jax_direct_32, **TOL["direct"])
+
+
+@pytest.mark.parametrize("kind", ["ao", "direct"])
+def test_plain_counts_20_eye_rows_on_the_cornell_box(tables, kind):
+    """20 of the Cornell box's 36 rows face its camera's eye: what the bound counts."""
+    table, lt, area = tables
+    cfg = RenderConfig(width=4, height=4)
+    counts = fi._new_counts()
+    if kind == "ao":
+        fi._render_ao_plain(table, cfg, 0, 1, counts=counts, lanes=1)
+    else:
+        fi._render_direct_plain(table, lt, area, cfg, 0, 1, counts=counts)
+    assert table.shape[0] == 36 and counts["eye_rows"] == 20
+
+
+def test_direct_lanes_and_route(tables):
+    table, lt, _ = tables
+    assert [fi.direct_lanes(n) for n in (1, 2, 3, 5, 8, 64)] == [1, 2, 4, 8, 8, 8]
+    assert fi.direct_in_shared(table, lt)
+    # The most rows AO stages: with the two lights the direct kernel reads globally.
+    rows = (mk.SMEM_TABLE_MAX_BYTES - 16) // (mk.TABLE_COLS * 4 + 64)
+    big = torch.zeros((rows, mk.TABLE_COLS))
+    assert fi.ao_in_shared(big) and not fi.direct_in_shared(big, lt)
+    assert fi.fast_smem_bytes(36, 2) == 36 * 160 + 2 * 64 + 16
+
+
+@pytest.mark.parametrize("kind", ["ao", "direct"])
+def test_wrappers_refuse_lanes_that_are_no_power_of_two_up_to_32(tables, kind):
+    cfg = RenderConfig(width=4, height=4)
+    for lanes in (0, 3, 64):
+        with pytest.raises(ValueError, match="lanes"):
+            _port(kind, tables, cfg, 0, 2, lanes=lanes)
+    ok = _port(kind, tables, cfg, 0, 2, lanes=32)
+    assert np.array_equal(ok, _port(kind, tables, cfg, 0, 2))
