@@ -153,10 +153,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      launch, which says whether the sort buys kernel time; each launch's device time
      and traced rays are logged), and the skip-link kernel
      at the same samples (whose image it must equal bit for bit); the plain version at 1 spp
-     against the kernel at 1 spp, bit for bit.
+     against the kernel at 1 spp, bit for bit;
+  6. the bench path, with every launch counter set to 0 first: `cli.main(["bench"])`
+     (bench.py at its full shape: Cornell 512², the parity anchor against tp + tp0
+     at 4 bounces 64 spp and against the tp wavefront at 16 bounces 32 spp, 6
+     alternating pairs), whose JSON line must hold every key, each rate finite and
+     > 0 and both ratios > 0, logged beside the card's name and power limit; then
+     bench_train.main() at its shape (256², 4 bounces, 8 spp, best of 6 steps), whose
+     five train_step_* lines must have finite values. The megakernel, wavefront,
+     adjoint and trace_rays kernels must each launch in this window. Then
+     load_cornell_box on the card must go through the native C++ parser
+     (runtime/native.py, built by g++ at first use) and its Scene must equal the
+     Python parser's bit for bit; and the compile listener registered before the
+     build (runtime/cache.register_compile_listener) must have fired once for each
+     library built in this process (nvcc's kernels, g++'s native runtime).
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels as JSON, each with its bound (kernels/bounds.py: the larger of its FP32
+kernels as JSON (`launches` summed over the render, train, vertex, integrator and
+bench paths, each counted in its own window, `launches_by_path` split), each with its
+bound (kernels/bounds.py: the larger of its FP32
 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, from this run's segment
 counts and, for the BVH walks (the sorted wavefront's too), the boxes and leaf
 triangles their plain versions tested, per segment, at the timed shape, and for AO
@@ -217,6 +232,12 @@ TRACE_RAYS_TIMED_RUNS = (1, 2)
 VERTEX_LAUNCH_RUNS = {"megakernel": (1, 2, 4, 8), "trace_rays": (1, 2, 4)}
 GRAD_TIME_CALLS = 20  # launches per timed run of the adjoint kernel (about 0.5 ms each)
 RENDER_KERNELS = ("megakernel", "wavefront", "bvh_megakernel", "wide_bvh")
+BENCH_KEYS = ("metric", "value", "unit", "anchor_value", "ratio_vs_anchor", "value_16b",
+              "anchor_16b", "ratio_vs_anchor_16b")
+BENCH_TRAIN_METRICS = ("train_step_kernel", "train_step_hybrid", "train_step_jnp",
+                       "train_step_vertex_jnp", "train_step_vertex_kernel")
+BENCH_KERNELS = ("megakernel", "wavefront", "grad_megakernel", "trace_rays")
+COMPILE_EVENTS = []  # (event, seconds) of each build in this process (main's listener)
 VERTEX_SIZE = 64           # examples/train_vertices.py's recovery run
 VERTEX_STEPS = 100
 VERTEX_LIGHT_TRIS = (10, 11)
@@ -227,8 +248,6 @@ PROBE_EDGE_SAMPLES = 128     # phase 4c's probe check, per edge
 PROBE_SPP = 8
 PROBE_ROWS = 65_536
 RIM_PIXEL_STRIDE = 4         # bench_train.py's vertex shape
-VERTEX_KW = dict(samples_per_edge=64, edge_spp=4, secondary_samples_per_edge=16,
-                 secondary_spp=2, secondary_pixel_stride=RIM_PIXEL_STRIDE)
 
 
 def log(msg: str) -> None:
@@ -563,6 +582,7 @@ def phase_train(tables):
     """The training path, driven through the diff/ entry points on the Cornell box."""
     import torch
 
+    from oclpathtracer_tpu_torch import bench_train
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.diff import fast, inverse
     from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
@@ -622,8 +642,9 @@ def phase_train(tables):
 
     # The hybrid's forwards are the parity megakernel, 2 a step; its backward and the
     # twin launch no kernel. Nothing else in this phase launches the megakernel.
-    for name, run, mk_per_step in (("hybrid make_fast_loss_fn", hybrid_step(cornell, cfg), 2),
-                                   ("twin make_train_step", twin_step(cornell, cfg), 0)):
+    for name, run, mk_per_step in (
+            ("hybrid make_fast_loss_fn", bench_train.hybrid_step(cornell, cfg, TRAIN_SPP), 2),
+            ("twin make_train_step", bench_train.twin_step(cornell, cfg, TRAIN_SPP), 0)):
         params = inverse.extract_params(cornell, albedo=True, emissive=True)
         losses, per_step = [], set()
         for i in range(3):
@@ -678,35 +699,20 @@ def shifted_light(scene):
 
 
 def vertex_steps(cornell, cfg):
-    """bench_train.py's two vertex steps at `cfg` (8 spp, target zeros, key 0, step
-    index 0, SGD 1e-4): {name: (run(params) → (params, loss), params)}. "kernel" is
-    make_vertex_train_step (interior_spp 2); "twin" is jax.grad of
-    make_edge_aware_loss_fn, all of it through the twin."""
+    """bench_train's two vertex steps at `cfg` (8 spp, target zeros, key 0, step index
+    0, SGD 1e-4): {name: (run(params) → (params, loss), params)}. "kernel" is
+    make_vertex_train_step (interior_spp 2); "twin" is autograd of
+    make_edge_aware_loss_fn, all of it through the twin (bench_train's "jnp")."""
     import torch
 
-    from oclpathtracer_tpu_torch.core import rng
-    from oclpathtracer_tpu_torch.diff import edge, extract_params, inverse, vertex
+    from oclpathtracer_tpu_torch import bench_train
+    from oclpathtracer_tpu_torch.diff import extract_params
 
-    device = cornell.geometry.p1.device
-    target = torch.zeros((cfg.n_pixels, 3), device=device)
-    key = rng.make_key(0, device)
+    target = torch.zeros((cfg.n_pixels, 3), device=cornell.geometry.p1.device)
     params = extract_params(cornell, albedo=False, vertices=True)
-    kstep, init = vertex.make_vertex_train_step(
-        cornell, cfg, TRAIN_SPP, functools.partial(torch.optim.SGD, lr=1e-4),
-        interior_spp=max(TRAIN_SPP // 4, 1), **VERTEX_KW)
-    state = [init(params)]
-
-    def kernel(p):
-        p, state[0], loss = kstep(p, state[0], target, 0, key)
-        return p, loss
-
-    eloss = edge.make_edge_aware_loss_fn(cornell, cfg, TRAIN_SPP, **VERTEX_KW)
-
-    def twin(p):
-        loss, g = inverse.value_and_grad(eloss, p, target, key)
-        return p._replace(vertices=tuple(a - 1e-4 * b for a, b in zip(p.vertices, g.vertices))), loss
-
-    return {"kernel": (kernel, params), "twin": (twin, params)}
+    steps = bench_train.vertex_steps(cornell, cfg, TRAIN_SPP)
+    return {name: (functools.partial(lambda step, p: step(p, target, 0), steps[key]), params)
+            for name, key in (("kernel", "kernel"), ("twin", "jnp"))}
 
 
 def recovery_setup(cornell, factory, device):
@@ -944,20 +950,28 @@ def cornell_probe_check(cornell):
             f"Cornell kernel probes vs twin probes: {pairs}")
 
 
-def run_cli(argv):
-    """cli.main(argv) with its standard output captured and logged: (rc, the image
-    mean it printed)."""
+def captured(tag: str, fn, *args):
+    """fn(*args) with its standard output captured and logged under [tag]: (its
+    result, the output's lines)."""
     import contextlib
     import io
 
-    from oclpathtracer_tpu_torch import cli
-
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
-    text = buf.getvalue()
-    for line in text.strip().splitlines():
-        log(f"[cli] {line}")
+        result = fn(*args)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[{tag}] {line}")
+    return result, lines
+
+
+def run_cli(argv):
+    """cli.main(argv) with its standard output captured and logged: (rc, the image
+    mean it printed)."""
+    from oclpathtracer_tpu_torch import cli
+
+    rc, lines = captured("cli", cli.main, argv)
+    text = "\n".join(lines)
     mean = float(text.split("mean=")[1].split()[0]) if "mean=" in text else float("nan")
     return rc, mean
 
@@ -1042,31 +1056,6 @@ def fast_kernels_vs_twins(tables):
             f"{float(want.mean()) / CLI_SPP:.6f}")
         require(off <= TWIN_FLIP_FRACTION * cfg.n_pixels,
                 f"{kind} kernel vs its twin: {off} pixels outside {tol}")
-
-
-def hybrid_step(scene, cfg, lr=1e-3):
-    """bench_train.py's hybrid step: value_and_grad of make_fast_loss_fn, plain SGD."""
-    from oclpathtracer_tpu_torch.diff import fast, inverse
-
-    loss_fn = fast.make_fast_loss_fn(scene, cfg, TRAIN_SPP)
-
-    def step(params, target, i):
-        loss, g = inverse.value_and_grad(loss_fn, params, target, i)
-        return inverse.params_from_leaves(params, [
-            p - lr * d for p, d in zip(inverse.params_leaves(params), inverse.params_leaves(g))
-        ]), loss
-
-    return step
-
-
-def twin_step(scene, cfg, lr=1e-3):
-    """bench_train.py's jnp step: make_train_step on threefry key 0."""
-    from oclpathtracer_tpu_torch.core import rng
-    from oclpathtracer_tpu_torch.diff import inverse
-
-    step = inverse.make_train_step(scene, cfg, TRAIN_SPP, lr=lr)
-    key = rng.make_key(0, scene.geometry.p1.device)
-    return lambda params, target, i: step(params, target, i, key)
 
 
 def time_pair(label, kern, plain, n_kernel, n_plain, rows, failed, **info):
@@ -1536,22 +1525,19 @@ def phase_train_timing(tables):
     each under torch.profiler for its device time and busy share."""
     import torch
 
+    from oclpathtracer_tpu_torch import bench_train
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.diff import fast, inverse
-    from oclpathtracer_tpu_torch.kernels import megakernel as mk
 
     cornell = tables.scene("cornell")
     cfg = RenderConfig(TRAIN_SIZE, TRAIN_SIZE, bounces=4)
-    scan, table, emi, classes = mk.prepare_scan(cornell, "auto")
-    _, segs = mk.render_samples_pallas_stats(table, cfg, 0, TRAIN_SPP, scan=scan, classes=classes,
-                                             emi_const=emi)
-    segs = int(segs)
+    segs = bench_train.segments_per_window(cornell, cfg, TRAIN_SPP)
     target = torch.zeros((cfg.n_pixels, 3), device="cuda")
     kstep = fast.make_kernel_train_step(cornell, cfg, TRAIN_SPP, lr=1e-3)
     variants = (("kernel", kstep, fast.extract_class_params(cornell), 4, 7),
-                ("hybrid", hybrid_step(cornell, cfg),
+                ("hybrid", bench_train.hybrid_step(cornell, cfg, TRAIN_SPP),
                  inverse.extract_params(cornell, albedo=True, emissive=True), 4, 3),
-                ("twin", twin_step(cornell, cfg),
+                ("twin", bench_train.twin_step(cornell, cfg, TRAIN_SPP),
                  inverse.extract_params(cornell, albedo=True, emissive=True), 2, 3))
     rows = {}
     for name, step, params, sweeps, reps in variants:
@@ -1574,6 +1560,64 @@ def phase_train_timing(tables):
             f"({sweeps} x {segs} segments), loss {float(loss):.6f}; profiled step: device "
             f"{device_ms:.3f} ms, busy share {device_ms / ms:.4f}, top {top}")
     return rows
+
+
+def finite_numbers(line: dict, skip=("metric", "unit")) -> bool:
+    return all(isinstance(v, float) and np.isfinite(v) for k, v in line.items()
+               if k not in skip)
+
+
+def phase_bench(card: str):
+    """The slice's entry points, with every launch counter set to 0 first: `python -m
+    oclpathtracer_tpu_torch bench` (cli.main) and bench_train.main at their shapes,
+    then the native scene parse on the card's path and the compile listener."""
+    import collections
+
+    import torch
+
+    from oclpathtracer_tpu_torch import bench_train, cli
+    from oclpathtracer_tpu_torch.kernels import cuda_build
+    from oclpathtracer_tpu_torch.runtime import native
+    from oclpathtracer_tpu_torch.scene import loader
+
+    reset_counts()
+    rc, lines = captured("bench", cli.main, ["bench"])
+    require(rc == 0 and lines, f"bench: exit {rc}")
+    line = json.loads(lines[-1])
+    require(tuple(line) == BENCH_KEYS, f"bench: keys {tuple(line)}")
+    require(finite_numbers(line) and all(line[k] > 0 for k in BENCH_KEYS[1:] if k != "unit"),
+            f"bench: a rate or ratio is not finite and > 0: {line}")
+    log(f"[bench] {card}: {json.dumps(line)}")
+    _, out = captured("bench_train", bench_train.main)
+    train_lines = [json.loads(x) for x in out]
+    require([x["metric"] for x in train_lines] == list(BENCH_TRAIN_METRICS),
+            f"bench_train: metrics {[x['metric'] for x in train_lines]}")
+    require(all(finite_numbers(x) for x in train_lines), f"bench_train: {train_lines}")
+    counts = read_counts()
+    log(f"[bench] launches {counts}")
+    idle = [k for k in BENCH_KERNELS if counts[k] == 0]
+    require(not idle, f"bench path: kernels never launched: {idle}")
+
+    calls = []
+    parse = native.parse_mesh_file
+    native.parse_mesh_file = lambda path: calls.append(path) or parse(path)
+    try:
+        scene = loader.load_cornell_box(device="cuda")
+    finally:
+        native.parse_mesh_file = parse
+    require(calls == [loader.DEFAULT_SCENE_PATH], f"load_cornell_box: native parses {calls}")
+    python = loader.build_scene(loader.parse_mesh_file(loader.DEFAULT_SCENE_PATH), "cuda")
+    require(all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                for part, ppart in zip(scene, python) for x, y in zip(part, ppart)),
+            "load_cornell_box: the native parse's Scene is not the Python parse's bit for bit")
+    built = {"compile/nvcc": cuda_build.load_library()[1].built,
+             "compile/g++": native.load_library()[1].built}
+    fired = collections.Counter(event for event, _ in COMPILE_EVENTS)
+    log(f"[bench] native scene parse on the card: bit for bit the Python parse's; compile "
+        f"events {COMPILE_EVENTS}, built in this process {built}")
+    require(fired == collections.Counter(e for e, b in built.items() if b),
+            f"compile listener: fired {dict(fired)}, built {built}")
+    return counts, {"bench": line, "bench_train": train_lines}
 
 
 def phase_crossover(tables):
@@ -1675,6 +1719,9 @@ def main() -> int:
 
     card = phase_device()
     t0 = time.perf_counter()
+    from oclpathtracer_tpu_torch.runtime import cache
+
+    cache.register_compile_listener(lambda event, secs: COMPILE_EVENTS.append((event, secs)))
     phase_build()
     from oclpathtracer_tpu_torch.kernels import selfcheck
     from oclpathtracer_tpu_torch.scene.procgen import sphere_field
@@ -1700,6 +1747,8 @@ def main() -> int:
     fast_rows = phase_fast_timing(tables)
     sorted_rows = phase_sorted_timing(tables)
     crossover = phase_crossover(tables)
+    bench_launches, bench_rows = phase_bench(card)
+    log(f"[done] bench path at {time.perf_counter() - t0:.1f} s")
     by_name = {r["name"]: r for r in rows}
     # What the main path runs: the tp megakernel at 4 bounces, the tp wavefront at 16,
     # and sphere_field()'s fast BVH kernels.
@@ -1733,9 +1782,9 @@ def main() -> int:
                                 "oclpathtracer_tpu/kernels/sorted_wavefront.py:154")
     bounds = kernel_bounds(tables, main_rows)
     # Each path is counted in its own window (counts set to 0 just before it):
-    # `launches` sums the render, training, vertex and integrator paths' counts.
+    # `launches` sums the render, training, vertex, integrator and bench paths' counts.
     paths = {"render": launches, "train": train_launches, "vertex": vertex_launches,
-             "integrators": integrator_launches}
+             "integrators": integrator_launches, "bench": bench_launches}
     kernels = []
     for name, (src, tpu) in sources.items():
         row = main_rows[name]
@@ -1766,7 +1815,7 @@ def main() -> int:
                       "trace_rays_timing": rays_row, "vertex_launch_timing": vertex_launch_rows,
                       "vertex_timing": vertex_rows,
                       "fast_timing": fast_rows, "sorted_timing": sorted_rows,
-                      "crossover": crossover}))
+                      "crossover": crossover, "bench": bench_rows}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 Counterpart of `oclpathtracer_tpu.cli`, with the same commands and flags:
 
-  info                 CUDA device name, count and memory
+  info                 device enumeration + queries (runtime/devices.py)
   render               progressive render → PPM/PNG
-  bench                not ported yet (ROADMAP queue 1 item 8)
+  bench                one-line JSON throughput (bench.py: Mrays/s against the anchor)
 
 `render --integrator` takes every choice of the JAX CLI, on the Cornell box, with
 the JAX CLI's calls: `pallas`, `wavefront`, `bvh`, `widebvh` and `sorted` (8 spp a
@@ -14,10 +14,10 @@ the batched torch integrators on threefry streams keyed by `--seed`; `primary` t
 centred primary cast. A non-zero `--scan-chunks` (a scheduling knob of the JAX
 package's kernels) exits 2.
 
-`render --device` is where the render runs, a deployment setting: the JAX CLI takes
-it from JAX's platform setting (`JAX_PLATFORMS`), and torch has no such global.
-The default, cuda, launches the kernels and fails without a GPU; `--device cpu`
-runs their plain PyTorch versions, on purpose only.
+`render --device` and `bench --device` say where the work runs, a deployment
+setting: the JAX CLI takes it from JAX's platform setting (`JAX_PLATFORMS`), and
+torch has no such global. The default, cuda, launches the kernels and exits 2
+without a GPU; `--device cpu` runs their plain PyTorch versions, on purpose only.
 """
 
 from __future__ import annotations
@@ -34,15 +34,27 @@ INTEGRATORS = ["pallas", "wavefront", "bvh", "widebvh", "sorted", "path", "prima
 def _cmd_info(args) -> int:
     import torch
 
-    if not torch.cuda.is_available():
-        print("cuda: not available  devices: 0")
-        return 0
-    n = torch.cuda.device_count()
-    print(f"cuda: {torch.version.cuda}  devices: {n}")
-    for i in range(n):
-        props = torch.cuda.get_device_properties(i)
-        print(f"  [{i}] gpu {props.name}  mem={props.total_memory}")
+    from oclpathtracer_tpu_torch.runtime import device_info, get_devices
+
+    devs = get_devices()
+    print(f"backend: {'gpu' if devs else 'cpu'}  cuda: {torch.version.cuda}  "
+          f"devices: {len(devs)}")
+    for d in devs:
+        info = device_info(d)
+        print(f"  [{info.index}] {info.platform} {info.kind}"
+              + (f"  mem={info.memory_total}" if info.memory_total else ""))
     return 0
+
+
+def _no_card(command: str, device) -> bool:
+    """True (and a message) where `device` is a CUDA device and there is none."""
+    import torch
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        print(f"{command}: no CUDA device (pass --device cpu for the plain versions)",
+              file=sys.stderr)
+        return True
+    return False
 
 
 def _cmd_render(args) -> int:
@@ -56,22 +68,19 @@ def _cmd_render(args) -> int:
         print("--scan-chunks: not yet ported (the kernels here have no such knob; "
               "pass 0)", file=sys.stderr)
         return 2
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("render: no CUDA device (pass --device cpu for the plain versions)",
-              file=sys.stderr)
+    if _no_card("render", args.device):
         return 2
+    device = torch.device(args.device)
     scene = load_cornell_box(args.scene, device=device)
     cfg = RenderConfig(width=args.width, height=args.height, bounces=args.bounces,
                        seed=args.seed)
 
-    profiler = None
+    profile_ctx = None
     if args.profile:
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
-        profiler.__enter__()
+        from oclpathtracer_tpu_torch.runtime.profiling import trace
+
+        profile_ctx = trace(args.profile, cuda=device.type == "cuda")
+        profile_ctx.__enter__()
 
     t0 = time.perf_counter()
     if args.integrator == "pallas":
@@ -132,15 +141,10 @@ def _cmd_render(args) -> int:
         img = render_primary(scene, cfg)
     img = img.cpu().numpy()
     dt = time.perf_counter() - t0
-    if profiler is not None:
-        profiler.__exit__(None, None, None)
-        os.makedirs(args.profile, exist_ok=True)
-        profiler.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-        sort = "self_device_time_total" if device.type == "cuda" else "self_cpu_time_total"
-        summary = profiler.key_averages().table(sort_by=sort, row_limit=12)
-        with open(os.path.join(args.profile, "summary.txt"), "w") as f:
-            f.write(summary)
-        print(summary)
+    if profile_ctx is not None:
+        profile_ctx.__exit__(None, None, None)
+        with open(os.path.join(args.profile, "summary.txt")) as f:
+            print(f.read())
         print(f"profile trace written to {args.profile}")
     print(f"rendered {cfg.width}x{cfg.height} spp={args.spp} "
           f"integrator={args.integrator} in {dt:.2f}s mean={img.mean():.4f}")
@@ -155,8 +159,12 @@ def _cmd_render(args) -> int:
 
 
 def _cmd_bench(args) -> int:
-    print("bench: not yet ported (ROADMAP queue 1 item 8)", file=sys.stderr)
-    return 2
+    if _no_card("bench", args.device):
+        return 2
+    from oclpathtracer_tpu_torch import bench
+
+    bench.run(device=args.device)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -194,7 +202,10 @@ def main(argv=None) -> int:
                    help="torch device to render on (cuda launches the kernels, "
                         "cpu runs their plain versions)")
 
-    sub.add_parser("bench", help="not ported yet")
+    b = sub.add_parser("bench", help="run the headline benchmark (one JSON line)")
+    b.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda launches the kernels, cpu times "
+                        "their plain versions)")
 
     args = p.parse_args(argv)
     return {"info": _cmd_info, "render": _cmd_render, "bench": _cmd_bench}[

@@ -221,6 +221,7 @@ def make_edge_aware_loss_fn(scene: Scene, cfg: RenderConfig, spp: int,
     """
     from oclpathtracer_tpu_torch.diff.inverse import (
         apply_params,
+        grads_or_zeros,
         make_loss_fn,
         params_from_leaves,
         params_leaves,
@@ -250,10 +251,8 @@ def make_edge_aware_loss_fn(scene: Scene, cfg: RenderConfig, spp: int,
             n = img.shape[0]
             ins = [x.detach().requires_grad_() for x in leaves]
             with torch.enable_grad():
-                grads = torch.autograd.grad(base(params_from_leaves(like, ins), target, key),
-                                            ins, allow_unused=True)
-            grads = params_from_leaves(like, [torch.zeros_like(x) if gx is None else gx
-                                              for x, gx in zip(leaves, grads)])
+                grads = grads_or_zeros(base(params_from_leaves(like, ins), target, key), ins)
+            grads = params_from_leaves(like, grads)
             if like.vertices is not None:
                 weight = 2.0 * (img - target.detach()) / n
                 cur = apply_params(scene, params_from_leaves(like, [x.detach() for x in leaves]))

@@ -119,11 +119,21 @@ def make_unbiased_loss_fn(scene: Scene, cfg: RenderConfig, spp: int) -> Callable
 
 def value_and_grad(loss_fn, params: SceneParams, *args):
     """jax.value_and_grad(loss_fn)(params, *args) for SceneParams: (loss, SceneParams
-    of gradients) by autograd over params' set leaves."""
+    of gradients) by autograd over params' set leaves; a leaf the loss does not use
+    gets zeros, as in JAX."""
     leaves = [x.detach().requires_grad_() for x in params_leaves(params)]
     loss = loss_fn(params_from_leaves(params, leaves), *args)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), params_from_leaves(params, grads)
+    return loss.detach(), params_from_leaves(params, grads_or_zeros(loss, leaves))
+
+
+def grads_or_zeros(loss: torch.Tensor, leaves: list) -> list:
+    """d loss / d leaf for each leaf, as jax.grad gives them: zeros for a leaf the
+    loss does not use, and for every leaf where it uses none (a 1-bounce render's
+    loss does not depend on the vertices)."""
+    if not loss.requires_grad:
+        return [torch.zeros_like(x) for x in leaves]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
 
 
 def make_train_step(scene: Scene, cfg: RenderConfig, spp: int, lr: float):
@@ -177,7 +187,7 @@ def make_optax_train_step(scene: Scene, cfg: RenderConfig, spp: int, optimizer,
                 t.copy_(p)
         loss = loss_fn(params_from_leaves(params, tensors), target,
                        rng.fold_in(key, step_idx))
-        for t, g in zip(tensors, torch.autograd.grad(loss, tensors)):
+        for t, g in zip(tensors, grads_or_zeros(loss, tensors)):
             t.grad = g
         opt_state.step()
         new = params_from_leaves(params, [t.detach().clone() for t in tensors])

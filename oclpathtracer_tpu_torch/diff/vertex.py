@@ -28,6 +28,7 @@ from oclpathtracer_tpu_torch.diff.fast import pack_scene_table
 from oclpathtracer_tpu_torch.diff.inverse import (
     SceneParams,
     apply_params,
+    grads_or_zeros,
     params_from_leaves,
     params_leaves,
 )
@@ -128,9 +129,8 @@ def make_vertex_loss_and_grads(scene: Scene, cfg: RenderConfig, spp: int, *,
         if interior_spp > 0:
             ins = [x.detach().requires_grad_() for x in leaves]
             with torch.enable_grad():
-                g = torch.autograd.grad(twin_pair_loss(params_from_leaves(params, ins), target,
-                                                       step_idx), ins, allow_unused=True)
-            grads = [torch.zeros_like(x) if gx is None else gx for x, gx in zip(leaves, g)]
+                grads = grads_or_zeros(twin_pair_loss(params_from_leaves(params, ins), target,
+                                                      step_idx), ins)
         else:
             grads = [torch.zeros_like(x) for x in leaves]
         grads = params_from_leaves(params, grads)

@@ -2,10 +2,12 @@
 
 nvcc compiles every `.cu` file, one process per source, all started together, and
 links the objects into one shared library with a plain C interface, loaded with
-ctypes. The library is built at first use into `kernels/build/`, named by a hash
-of the sources and flags, so a changed source rebuilds and an unchanged one loads
-at once. Nothing here runs at import: the CPU tests import every module, and the
-machine they run on has no nvcc.
+ctypes. The library is built at first use into the build cache's directory
+(`runtime/cache.py`: `kernels/build/` unless `enable_compilation_cache` redirects
+it), named by a hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads at once; each build fires the cache's compile listeners.
+Nothing here runs at import: the CPU tests import every module, and the machine
+they run on has no nvcc.
 
 Flags: `-fmad=false` keeps nvcc from contracting a*b+c into one FMA, so the kernels
 round like their plain PyTorch versions, whose elementwise operations never fuse;
@@ -24,8 +26,9 @@ import tempfile
 import time
 from typing import NamedTuple
 
+from oclpathtracer_tpu_torch.runtime import cache
+
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(__file__), "build")
 SOURCES = ("megakernel.cu", "wavefront.cu", "bvh_megakernel.cu", "wide_bvh.cu",
            "grad_megakernel.cu", "trace_rays.cu", "fast_integrators.cu",
            "sorted_wavefront.cu")
@@ -94,16 +97,21 @@ def _run_all(cmds: list) -> str:
     return log
 
 
-@functools.lru_cache(maxsize=None)
 def load_library():
-    """(ctypes library, BuildInfo): build the kernels if needed, then load them."""
-    path = os.path.join(BUILD_DIR, f"libopt_kernels_{_source_hash()}.so")
+    """(ctypes library, BuildInfo): build the kernels into the build cache's directory
+    (`runtime.cache.cache_dir()`) if they are not there, then load them."""
+    return _load_library(cache.cache_dir())
+
+
+@functools.lru_cache(maxsize=None)
+def _load_library(build_dir: str):
+    path = os.path.join(build_dir, f"libopt_kernels_{_source_hash()}.so")
     t0 = time.perf_counter()
     built, log = False, ""
     if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
+        os.makedirs(build_dir, exist_ok=True)
         nvcc = _nvcc()
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmpdir:
             objs = [os.path.join(tmpdir, s + ".o") for s in SOURCES]
             log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
                             for s, o in zip(SOURCES, objs)])
@@ -112,6 +120,7 @@ def load_library():
                               "-o", tmp, *objs]])
             os.replace(tmp, path)  # atomic: another process never loads half a file
         built = True
+        cache.notify("compile/nvcc", time.perf_counter() - t0)
     lib = ctypes.CDLL(path)
     for name, (n_inputs, n_outputs) in LAUNCHERS.items():
         fn = getattr(lib, name)

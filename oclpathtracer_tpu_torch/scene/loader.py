@@ -20,7 +20,10 @@ Semantics reproduced exactly:
     mesh 5 specular gold (.5,.35,.05) roughness .008.
 
 The parse and the scene build are numpy on the host; the result is a Scene of torch
-tensors on `device`, the card by default (`convert.resolve_device`).
+tensors on `device`, the card by default (`convert.resolve_device`). As in the JAX
+package, `load_cornell_box` parses through the native C++ parser
+(`runtime/native.py`) and falls back to `parse_mesh_file` here where that fails; both
+give the same records, bit for bit.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 
 from oclpathtracer_tpu_torch import convert
 from oclpathtracer_tpu_torch.scene.types import DIFFUSE, SPECULAR, Scene
+from oclpathtracer_tpu_torch.utils.errors import logger
 
 DEFAULT_SCENE_PATH = os.path.join(os.path.dirname(__file__), "data", "cornellbox.bin")
 
@@ -169,4 +173,12 @@ def load_cornell_box(path: str | None = None, device="cuda") -> Scene:
     """Load the canonical Cornell-box scene (36 tris, 18 materials, 1 area light) onto
     `device`: the card by default, where it raises without one (pass "cpu")."""
     device = convert.resolve_device(device)
-    return build_scene(parse_mesh_file(path or DEFAULT_SCENE_PATH), device)
+    scene_path = path or DEFAULT_SCENE_PATH
+    try:
+        from oclpathtracer_tpu_torch.runtime import native
+
+        meshes = native.parse_mesh_file(scene_path)
+    except Exception as e:  # no compiler, a failed build or a bad file: Python decides
+        logger.debug("native scene parse failed (%s); parsing in Python", e)
+        meshes = parse_mesh_file(scene_path)
+    return build_scene(meshes, device)

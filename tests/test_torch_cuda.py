@@ -14,8 +14,10 @@ and at the CLI's shape) and the direct kernel (at 1, 2, 8 and 32 lanes a pixel a
 n = 3 and 5 on both table routes, and at the CLI's shape), neither taking a table
 off a 16-byte boundary; the sorted wavefront's live-list
 launches (on a ray count no multiple of the block, and on a call whose rays all die
-in the first launch); and the vertex step's launches. Whether there is a
-card is decided inside the fixture, never at import.
+in the first launch); the vertex step's launches; and the bench
+(`oclpathtracer_tpu_torch/bench.py`) at 64², its segments and images those of the
+plain versions. Whether there is a card is decided inside the fixture, never at
+import.
 """
 
 import pytest
@@ -354,3 +356,29 @@ def test_integrator_wrappers_launch_their_kernels_once(cuda_tables):
     assert bool(torch.isfinite(img).all()) and img.device.type == "cuda"
     assert (fi.AO_LAUNCHES - before[0], fi.DIRECT_LAUNCHES - before[1],
             sw.LAUNCHES - before[2]) == (1, 1, 3)
+
+
+def test_bench_on_the_card_counts_the_plain_segments(cuda_tables, capsys):
+    """bench.run at 64², 2 bounces (3 for the deep pair), 2 frames: the line's rates
+    finite and > 0; each configuration's segment count on the card that of its plain
+    version on the CPU, and the image within rtol = atol = 1e-4 of it (torch's CPU
+    and CUDA math functions round differently: the kernels are bit for bit their
+    plain versions on the card, kernels/selfcheck.py)."""
+    import json
+    import math
+
+    from oclpathtracer_tpu_torch import bench
+    from oclpathtracer_tpu_torch.scene import load_cornell_box
+
+    shape = (64, 64, 2, 3, 1, 2, 2)
+    line = bench.run(*shape, pairs=1, device="cuda")
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == line
+    assert all(math.isfinite(v) and v > 0 for k, v in line.items()
+               if k not in ("metric", "unit"))
+    card = bench.make_runs(load_cornell_box(device="cuda"), *shape)
+    host = bench.make_runs(load_cornell_box(device="cpu"), *shape)
+    for name in card:
+        img, segs = card[name]()
+        want, want_segs = host[name]()
+        assert int(segs) == int(want_segs) > 0, name
+        torch.testing.assert_close(img.cpu(), want, rtol=1e-4, atol=1e-4, msg=name)

@@ -186,3 +186,26 @@ def test_class_params_round_trip(scene, port_scene):
     sp = fast.class_params_to_materials(port_scene, cp)
     assert torch.equal(sp.albedo, port_scene.materials.albedo)
     assert torch.equal(sp.emissive, port_scene.materials.emissive)
+
+
+@pytest.mark.parametrize("uses", ["albedo", "nothing"])
+def test_value_and_grad_gives_zeros_where_the_loss_does_not_use_a_leaf(scene, port_scene,
+                                                                        uses):
+    """jax.value_and_grad gives zeros for a leaf the loss does not use, and for every
+    leaf of a loss that uses none (a 1-bounce render's loss and the vertices); the
+    port's value_and_grad too, rather than raising."""
+    def loss(p):
+        return torch.sum(p.albedo ** 2) if uses == "albedo" else torch.tensor(2.0)
+
+    def jloss(p):
+        return jnp.sum(p.albedo ** 2) if uses == "albedo" else jnp.float32(2.0)
+
+    params = inverse.extract_params(port_scene, albedo=True, emissive=True)
+    value, g = inverse.value_and_grad(loss, params)
+    jvalue, jg = jax.value_and_grad(jloss)(jinv.extract_params(scene, albedo=True,
+                                                               emissive=True))
+    assert float(value) == pytest.approx(float(jvalue), rel=1e-6)
+    for name in ("albedo", "emissive"):
+        np.testing.assert_allclose(getattr(g, name).numpy(), np.asarray(getattr(jg, name)),
+                                   rtol=1e-6)
+    assert not bool(g.emissive.any())

@@ -142,8 +142,7 @@ def test_cli_profile_writes_trace_and_summary(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["render", "--integrator", "ao", "--scan-chunks", "1",
                                    "--device", "cpu"],
-                                  ["render", "--scan-chunks", "2", "--device", "cpu"],
-                                  ["bench"]])
+                                  ["render", "--scan-chunks", "2", "--device", "cpu"]])
 def test_cli_unported_commands_exit_2(argv, capsys):
     assert cli.main(argv) == 2
     assert "not yet ported" in capsys.readouterr().err
@@ -167,9 +166,22 @@ def test_port_never_imports_jax():
             "import oclpathtracer_tpu_torch.kernels.sorted_wavefront\n"
             "import oclpathtracer_tpu_torch.integrators.ao, oclpathtracer_tpu_torch.integrators.direct\n"
             "import oclpathtracer_tpu_torch.integrators.primary\n"
+            "import oclpathtracer_tpu_torch.bench, oclpathtracer_tpu_torch.bench_train\n"
+            "import oclpathtracer_tpu_torch.runtime, oclpathtracer_tpu_torch.runtime.buffers\n"
+            "import oclpathtracer_tpu_torch.runtime.cache, oclpathtracer_tpu_torch.runtime.devices\n"
+            "import oclpathtracer_tpu_torch.runtime.native, oclpathtracer_tpu_torch.runtime.profiling\n"
+            "import oclpathtracer_tpu_torch.runtime.replay\n"
+            "import oclpathtracer_tpu_torch.utils, oclpathtracer_tpu_torch.utils.errors\n"
+            "import oclpathtracer_tpu_torch.utils.metrics\n"
+            "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'oclpathtracer_tpu' or m.startswith('oclpathtracer_tpu.')]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "from oclpathtracer_tpu_torch.kernels import cuda_build\n"
+            "from oclpathtracer_tpu_torch.runtime import native\n"
+            "loaded = (cuda_build._load_library.cache_info().currsize,\n"
+            "          native._load_library.cache_info().currsize)\n"
+            "assert loaded == (0, 0), 'a library was built or loaded at import'\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
