@@ -75,7 +75,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      measured on an H100, so the check renders all 16384 samples; with the same
      streams it reads about 2e-5, quantisation to 8 bits);
   4b. training path on the Cornell box, with every launch counter set to 0 first:
-     examples/train_kernel.py's recovery run through make_kernel_train_step (128²,
+     the train_kernel example's recovery run (oclpathtracer_tpu_torch/examples/,
+     after the root examples/train_kernel.py) through make_kernel_train_step (128²,
      4 bounces, 8 spp, 80 steps, lr 3e-2, target at the true classes from frame
      1,000,000 at 64 spp, albedo + 0.25): the class-albedo error must fall, the
      losses stay finite, and each step launch the adjoint kernel exactly 4 times;
@@ -87,9 +88,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      at 128², 4 bounces, 16 spp, whose mean must agree with the megakernel's
      render of as many samples within 5 % (other streams, same estimator);
   4c. vertex training on the Cornell box and the occluder scene (tests/test_diff.py),
-     with every launch counter set to 0 first: examples/train_vertices.py's
+     with every launch counter set to 0 first: the train_vertices example's
      recovery run through make_vertex_train_step (64², 2 bounces, 8 spp, 100 steps,
-     the light moved +0.3 in x), once with the example's Adam 1e-2 (reported: its
+     the light moved +0.3 in x), once with the root example's Adam 1e-2 (reported: its
      error ends above where it started, in the JAX package's step too,
      tests/vertex_recovery_vs_jax.py) and once with SGD 2e-4,
      whose light-vertex error must fall below 0.6× the initial; each step must
@@ -166,11 +167,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (runtime/native.py, built by g++ at first use) and its Scene must equal the
      Python parser's bit for bit; and the compile listener registered before the
      build (runtime/cache.register_compile_listener) must have fired once for each
-     library built in this process (nvcc's kernels, g++'s native runtime).
+     library built in this process (nvcc's kernels, g++'s native runtime);
+  7. the sharded path (parallel/, the two sharded train steps, the dry run and
+     bench_scaling), every mesh n × cuda:0, each sharded call with the launch counts
+     set to 0 just before it and read just after (the single calls it is held
+     against are not counted): make_sharded_kernel_step with the tp megakernel at
+     512², 4 bounces, 64 spp on 1, 2, 4 and 8 entries and with the tp wavefront at
+     16 bounces on 2 and 8, each image and segment count bit for bit one call's;
+     render_pallas_sharded over 40 spp in calls of 16 (a short last chunk) bit for
+     bit render_pallas's; render_progressive_sharded at 64², 2 bounces, 4 spp and
+     at 33x9 (297 pixels padded to 304) on 8 entries bit for bit
+     render_progressive(backend="jnp"); make_sharded_kernel_train_step at
+     bench_train's shape (256², 4 bounces, 8 spp) from the train_kernel example's
+     start, 3 steps on 8 entries, each step's params also through the 1-entry step
+     and make_kernel_train_step: the forward images (recorded at the adjoint
+     wrapper) bit for bit, the loss within 1e-6 relative, the gradients (the
+     entries' ga + gb added in mesh order) by phase 3's adjoint rule, the params
+     within lr × that rule, and a rerun of the 3 steps bit for bit;
+     make_sharded_train_step at 64², 2 bounces, 2 spp, 2 steps, 8 entries against
+     1 (losses and params rtol 1e-5); dryrun_multichip(8) (its line logged) and
+     bench_scaling's line (one row on one card). The megakernel, wavefront and
+     adjoint kernels must each launch in this window. Then the sharded megakernel
+     step on 1 and 8 entries against one call, timed as phase 5 times (CUDA events,
+     each run queued behind a spin), in ms and Mrays/s: the cost of n launches on
+     one card.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists the
-kernels as JSON (`launches` summed over the render, train, vertex, integrator and
-bench paths, each counted in its own window, `launches_by_path` split), each with its
+kernels as JSON (`launches` summed over the render, train, vertex, integrator, bench
+and sharded paths, each counted in its own window, `launches_by_path` split), each with its
 bound (kernels/bounds.py: the larger of its FP32
 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, from this run's segment
 counts and, for the BVH walks (the sorted wavefront's too), the boxes and leaf
@@ -214,7 +238,6 @@ TRAIN_SIZE = 256     # bench_train.py's shape: 256², 4 bounces, 8 spp per rende
 TRAIN_SPP = 8
 RECOVERY_SIZE = 128  # examples/train_kernel.py's recovery run
 RECOVERY_STEPS = 80
-TARGET_START = 1_000_000
 TARGET_SPP = 64
 JNP_MEAN_REL_MAX = 0.05
 TWIN_FLIP_FRACTION = 1e-4  # phase 4d: pixels a decision flip may move (fast_kernels_vs_twins)
@@ -240,14 +263,20 @@ BENCH_KERNELS = ("megakernel", "wavefront", "grad_megakernel", "trace_rays")
 COMPILE_EVENTS = []  # (event, seconds) of each build in this process (main's listener)
 VERTEX_SIZE = 64           # examples/train_vertices.py's recovery run
 VERTEX_STEPS = 100
-VERTEX_LIGHT_TRIS = (10, 11)
 VERTEX_SHIFT = 0.3
-VERTEX_RECOVERY_RATIO = 0.6  # the example's own threshold (train_vertices.py:94)
+VERTEX_RECOVERY_RATIO = 0.6  # the examples' own threshold (examples/train_vertices.py:94)
 FD_RTOL = 0.1                # tests/test_diff.py:171, tests/test_diff_fast.py:83
 PROBE_EDGE_SAMPLES = 128     # phase 4c's probe check, per edge
 PROBE_SPP = 8
 PROBE_ROWS = 65_536
 RIM_PIXEL_STRIDE = 4         # bench_train.py's vertex shape
+SHARD_MESHES = (1, 2, 4, 8)  # the sharded phase's megakernel meshes, n × cuda:0
+SHARD_WAVEFRONT_MESHES = (2, 8)
+SHARD_TRAIN_STEPS = 3
+SHARD_LR = 3e-2              # the train_kernel example's
+SHARD_TWIN_SIZE = 64
+SHARD_TRAILING = (40, 16)    # render_pallas_sharded: total spp, samples a call
+SHARDED_KERNELS = ("megakernel", "wavefront", "grad_megakernel")
 
 
 def log(msg: str) -> None:
@@ -568,16 +597,6 @@ def class_albedo_error(params, true) -> float:
     return float((params.albedo - true.albedo).abs().mean())
 
 
-def perturbed_class_params(true):
-    """examples/train_kernel.py's start: class albedo + 0.25 (clipped), emissive true."""
-    import torch
-
-    from oclpathtracer_tpu_torch.diff.fast import ClassParams
-
-    return ClassParams(albedo=torch.clamp(true.albedo + 0.25, 0.0, 1.0),
-                       emissive=true.emissive.clone())
-
-
 def phase_train(tables):
     """The training path, driven through the diff/ entry points on the Cornell box."""
     import torch
@@ -585,6 +604,7 @@ def phase_train(tables):
     from oclpathtracer_tpu_torch import bench_train
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.diff import fast, inverse
+    from oclpathtracer_tpu_torch.examples import train_kernel
     from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
     from oclpathtracer_tpu_torch.kernels import megakernel
     from oclpathtracer_tpu_torch.render.driver import render_progressive
@@ -593,18 +613,12 @@ def phase_train(tables):
     jnp_cfg = RenderConfig(RECOVERY_SIZE, RECOVERY_SIZE, bounces=4)
     jnp_ref = megakernel.render_pallas(cornell, jnp_cfg, 16)  # a comparison: not counted
     reset_counts()
-    table, ct, n_classes, _ = gk.prepare_grad_scene(cornell)
     true = fast.extract_class_params(cornell)
 
-    def target_for(cfg):
-        img, _ = gk.render_grads_pallas(table, ct, cfg, TARGET_START, TARGET_SPP, n_classes,
-                                        with_grads=False)
-        return img / TARGET_SPP
-
-    # examples/train_kernel.py: recover the class albedos with the adjoint kernel.
+    # The train_kernel example's run: recover the class albedos with the adjoint kernel.
     cfg = RenderConfig(RECOVERY_SIZE, RECOVERY_SIZE, bounces=4)
-    target = target_for(cfg)
-    params = perturbed_class_params(true)
+    target = train_kernel.target_image(cornell, cfg, TARGET_SPP)
+    params = train_kernel.perturbed(true)
     err0 = class_albedo_error(params, true)
     step = fast.make_kernel_train_step(cornell, cfg, TRAIN_SPP, lr=3e-2)
     losses, per_step = [], set()
@@ -625,10 +639,10 @@ def phase_train(tables):
     require(err1 < err0, f"recovery run: class-albedo error did not fall ({err0} -> {err1})")
 
     cfg = RenderConfig(TRAIN_SIZE, TRAIN_SIZE, bounces=4)
-    target = target_for(cfg)
+    target = train_kernel.target_image(cornell, cfg, TARGET_SPP)
     ostep, opt_init = fast.make_kernel_optax_step(
         cornell, cfg, TRAIN_SPP, functools.partial(torch.optim.Adam, lr=5e-2))
-    params = perturbed_class_params(true)
+    params = train_kernel.perturbed(true)
     state = opt_init(params)
     losses = []
     for _ in range(10):  # on fixed frames, as tests/test_grad_kernel.py steps
@@ -676,28 +690,6 @@ def phase_train(tables):
     return launches
 
 
-def light_error(params, true_vertices) -> float:
-    """examples/train_vertices.py's light-vertex error: mean |Δ| over the light
-    triangles' corners, averaged over p1, p2, p3."""
-    rows = list(VERTEX_LIGHT_TRIS)
-    return float(np.mean([float((v[rows] - t[rows]).abs().mean())
-                          for v, t in zip(params.vertices, true_vertices)]))
-
-
-def shifted_light(scene):
-    """Vertex params with the light quad moved +VERTEX_SHIFT in x (both triangles of
-    each corner: the vertices are per-triangle soup rows)."""
-    import torch
-
-    from oclpathtracer_tpu_torch.diff import extract_params
-
-    params = extract_params(scene, albedo=False, vertices=True)
-    sel = torch.zeros((scene.num_triangles, 1), device=scene.geometry.p1.device)
-    sel[list(VERTEX_LIGHT_TRIS)] = 1.0
-    shift = torch.tensor([VERTEX_SHIFT, 0.0, 0.0], device=sel.device)
-    return params._replace(vertices=tuple(v + sel * shift for v in params.vertices))
-
-
 def vertex_steps(cornell, cfg):
     """bench_train's two vertex steps at `cfg` (8 spp, target zeros, key 0, step index
     0, SGD 1e-4): {name: (run(params) → (params, loss), params)}. "kernel" is
@@ -715,33 +707,23 @@ def vertex_steps(cornell, cfg):
             for name, key in (("kernel", "kernel"), ("twin", "jnp"))}
 
 
-def recovery_setup(cornell, factory, device):
-    """examples/train_vertices.py's run with the optimizer `factory` makes: (step,
+def recovery_setup(cornell, factory):
+    """The train_vertices example's run with the optimizer `factory` makes: (step,
     opt_init, the moved light's params, the target, the key, the true vertices)."""
-    from oclpathtracer_tpu_torch.config import RenderConfig
-    from oclpathtracer_tpu_torch.core import rng
-    from oclpathtracer_tpu_torch.diff import extract_params, make_vertex_train_step
-    from oclpathtracer_tpu_torch.kernels import megakernel as mk
+    from oclpathtracer_tpu_torch.examples import train_vertices
 
-    cfg = RenderConfig(VERTEX_SIZE, VERTEX_SIZE, bounces=2)
-    target, _ = mk.render_samples_pallas_stats(mk.pack_scene(cornell), cfg, 0, 2 * TRAIN_SPP,
-                                               scan="parity")
-    target = target / (2 * TRAIN_SPP)
-    true_v = extract_params(cornell, albedo=False, vertices=True).vertices
-    step, init = make_vertex_train_step(
-        cornell, cfg, TRAIN_SPP, factory, interior_spp=0, samples_per_edge=48, edge_spp=4,
-        secondary=True, secondary_samples_per_edge=16, secondary_spp=2,
-        secondary_pixel_stride=RIM_PIXEL_STRIDE)
-    return step, init, shifted_light(cornell), target, rng.make_key(7, device), true_v
+    return train_vertices.setup(cornell, VERTEX_SIZE, TRAIN_SPP, factory, VERTEX_SHIFT)
 
 
-def recovery_run(cornell, factory, device):
-    """examples/train_vertices.py's run with the optimizer `factory` makes: (initial
+def recovery_run(cornell, factory):
+    """The train_vertices example's run with the optimizer `factory` makes: (initial
     and final light-vertex error, losses, the set of (megakernel, trace_rays)
     launches a step, seconds)."""
     import torch
 
-    step, init, params, target, key, true_v = recovery_setup(cornell, factory, device)
+    from oclpathtracer_tpu_torch.examples.train_vertices import light_error
+
+    step, init, params, target, key, true_v = recovery_setup(cornell, factory)
     err0 = light_error(params, true_v)
     state = init(params)
     losses, per_step, errs = [], set(), []
@@ -767,9 +749,8 @@ def recovery_launches(cornell):
 
     from oclpathtracer_tpu_torch.diff import vertex
 
-    device = cornell.geometry.p1.device
     step, init, params, target, key, _ = recovery_setup(
-        cornell, functools.partial(torch.optim.SGD, lr=2e-4), device)
+        cornell, functools.partial(torch.optim.SGD, lr=2e-4))
     calls = []
     originals = {"megakernel": vertex.render_samples_pallas_stats,
                  "trace_rays": vertex.trace_rays_pallas_stats}
@@ -809,8 +790,8 @@ def phase_vertex(tables):
 
     reset_counts()
     cornell = tables.scene("cornell")
-    # examples/train_vertices.py: recover the moved light. With the example's Adam
-    # 1e-2 the error falls to about 0.064 by step 40 and then drifts back above 0.1,
+    # The train_vertices example's run: recover the moved light. With Adam 1e-2 (the
+    # root examples/train_vertices.py's optimizer) the error falls to about 0.064 by step 40 and then drifts back above 0.1,
     # here and in the JAX package's own step (tests/vertex_recovery_vs_jax.py), so
     # that run is reported and held to its launches and finite losses; the same run
     # with SGD 2e-4 must bring the error below VERTEX_RECOVERY_RATIO×.
@@ -818,7 +799,7 @@ def phase_vertex(tables):
     for name, factory, required in (
             ("Adam 1e-2", functools.partial(torch.optim.Adam, lr=1e-2), False),
             ("SGD 2e-4", functools.partial(torch.optim.SGD, lr=2e-4), True)):
-        err0, errs, losses, per_step, secs = recovery_run(cornell, factory, device)
+        err0, errs, losses, per_step, secs = recovery_run(cornell, factory)
         err1 = errs[-1]
         log(f"[vertex] recovery {VERTEX_SIZE}x{VERTEX_SIZE} b2 {TRAIN_SPP}spp {VERTEX_STEPS} "
             f"{name} steps: {secs:.2f} s, loss {losses[0]:.6f} -> {losses[-1]:.6f}, light-vertex "
@@ -1229,7 +1210,9 @@ def phase_trace_rays_timing(tables):
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.kernels import selfcheck
 
-    n = (TRAIN_SIZE * TRAIN_SIZE // RIM_PIXEL_STRIDE) * 3 * len(VERTEX_LIGHT_TRIS) * 16
+    from oclpathtracer_tpu_torch.examples.train_vertices import LIGHT_TRIS
+
+    n = (TRAIN_SIZE * TRAIN_SIZE // RIM_PIXEL_STRIDE) * 3 * len(LIGHT_TRIS) * 16
     cfg = RenderConfig(TRAIN_SIZE, TRAIN_SIZE, bounces=3)
     o, d = selfcheck.probe_rays(tables.scene("cornell"), n, cfg, seed=1)
 
@@ -1620,6 +1603,210 @@ def phase_bench(card: str):
     return counts, {"bench": line, "bench_train": train_lines}
 
 
+def card_mesh(n: int):
+    from oclpathtracer_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(("cuda:0",) * n)
+
+
+def adjoint_calls(fn, *args):
+    """fn(*args) with every call of the adjoint wrapper recorded: (fn's result, [(with
+    grads, (img, grads)), ...] in call order)."""
+    from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
+
+    calls, real = [], gk.render_grads_pallas
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        calls.append((kw.get("with_grads", True), out))
+        return out
+
+    gk.render_grads_pallas = spy
+    try:
+        return fn(*args), calls
+    finally:
+        gk.render_grads_pallas = real
+
+
+def pair_terms(calls):
+    """A kernel step's recorded adjoint calls → (a, b, g): each entry makes two
+    forwards then two adjoint launches; the images concatenate in mesh order and the
+    gradients add in mesh order, as the step adds them."""
+    import torch
+
+    fwd = [out[0] for grads, out in calls if not grads]
+    adj = [out[1] for grads, out in calls if grads]
+    g = None
+    for ga, gb in zip(adj[0::2], adj[1::2]):
+        g = ga + gb if g is None else g + (ga + gb)
+    return torch.cat(fwd[0::2]), torch.cat(fwd[1::2]), g
+
+
+def phase_sharded(tables):
+    """The distribution layer on the card (parallel/, the sharded train steps, the dry
+    run, bench_scaling), every mesh n × cuda:0. Each sharded call runs with the
+    counts set to 0 just before it and read just after, into this path's window; the
+    single calls it is held against are not counted. Returns (counts, timing rows)."""
+    import torch
+
+    from oclpathtracer_tpu_torch import bench_scaling
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.core import rng
+    from oclpathtracer_tpu_torch.diff import fast, inverse, make_sharded_train_step
+    from oclpathtracer_tpu_torch.examples import train_kernel
+    from oclpathtracer_tpu_torch.kernels import megakernel as mk
+    from oclpathtracer_tpu_torch.kernels import wavefront as wf
+    from oclpathtracer_tpu_torch.kernels.selfcheck import compare_grads
+    from oclpathtracer_tpu_torch.parallel import render_progressive_sharded, shard_pixels
+    from oclpathtracer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from oclpathtracer_tpu_torch.parallel.sharded_pallas import (
+        make_sharded_kernel_step,
+        render_pallas_sharded,
+    )
+    from oclpathtracer_tpu_torch.render.driver import render_progressive
+
+    cornell = tables.scene("cornell")
+    window = {name: 0 for name in counters()}
+
+    def counted(fn, *args):
+        reset_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for name, n in read_counts().items():
+            window[name] += n
+        return out
+
+    scan, table, emi, classes = mk.prepare_scan(cornell, "auto")
+    kw = dict(scan=scan, emi_const=emi, classes=classes)
+    b4, b16 = (RenderConfig(FULL_SIZE, FULL_SIZE, bounces=n) for n in (4, 16))
+    one = mk.render_samples_pallas_stats(table, b4, 0, MAIN_STEP, **kw)
+    for n in SHARD_MESHES:
+        step = make_sharded_kernel_step(b4, card_mesh(n), MAIN_STEP, **kw)
+        img, segs = counted(step, table, 0)
+        log(f"[sharded] megakernel {scan} {FULL_SIZE}² b4 {MAIN_STEP}spp on {n} x cuda:0: "
+            f"bit for bit one call {torch.equal(img, one[0])}, segments {int(segs)} "
+            f"({int(one[1])} in one call)")
+        require(torch.equal(img, one[0]) and int(segs) == int(one[1]),
+                f"sharded megakernel on {n} entries: not the single call's bits")
+    one16 = wf.render_samples_wavefront_stats(table, b16, 0, MAIN_STEP, **kw)
+    for n in SHARD_WAVEFRONT_MESHES:
+        step = make_sharded_kernel_step(b16, card_mesh(n), MAIN_STEP, kernel="wavefront", **kw)
+        img, segs = counted(step, table, 0)
+        log(f"[sharded] wavefront {scan} {FULL_SIZE}² b16 {MAIN_STEP}spp on {n} x cuda:0: "
+            f"bit for bit one call {torch.equal(img, one16[0])}, segments {int(segs)}")
+        require(torch.equal(img, one16[0]) and int(segs) == int(one16[1]),
+                f"sharded wavefront on {n} entries: not the single call's bits")
+    total, per_call = SHARD_TRAILING
+    img = counted(render_pallas_sharded, cornell, b4, card_mesh(8), total, per_call)
+    want = mk.render_pallas(cornell, b4, total, samples_per_call=per_call)
+    log(f"[sharded] render_pallas_sharded {FULL_SIZE}² b4 {total}spp in calls of {per_call} on 8 "
+        f"entries: bit for bit render_pallas {torch.equal(img, want)}")
+    require(torch.equal(img, want), "render_pallas_sharded: the short trailing chunk")
+
+    for w, h, spp in ((SHARD_TWIN_SIZE, SHARD_TWIN_SIZE, 4), (33, 9, 2)):
+        cfg = RenderConfig(w, h, bounces=2)
+        img = counted(render_progressive_sharded, cornell, cfg, card_mesh(8), spp, spp)
+        want = render_progressive(cornell, cfg, spp, samples_per_step=spp)
+        log(f"[sharded] render_progressive_sharded {w}x{h} b2 {spp}spp on 8 entries: bit for "
+            f"bit render_progressive(backend='jnp') {torch.equal(img, want)}")
+        require(img.shape == want.shape and torch.equal(img, want),
+                f"sharded twin render {w}x{h}: not the single-device bits")
+
+    # The kernel train step at bench_train's shape from the train_kernel example's
+    # start, SHARD_TRAIN_STEPS steps on 8 entries; at each step's params the 1-entry
+    # step and make_kernel_train_step run too. Forwards bit for bit, loss rtol 1e-6,
+    # gradients by phase 3's adjoint rule, params within lr × that rule.
+    cfg = RenderConfig(TRAIN_SIZE, TRAIN_SIZE, bounces=4)
+    target = train_kernel.target_image(cornell, cfg, TARGET_SPP)
+    start = train_kernel.perturbed(fast.extract_class_params(cornell))
+    steps = {n: fast.make_sharded_kernel_train_step(cornell, cfg, card_mesh(n), TRAIN_SPP,
+                                                    SHARD_LR) for n in (8, 1)}
+    single = fast.make_kernel_train_step(cornell, cfg, TRAIN_SPP, SHARD_LR)
+
+    def chain():
+        params, out = start, []
+        for i in range(SHARD_TRAIN_STEPS):
+            (new, loss), calls = adjoint_calls(steps[8], params, target, i)
+            out.append((params, new, loss, pair_terms(calls)))
+            params = new
+        return out
+
+    run = counted(chain)
+    for i, (params, new, loss, (a, b, g)) in enumerate(run):
+        for name, fn in (("1 entry", steps[1]), ("make_kernel_train_step", single)):
+            if name == "1 entry":
+                (new_o, loss_o), calls = counted(adjoint_calls, fn, params, target, i)
+            else:
+                (new_o, loss_o), calls = adjoint_calls(fn, params, target, i)
+            a_o, b_o, g_o = pair_terms(calls)
+            grads = compare_grads((a, g, 0), (a_o, g_o, 0))
+            bound = float((1e-4 * g_o.abs().amax(dim=1) + 1e-6 * g_o.abs().max()).max())
+            dp = max(float((x - y).abs().max()) for x, y in zip(new, new_o))
+            rel = abs(float(loss) / float(loss_o) - 1.0)
+            log(f"[sharded] kernel step {i} 8 entries vs {name}: forwards bit for bit "
+                f"{grads['image_bitwise'] and torch.equal(b, b_o)}, loss {float(loss):.9f} "
+                f"vs {float(loss_o):.9f} (rel {rel:.2e}), gradient worst row "
+                f"{grads['grad_worst_row']:.4f} of the rule, params max |d| {dp:.3e}")
+            require(grads["image_bitwise"] and torch.equal(b, b_o),
+                    f"sharded kernel step {i}: forwards not bit for bit ({name})")
+            require(rel <= 1e-6, f"sharded kernel step {i}: loss off {name}'s by {rel}")
+            require(grads["ok"],
+                    f"sharded kernel step {i}: gradients off {name}'s: {grads}")
+            require(dp <= SHARD_LR * bound * 1.01 + 1e-6,
+                    f"sharded kernel step {i}: params off {name}'s by {dp}")
+    again = counted(chain)
+    same = all(torch.equal(x[2], y[2]) and all(torch.equal(p, q) for p, q in zip(x[1], y[1]))
+               for x, y in zip(run, again))
+    log(f"[sharded] kernel step rerun on 8 entries: bit for bit {same}; losses "
+        f"{[round(float(x[2]), 6) for x in run]}")
+    require(same, "sharded kernel step: a rerun moved a bit")
+
+    cfg = RenderConfig(SHARD_TWIN_SIZE, SHARD_TWIN_SIZE, bounces=2)
+    key = rng.make_key(0, "cuda")
+    target = render_progressive(cornell, cfg, 2, samples_per_step=2)
+    twin = {}
+    for n in (8, 1):
+        step = make_sharded_train_step(cornell, cfg, card_mesh(n), spp=2, lr=1e-2)
+        params, losses = inverse.extract_params(cornell, albedo=True, emissive=True), []
+        for i in range(2):
+            params, loss = counted(step, params, target, shard_pixels(cfg, card_mesh(n)), i, key)
+            losses.append(float(loss))
+        twin[n] = (losses, params)
+    ok = (np.allclose(twin[8][0], twin[1][0], rtol=1e-5, atol=0)
+          and all(torch.allclose(x, y, rtol=1e-5, atol=1e-7) for x, y in
+                  zip(inverse.params_leaves(twin[8][1]), inverse.params_leaves(twin[1][1]))))
+    log(f"[sharded] make_sharded_train_step {SHARD_TWIN_SIZE}x{SHARD_TWIN_SIZE} b2 2spp, 2 "
+        f"steps: 8 entries losses {twin[8][0]}, 1 entry {twin[1][0]}; within rtol 1e-5 {ok}")
+    require(ok, "sharded twin train step: 8 entries off 1 entry")
+
+    _, lines = counted(captured, "dryrun", dryrun_multichip, 8)
+    require(len(lines) == 1 and lines[0].startswith("dryrun_multichip(8): ok, "),
+            f"dryrun_multichip(8): {lines}")
+    rc, lines = counted(captured, "bench_scaling", bench_scaling.main, [])
+    rows = [json.loads(x) for x in lines]
+    require(rc == 0 and [r["devices"] for r in rows] == [1]
+            and finite_numbers(rows[0], skip=("devices",)),
+            f"bench_scaling: exit {rc}, lines {lines}")
+
+    log(f"[sharded] launches {window}")
+    idle = [k for k in SHARDED_KERNELS if window[k] == 0]
+    require(not idle, f"sharded path: kernels never launched: {idle}")
+
+    timing = []
+    calls = {"one call": lambda: mk.render_samples_pallas_stats(table, b4, TIME_START,
+                                                                MAIN_STEP, **kw)}
+    for n in (1, 8):
+        step = make_sharded_kernel_step(b4, card_mesh(n), MAIN_STEP, **kw)
+        calls[f"{n} entries"] = functools.partial(step, table, TIME_START)
+    for name, fn in calls.items():
+        ms, (_, segs) = cuda_time_ms(fn, fn)
+        timing.append({"name": f"megakernel {scan} {FULL_SIZE}² b4 {MAIN_STEP}spp, {name}",
+                       "ms": ms, "segments": int(segs), "mrays_per_s": int(segs) / (ms * 1e3)})
+        log(f"[sharded] time {timing[-1]['name']}: {ms:.3f} ms, "
+            f"{timing[-1]['mrays_per_s']:.1f} Mrays/s")
+    return window, timing
+
+
 def phase_crossover(tables):
     """Linear megakernel vs 8-wide BVH kernel (leaf 32), fast scan, 256², 4 bounces,
     64 spp per launch, on sphere_field(n, 2): Mrays/s of each and their ratio."""
@@ -1749,6 +1936,8 @@ def main() -> int:
     crossover = phase_crossover(tables)
     bench_launches, bench_rows = phase_bench(card)
     log(f"[done] bench path at {time.perf_counter() - t0:.1f} s")
+    sharded_launches, sharded_rows = phase_sharded(tables)
+    log(f"[done] sharded path at {time.perf_counter() - t0:.1f} s")
     by_name = {r["name"]: r for r in rows}
     # What the main path runs: the tp megakernel at 4 bounces, the tp wavefront at 16,
     # and sphere_field()'s fast BVH kernels.
@@ -1782,9 +1971,11 @@ def main() -> int:
                                 "oclpathtracer_tpu/kernels/sorted_wavefront.py:154")
     bounds = kernel_bounds(tables, main_rows)
     # Each path is counted in its own window (counts set to 0 just before it):
-    # `launches` sums the render, training, vertex, integrator and bench paths' counts.
+    # `launches` sums the render, training, vertex, integrator, bench and sharded paths'
+    # counts.
     paths = {"render": launches, "train": train_launches, "vertex": vertex_launches,
-             "integrators": integrator_launches, "bench": bench_launches}
+             "integrators": integrator_launches, "bench": bench_launches,
+             "sharded": sharded_launches}
     kernels = []
     for name, (src, tpu) in sources.items():
         row = main_rows[name]
@@ -1815,7 +2006,8 @@ def main() -> int:
                       "trace_rays_timing": rays_row, "vertex_launch_timing": vertex_launch_rows,
                       "vertex_timing": vertex_rows,
                       "fast_timing": fast_rows, "sorted_timing": sorted_rows,
-                      "crossover": crossover, "bench": bench_rows}))
+                      "crossover": crossover, "bench": bench_rows,
+                      "sharded": sharded_rows}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -55,3 +55,10 @@ def generate_rays(px: torch.Tensor, py: torch.Tensor, width: int, height: int,
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
     o = eye.expand_as(d)
     return o, d
+
+
+def pixel_grid(width: int, height: int, device=None):
+    """Absolute pixel ids and (px, py) for the full image, row-major like the
+    reference (gi = gid % w, gj = gid / w — GenerateColors.cl:305-306)."""
+    pid = torch.arange(width * height, dtype=torch.int64, device=device)
+    return pid, pid % width, pid // width

@@ -8,7 +8,8 @@ integrators (`inverse.py`), from the kernel forward with a twin backward
 (`fast.make_kernel_train_step`); the boundary terms of vertex gradients
 (`edge.py` for the silhouettes the camera sees, `secondary.py` for the light's rim
 seen from the first path vertices) and the kernel-speed vertex step (`vertex.py`).
-The sharded steps wait for `parallel/`.
+The sharded steps (`inverse.make_sharded_train_step`,
+`fast.make_sharded_kernel_train_step`) split the pixels over a mesh (`parallel/`).
 """
 
 from oclpathtracer_tpu_torch.diff.losses import l2_loss, mse_loss
@@ -18,6 +19,7 @@ from oclpathtracer_tpu_torch.diff.inverse import (
     extract_params,
     make_loss_fn,
     make_optax_train_step,
+    make_sharded_train_step,
     make_train_step,
     make_unbiased_loss_fn,
     value_and_grad,
@@ -40,6 +42,7 @@ __all__ = [
     "make_unbiased_loss_fn",
     "make_optax_train_step",
     "make_train_step",
+    "make_sharded_train_step",
     "value_and_grad",
     "boundary_vertex_grads",
     "make_edge_aware_loss_fn",

@@ -13,7 +13,9 @@ Counterpart of `oclpathtracer_tpu.diff.fast`. Two routes:
   (`kernels/grad_megakernel.py`). A step is two forward launches and two adjoint
   launches, and never copies parameters to the host.
 
-`make_sharded_kernel_train_step` waits for `parallel/`.
+`make_sharded_kernel_train_step` is the kernel step over a mesh (`parallel/`): each
+entry runs the four launches on its range of absolute pixel ids, and the class
+gradients are added in mesh order.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from oclpathtracer_tpu_torch.diff.inverse import (
 from oclpathtracer_tpu_torch.integrators.parity import render_sample_ref
 from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
 from oclpathtracer_tpu_torch.kernels.megakernel import pack_scene, render_samples_pallas_stats
+from oclpathtracer_tpu_torch.parallel.mesh import tile_devices
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 # The JAX package's device-side packer; megakernel.pack_scene already packs on the
@@ -113,30 +116,42 @@ def class_params_to_materials(scene: Scene, params: ClassParams) -> SceneParams:
     return SceneParams(albedo=params.albedo[mat_class], emissive=params.emissive[mat_class])
 
 
+def _pair_and_grads(table, ct, cfg: RenderConfig, spp: int, n_classes: int, target,
+                    step_idx: int, n3: int, pid_base: int = 0, n_rays=None):
+    """The pairwise loss's two MEAN images a, b over pixels [pid_base, pid_base +
+    n_rays) and the class gradients g (C, 6) of the loss over n3 values.
+
+    Two dynamic-class forwards on the frame ranges [2k·spp, (2k+1)·spp) and
+    [(2k+1)·spp, (2k+2)·spp), then two adjoint launches weighted by ∂loss/∂(frame-SUM
+    image) of each render: (b − t)/(n3·spp) and (a − t)/(n3·spp).
+    """
+    fa = (2 * step_idx) * spp
+    fb = (2 * step_idx + 1) * spp
+    span = dict(pid_base=pid_base, n_rays=n_rays)
+    a, _ = gk.render_grads_pallas(table, ct, cfg, fa, spp, n_classes, with_grads=False,
+                                  **span)
+    b, _ = gk.render_grads_pallas(table, ct, cfg, fb, spp, n_classes, with_grads=False,
+                                  **span)
+    a = a / spp
+    b = b / spp
+    w_a = (b - target) / (n3 * spp)
+    w_b = (a - target) / (n3 * spp)
+    _, ga = gk.render_grads_pallas(table, ct, cfg, fa, spp, n_classes, weight=w_a, **span)
+    _, gb = gk.render_grads_pallas(table, ct, cfg, fb, spp, n_classes, weight=w_b, **span)
+    return a, b, ga + gb
+
+
 def _kernel_loss_and_grads(scene: Scene, cfg: RenderConfig, spp: int):
     """(params, target, step_idx) → (loss, ClassParams of gradients): the pairwise
-    loss through the adjoint kernel, shared by the SGD and optimizer steps.
-
-    Two dynamic-class forwards, then two adjoint launches weighted by
-    ∂loss/∂(frame-SUM image) of each render: (b − t)/(n3·spp) and (a − t)/(n3·spp).
-    """
+    loss through the adjoint kernel (`_pair_and_grads`), shared by the SGD and
+    optimizer steps."""
     table, ct0, n_classes, _ = gk.prepare_grad_scene(scene)
     n3 = cfg.n_pixels * 3
 
     def loss_and_grads(params: ClassParams, target, step_idx: int):
         ct = torch.cat([params.albedo, params.emissive, ct0[:, 6:8]], dim=1)
-        fa = (2 * step_idx) * spp
-        fb = (2 * step_idx + 1) * spp
-        a, _ = gk.render_grads_pallas(table, ct, cfg, fa, spp, n_classes, with_grads=False)
-        b, _ = gk.render_grads_pallas(table, ct, cfg, fb, spp, n_classes, with_grads=False)
-        a = a / spp
-        b = b / spp
+        a, b, g = _pair_and_grads(table, ct, cfg, spp, n_classes, target, step_idx, n3)
         loss = torch.mean((a - target) * (b - target))
-        w_a = (b - target) / (n3 * spp)
-        w_b = (a - target) / (n3 * spp)
-        _, ga = gk.render_grads_pallas(table, ct, cfg, fa, spp, n_classes, weight=w_a)
-        _, gb = gk.render_grads_pallas(table, ct, cfg, fb, spp, n_classes, weight=w_b)
-        g = ga + gb
         return loss, ClassParams(albedo=g[:, 0:3], emissive=g[:, 3:6])
 
     return loss_and_grads
@@ -190,3 +205,45 @@ def make_kernel_optax_step(scene: Scene, cfg: RenderConfig, spp: int, optimizer)
         return params, opt_state, loss
 
     return step, opt_init
+
+
+def make_sharded_kernel_train_step(scene: Scene, cfg: RenderConfig, mesh, spp: int,
+                                   lr: float):
+    """make_kernel_train_step over a 'tiles' mesh: pixels shard, class grads add.
+
+    (params, target, step_idx) → (params, loss), `target` the full (n_pixels, 3)
+    image. Entry i runs the step's four launches (`_pair_and_grads`) on its own
+    device over pixels [i·n/m, (i+1)·n/m) (pid_base, n_rays), so its images are bit
+    for bit those rows of the single call's. The loss is the entries' sums of
+    (a − t)(b − t), added in mesh order, over the GLOBAL n_pixels·3; the gradients
+    are the entries' ga + gb added in mesh order on the first entry's device (JAX's
+    psum), then the step projects as make_kernel_train_step does. The mesh is this
+    process's: its entries' ranges cover the whole image. No float atomic adds
+    anything: the adjoint kernel sums its block partials in a fixed order, and the
+    entries add in mesh order.
+    """
+    table, ct0, n_classes, _ = gk.prepare_grad_scene(scene)
+    devices = tile_devices(mesh)
+    if cfg.n_pixels % len(devices) != 0:
+        raise ValueError(f"{cfg.n_pixels} pixels not divisible by {len(devices)}")
+    local_n = cfg.n_pixels // len(devices)
+    n3 = cfg.n_pixels * 3
+    dev0 = devices[0]
+    on = {d: (table.to(d), ct0[:, 6:8].to(d)) for d in devices}
+
+    def step(params: ClassParams, target, step_idx: int):
+        loss, g = None, None
+        for i, d in enumerate(devices):
+            tb, rest = on[d]
+            ct = torch.cat([params.albedo.to(d), params.emissive.to(d), rest], dim=1)
+            t = target[i * local_n:(i + 1) * local_n].to(d)
+            a, b, gi = _pair_and_grads(tb, ct, cfg, spp, n_classes, t, step_idx, n3,
+                                       pid_base=i * local_n, n_rays=local_n)
+            part = torch.sum((a - t) * (b - t)).to(dev0)
+            loss = part if loss is None else loss + part
+            g = gi.to(dev0) if g is None else g + gi.to(dev0)
+        params = _project_class(ClassParams(albedo=params.albedo - lr * g[:, 0:3],
+                                            emissive=params.emissive - lr * g[:, 3:6]))
+        return params, loss / n3
+
+    return step

@@ -4,7 +4,8 @@ Counterpart of `oclpathtracer_tpu.diff.inverse`. The trainable subset of the sce
 is a small NamedTuple (SceneParams) grafted back into the full Scene before each
 forward render; gradients come from torch autograd through the batched integrator
 (`integrators/path.py`, threefry streams): the material gathers and the
-intersection geometry. `make_sharded_train_step` waits for `parallel/`.
+intersection geometry. `make_sharded_train_step` splits the pixels over a mesh
+(`parallel/`) and adds the entries' gradients.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.core import rng
 from oclpathtracer_tpu_torch.diff.losses import l2_loss
 from oclpathtracer_tpu_torch.integrators.path import render_sample
+from oclpathtracer_tpu_torch.parallel import multihost
+from oclpathtracer_tpu_torch.parallel.mesh import Mesh, tile_devices, tile_sharding
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 
@@ -194,3 +197,41 @@ def make_optax_train_step(scene: Scene, cfg: RenderConfig, spp: int, optimizer,
         return (_project_params(new) if clip01 else new), opt_state, loss.detach()
 
     return step, opt_init
+
+
+def make_sharded_train_step(scene: Scene, cfg: RenderConfig, mesh: Mesh, spp: int,
+                            lr: float):
+    """Mesh train step: pixels shard over 'tiles', params replicate, grads add.
+
+    (params, target, pixel_ids, step_idx, key) → (params, loss). `target` (n, 3) and
+    `pixel_ids` (n,) (shard_pixels' layout, n divisible by the mesh) split into the
+    entries' blocks. Entry i renders its block on its own device, with its own
+    replica of params' leaves, and takes d(local l2 sum / n_pixels)/d leaves; its
+    graph is freed before the next entry renders. The losses and gradients are then
+    added in mesh order on the first entry's device (JAX's psum; across processes
+    one all_reduce of that sum), and the step is p − lr·g with no projection, as in
+    JAX.
+    """
+    n_total = cfg.n_pixels
+    devices = tile_devices(mesh)
+    split = tile_sharding(mesh)
+    dev0 = devices[0]
+
+    def step(params: SceneParams, target: torch.Tensor, pixel_ids: torch.Tensor,
+             step_idx: int, key: torch.Tensor):
+        skey = rng.fold_in(key, step_idx)
+        loss, grads = None, None
+        for d, t, ids in zip(devices, split(target), split(pixel_ids)):
+            leaves = [x.detach().to(d).requires_grad_() for x in params_leaves(params)]
+            img = render_spp(apply_params(scene.to(d), params_from_leaves(params, leaves)),
+                             cfg, spp, skey.to(d), ids)
+            local = l2_loss(img, t) / n_total  # local sum / global count
+            g = [x.to(dev0) for x in grads_or_zeros(local, leaves)]
+            local = local.detach().to(dev0)
+            loss = local if loss is None else loss + local
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        loss, *grads = multihost.all_reduce_sum([loss, *grads])
+        new = [p.detach().to(dev0) - lr * g for p, g in zip(params_leaves(params), grads)]
+        return params_from_leaves(params, new), loss
+
+    return step

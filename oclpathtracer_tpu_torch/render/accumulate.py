@@ -43,3 +43,17 @@ def linear_to_srgb_gamma22(x: torch.Tensor) -> torch.Tensor:
 def gamma22_to_linear(x: torch.Tensor) -> torch.Tensor:
     """readFromGamma — x^2.2 (GenerateColors.cl:296-300)."""
     return torch.pow(torch.clamp(x, min=0.0), 2.2)
+
+
+def reference_average(frames: torch.Tensor) -> torch.Tensor:
+    """Replay the reference's progressive recurrence over `frames` (S, N, 3) of
+    linear per-frame radiance; returns the gamma-space framebuffer after the last
+    frame (GenerateColors.cl:314-321). Frame 0 is stored then discarded at frame 1."""
+    fb = torch.zeros_like(frames[0])
+    for s in range(frames.shape[0]):
+        if s == 0:
+            fb = linear_to_srgb_gamma22(frames[0])
+        else:
+            avg = (gamma22_to_linear(fb) * float(s - 1) + frames[s]) / float(s)
+            fb = linear_to_srgb_gamma22(avg)
+    return fb

@@ -62,6 +62,13 @@ def test_generate_rays(cam):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("wh", [(16, 12), (33, 9)])
+def test_pixel_grid_bitwise(wh):
+    pid, px, py = camera.pixel_grid(*wh, device="cpu")
+    for got, want in zip((pid, px, py), jcamera.pixel_grid(*wh)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_intersect_world(scene, port_scene, seed):
     o, d = _rays(2000, seed)

@@ -382,3 +382,81 @@ def test_bench_on_the_card_counts_the_plain_segments(cuda_tables, capsys):
         want, want_segs = host[name]()
         assert int(segs) == int(want_segs) > 0, name
         torch.testing.assert_close(img.cpu(), want, rtol=1e-4, atol=1e-4, msg=name)
+
+
+def _card_mesh(n):
+    from oclpathtracer_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(("cuda:0",) * n)
+
+
+@pytest.mark.parametrize("kernel", ["megakernel", "wavefront"])
+@pytest.mark.parametrize("n_dev", [1, 2, 8])
+def test_sharded_kernel_step_is_one_call_bitwise(cuda_tables, kernel, n_dev):
+    """make_sharded_kernel_step on n × cuda:0 (tp, 64², 4 bounces, 4 spp): the image and
+    segments bit for bit one call's, the launches n."""
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.kernels import megakernel as mk
+    from oclpathtracer_tpu_torch.kernels import wavefront as wf
+    from oclpathtracer_tpu_torch.parallel.sharded_pallas import make_sharded_kernel_step
+
+    cfg = RenderConfig(SIZE, SIZE, bounces=4)
+    table, emi, classes = cuda_tables.linear("cornell", "tp")
+    kw = dict(scan="tp", emi_const=emi, classes=classes)
+    module = mk if kernel == "megakernel" else wf
+    single = (mk.render_samples_pallas_stats if kernel == "megakernel"
+              else wf.render_samples_wavefront_stats)
+    want, want_segs = single(table, cfg, 3, 4, **kw)
+    before = module.LAUNCHES
+    img, segs = make_sharded_kernel_step(cfg, _card_mesh(n_dev), 4, kernel=kernel,
+                                         **kw)(table, 3)
+    assert module.LAUNCHES - before == n_dev
+    assert torch.equal(img, want) and int(segs) == int(want_segs) > 0
+
+
+def test_sharded_twin_render_is_the_single_render_bitwise(cuda_tables):
+    """render_progressive_sharded at 33×9 on 8 × cuda:0 against render_progressive."""
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.parallel import render_progressive_sharded
+    from oclpathtracer_tpu_torch.render.driver import render_progressive
+
+    cfg = RenderConfig(33, 9, bounces=2)
+    scene = cuda_tables.scene("cornell")
+    img = render_progressive_sharded(scene, cfg, _card_mesh(8), 2, samples_per_step=2)
+    assert torch.equal(img, render_progressive(scene, cfg, 2, samples_per_step=2))
+
+
+def test_sharded_kernel_train_step_forwards_are_bitwise(cuda_tables):
+    """make_sharded_kernel_train_step on 8 × cuda:0 against 1 entry (64², 4 bounces,
+    2 spp): 32 adjoint launches against 4, the loss within 1e-6, the new params
+    within 1e-6, and a rerun bit for bit."""
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.diff import fast
+    from oclpathtracer_tpu_torch.examples import train_kernel
+    from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
+
+    scene = cuda_tables.scene("cornell")
+    cfg = RenderConfig(SIZE, SIZE, bounces=4)
+    target = train_kernel.target_image(scene, cfg, 4)
+    params = train_kernel.perturbed(fast.extract_class_params(scene))
+    out = {}
+    for n in (8, 1, 8):
+        before = gk.LAUNCHES
+        step = fast.make_sharded_kernel_train_step(scene, cfg, _card_mesh(n), 2, 3e-2)
+        new, loss = step(params, target, 0)
+        assert gk.LAUNCHES - before == 4 * n
+        if n in out:
+            assert torch.equal(out[n][1], loss) and all(torch.equal(a, b)
+                                                        for a, b in zip(out[n][0], new))
+        out[n] = (new, loss)
+    torch.testing.assert_close(out[8][1], out[1][1], rtol=1e-6, atol=0)
+    for a, b in zip(out[8][0], out[1][0]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_dryrun_multichip_on_the_card(cuda_tables, capsys):
+    from oclpathtracer_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    line = dryrun_multichip(8)
+    assert line.startswith("dryrun_multichip(8): ok, loss=") and "scan=tp" in line
+    assert capsys.readouterr().out.strip() == line

@@ -12,10 +12,12 @@ import pytest
 import torch
 
 from oclpathtracer_tpu import RenderConfig as JCfg
+from oclpathtracer_tpu.render import accumulate as jaccumulate
 from oclpathtracer_tpu.render import driver as jdriver
 from oclpathtracer_tpu_torch import cli
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.convert import scene_from_numpy
+from oclpathtracer_tpu_torch.render import accumulate
 from oclpathtracer_tpu_torch.render import checkpoint as ckpt
 from oclpathtracer_tpu_torch.render import driver
 
@@ -148,6 +150,18 @@ def test_cli_unported_commands_exit_2(argv, capsys):
     assert "not yet ported" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("n_frames", [1, 2, 5])
+def test_reference_average_matches_jax(n_frames):
+    """The reference's gamma-space recurrence (frame 0 discarded at frame 1) against
+    JAX's, and against the mean of frames 1.. in gamma space (tests/test_render.py)."""
+    frames = np.random.RandomState(0).uniform(0.1, 1.0, (n_frames, 7, 3)).astype(np.float32)
+    got = accumulate.reference_average(torch.from_numpy(frames)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jaccumulate.reference_average(frames)),
+                               rtol=1e-6, atol=1e-6)
+    lin = frames[1:].mean(0) if n_frames > 1 else frames[0]
+    np.testing.assert_allclose(got, np.power(lin, 1 / 2.2), atol=2e-3)
+
+
 def test_port_never_imports_jax():
     code = ("import sys\n"
             "import oclpathtracer_tpu_torch, oclpathtracer_tpu_torch.render.driver\n"
@@ -173,6 +187,16 @@ def test_port_never_imports_jax():
             "import oclpathtracer_tpu_torch.runtime.replay\n"
             "import oclpathtracer_tpu_torch.utils, oclpathtracer_tpu_torch.utils.errors\n"
             "import oclpathtracer_tpu_torch.utils.metrics\n"
+            "import oclpathtracer_tpu_torch.parallel, oclpathtracer_tpu_torch.parallel.mesh\n"
+            "import oclpathtracer_tpu_torch.parallel.sharded\n"
+            "import oclpathtracer_tpu_torch.parallel.sharded_pallas\n"
+            "import oclpathtracer_tpu_torch.parallel.multihost\n"
+            "import oclpathtracer_tpu_torch.parallel.dryrun, oclpathtracer_tpu_torch.bench_scaling\n"
+            "import oclpathtracer_tpu_torch.examples\n"
+            "import oclpathtracer_tpu_torch.examples.multi_device\n"
+            "import oclpathtracer_tpu_torch.examples.inverse_albedo\n"
+            "import oclpathtracer_tpu_torch.examples.train_kernel\n"
+            "import oclpathtracer_tpu_torch.examples.train_vertices\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'oclpathtracer_tpu' or m.startswith('oclpathtracer_tpu.')]\n"
