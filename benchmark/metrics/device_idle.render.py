@@ -1,0 +1,8 @@
+"""device_idle.render: the share of the traced window in which no operation ran on the
+card (profiler timeline), in the render-job cells."""
+
+from benchmark.metrics._idle import idle
+
+
+def read(run):
+    return idle(run)
