@@ -489,34 +489,27 @@ def phase_checks(tables):
     require(not failed, f"kernel checks failed: {failed}")
 
 
-def counters():
-    """Each kernel's launch counter: name → (module, attribute)."""
-    from oclpathtracer_tpu_torch.kernels import (
-        bvh_megakernel,
-        fast_integrators,
-        grad_megakernel,
-        megakernel,
-        sorted_wavefront,
-        wavefront,
-        wide_bvh,
-    )
-
-    return {"megakernel": (megakernel, "LAUNCHES"), "wavefront": (wavefront, "LAUNCHES"),
-            "bvh_megakernel": (bvh_megakernel, "LAUNCHES"), "wide_bvh": (wide_bvh, "LAUNCHES"),
-            "grad_megakernel": (grad_megakernel, "LAUNCHES"),
-            "trace_rays": (megakernel, "TRACE_RAYS_LAUNCHES"),
-            "ao": (fast_integrators, "AO_LAUNCHES"),
-            "direct": (fast_integrators, "DIRECT_LAUNCHES"),
-            "sorted_bounce": (sorted_wavefront, "LAUNCHES")}
+# Each kernel's launch counter: the name reported here -> runtime.profiling's counter.
+COUNTERS = {"megakernel": "launch.megakernel", "wavefront": "launch.wavefront",
+            "bvh_megakernel": "launch.bvh", "wide_bvh": "launch.wide_bvh",
+            "grad_megakernel": "launch.grad", "trace_rays": "launch.trace_rays",
+            "ao": "launch.ao", "direct": "launch.direct", "sorted_bounce": "launch.sorted"}
+_counts_base: dict = {}
 
 
 def reset_counts() -> None:
-    for module, attr in counters().values():
-        setattr(module, attr, 0)
+    from oclpathtracer_tpu_torch.runtime import profiling
+
+    _counts_base.clear()
+    _counts_base.update(profiling.counts())
 
 
 def read_counts() -> dict:
-    return {name: getattr(module, attr) for name, (module, attr) in counters().items()}
+    """Launches of each kernel since the last reset_counts()."""
+    from oclpathtracer_tpu_torch.runtime import profiling
+
+    now = profiling.counts()
+    return {name: now.get(c, 0) - _counts_base.get(c, 0) for name, c in COUNTERS.items()}
 
 
 def check_image(name, img):
@@ -605,7 +598,6 @@ def phase_train(tables):
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.diff import fast, inverse
     from oclpathtracer_tpu_torch.examples import train_kernel
-    from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
     from oclpathtracer_tpu_torch.kernels import megakernel
     from oclpathtracer_tpu_torch.render.driver import render_progressive
 
@@ -624,9 +616,9 @@ def phase_train(tables):
     losses, per_step = [], set()
     t0 = time.perf_counter()
     for i in range(RECOVERY_STEPS):
-        before = gk.LAUNCHES
+        before = read_counts()["grad_megakernel"]
         params, loss = step(params, target, i)
-        per_step.add(gk.LAUNCHES - before)
+        per_step.add(read_counts()["grad_megakernel"] - before)
         losses.append(loss)
     losses = torch.stack(losses).cpu().numpy()
     err1 = class_albedo_error(params, true)
@@ -662,9 +654,9 @@ def phase_train(tables):
         params = inverse.extract_params(cornell, albedo=True, emissive=True)
         losses, per_step = [], set()
         for i in range(3):
-            before = megakernel.LAUNCHES
+            before = read_counts()["megakernel"]
             params, loss = run(params, target, i)
-            per_step.add(megakernel.LAUNCHES - before)
+            per_step.add(read_counts()["megakernel"] - before)
             losses.append(float(loss))
         log(f"[train] {name} {TRAIN_SIZE}x{TRAIN_SIZE} b4 {TRAIN_SPP}spp, 3 steps: "
             f"losses {[round(x, 6) for x in losses]}, megakernel launches a step {per_step}")
@@ -1666,7 +1658,7 @@ def phase_sharded(tables):
     from oclpathtracer_tpu_torch.render.driver import render_progressive
 
     cornell = tables.scene("cornell")
-    window = {name: 0 for name in counters()}
+    window = {name: 0 for name in COUNTERS}
 
     def counted(fn, *args):
         reset_counts()

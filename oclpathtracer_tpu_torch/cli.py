@@ -196,8 +196,10 @@ def main(argv=None) -> int:
     r.add_argument("--reference-quirk", action="store_true",
                    help="reproduce the reference's double-gamma PPM export")
     r.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler chrome trace to DIR/trace.json and "
-                        "its per-op table to DIR/summary.txt")
+                   help="write a torch.profiler chrome trace to DIR/trace.json (with "
+                        "the program's spans) and to DIR/summary.txt its per-op table, "
+                        "then the spans' calls, total and self ms by self time and the "
+                        "launch and build counters")
     r.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda launches the kernels, "
                         "cpu runs their plain versions)")

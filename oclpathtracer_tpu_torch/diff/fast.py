@@ -35,6 +35,7 @@ from oclpathtracer_tpu_torch.integrators.parity import render_sample_ref
 from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
 from oclpathtracer_tpu_torch.kernels.megakernel import pack_scene, render_samples_pallas_stats
 from oclpathtracer_tpu_torch.parallel.mesh import tile_devices
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 # The JAX package's device-side packer; megakernel.pack_scene already packs on the
@@ -123,22 +124,28 @@ def _pair_and_grads(table, ct, cfg: RenderConfig, spp: int, n_classes: int, targ
 
     Two dynamic-class forwards on the frame ranges [2k·spp, (2k+1)·spp) and
     [(2k+1)·spp, (2k+2)·spp), then two adjoint launches weighted by ∂loss/∂(frame-SUM
-    image) of each render: (b − t)/(n3·spp) and (a − t)/(n3·spp).
+    image) of each render: (b − t)/(n3·spp) and (a − t)/(n3·spp). The forwards and
+    the weights are the span `train.forward`, the adjoints `train.backward`.
     """
     fa = (2 * step_idx) * spp
     fb = (2 * step_idx + 1) * spp
     span = dict(pid_base=pid_base, n_rays=n_rays)
-    a, _ = gk.render_grads_pallas(table, ct, cfg, fa, spp, n_classes, with_grads=False,
-                                  **span)
-    b, _ = gk.render_grads_pallas(table, ct, cfg, fb, spp, n_classes, with_grads=False,
-                                  **span)
-    a = a / spp
-    b = b / spp
-    w_a = (b - target) / (n3 * spp)
-    w_b = (a - target) / (n3 * spp)
-    _, ga = gk.render_grads_pallas(table, ct, cfg, fa, spp, n_classes, weight=w_a, **span)
-    _, gb = gk.render_grads_pallas(table, ct, cfg, fb, spp, n_classes, weight=w_b, **span)
-    return a, b, ga + gb
+    with profiling.span("train.forward"):
+        a, _ = gk.render_grads_pallas(table, ct, cfg, fa, spp, n_classes, with_grads=False,
+                                      **span)
+        b, _ = gk.render_grads_pallas(table, ct, cfg, fb, spp, n_classes, with_grads=False,
+                                      **span)
+        a = a / spp
+        b = b / spp
+        w_a = (b - target) / (n3 * spp)
+        w_b = (a - target) / (n3 * spp)
+    with profiling.span("train.backward"):
+        _, ga = gk.render_grads_pallas(table, ct, cfg, fa, spp, n_classes, weight=w_a,
+                                       **span)
+        _, gb = gk.render_grads_pallas(table, ct, cfg, fb, spp, n_classes, weight=w_b,
+                                       **span)
+        g = ga + gb
+    return a, b, g
 
 
 def _kernel_loss_and_grads(scene: Scene, cfg: RenderConfig, spp: int):
@@ -167,13 +174,17 @@ def _project_class(params: ClassParams) -> ClassParams:
 def make_kernel_train_step(scene: Scene, cfg: RenderConfig, spp: int, lr: float):
     """SGD step with kernel forwards AND the adjoint kernel's backward:
     (params: ClassParams, target, step_idx) → (params, loss). Needs
-    tp_scan_supported(scene)."""
+    tp_scan_supported(scene). Spans: `train.step`, over `_pair_and_grads`'
+    `train.forward` and `train.backward`, and `train.update` (the step and the
+    projection; the loss, in `_kernel_loss_and_grads`, is the step's own time)."""
     loss_and_grads = _kernel_loss_and_grads(scene, cfg, spp)
 
+    @profiling.spanned("train.step")
     def step(params: ClassParams, target, step_idx: int):
         loss, g = loss_and_grads(params, target, step_idx)
-        params = _project_class(ClassParams(albedo=params.albedo - lr * g.albedo,
-                                            emissive=params.emissive - lr * g.emissive))
+        with profiling.span("train.update"):
+            params = _project_class(ClassParams(albedo=params.albedo - lr * g.albedo,
+                                                emissive=params.emissive - lr * g.emissive))
         return params, loss
 
     return step

@@ -20,6 +20,7 @@ from oclpathtracer_tpu_torch.diff.losses import l2_loss
 from oclpathtracer_tpu_torch.integrators.path import render_sample
 from oclpathtracer_tpu_torch.parallel import multihost
 from oclpathtracer_tpu_torch.parallel.mesh import Mesh, tile_devices, tile_sharding
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 
@@ -123,10 +124,14 @@ def make_unbiased_loss_fn(scene: Scene, cfg: RenderConfig, spp: int) -> Callable
 def value_and_grad(loss_fn, params: SceneParams, *args):
     """jax.value_and_grad(loss_fn)(params, *args) for SceneParams: (loss, SceneParams
     of gradients) by autograd over params' set leaves; a leaf the loss does not use
-    gets zeros, as in JAX."""
+    gets zeros, as in JAX. The loss is the span `train.forward`, the gradients
+    `train.backward`."""
     leaves = [x.detach().requires_grad_() for x in params_leaves(params)]
-    loss = loss_fn(params_from_leaves(params, leaves), *args)
-    return loss.detach(), params_from_leaves(params, grads_or_zeros(loss, leaves))
+    with profiling.span("train.forward"):
+        loss = loss_fn(params_from_leaves(params, leaves), *args)
+    with profiling.span("train.backward"):
+        grads = grads_or_zeros(loss, leaves)
+    return loss.detach(), params_from_leaves(params, grads)
 
 
 def grads_or_zeros(loss: torch.Tensor, leaves: list) -> list:
@@ -141,13 +146,16 @@ def grads_or_zeros(loss: torch.Tensor, leaves: list) -> list:
 
 def make_train_step(scene: Scene, cfg: RenderConfig, spp: int, lr: float):
     """Single-device SGD step: (params, target, step_idx, key) → (params, loss), on
-    the CRN loss of sample key fold_in(key, step_idx)."""
+    the CRN loss of sample key fold_in(key, step_idx). Spans: `train.step`, over
+    value_and_grad's `train.forward` and `train.backward`, and `train.update`."""
     loss_fn = make_loss_fn(scene, cfg, spp)
 
+    @profiling.spanned("train.step")
     def step(params: SceneParams, target, step_idx, key):
         loss, grads = value_and_grad(loss_fn, params, target, rng.fold_in(key, step_idx))
-        new = [p.detach() - lr * g for p, g in zip(params_leaves(params),
-                                                   params_leaves(grads))]
+        with profiling.span("train.update"):
+            new = [p.detach() - lr * g for p, g in zip(params_leaves(params),
+                                                       params_leaves(grads))]
         return params_from_leaves(params, new), loss
 
     return step

@@ -37,10 +37,8 @@ import torch
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.core.bvh import FlatBVH, build_bvh, reorder_geometry
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
-
-# Kernel launches made by render_samples_bvh_stats on CUDA tensors.
-LAUNCHES = 0
 
 # Work the plain walks (skip-link and 8-wide) did: boxes tested and leaf triangles
 # tested by rays that were walking. chip_smoke.py reads it for the kernels' bounds.
@@ -267,6 +265,7 @@ def launch_split(fn_name: str, inputs: tuple, cfg: RenderConfig, scan: str, clas
     return out, segs[0], launches
 
 
+@profiling.spanned("kernel.bvh")
 def render_samples_bvh_stats(table, nodes_f, nodes_i, cfg: RenderConfig, start_sample: int,
                              n_samples: int, max_leaf: int = 8, scan: str = "parity",
                              emi_const: tuple = mk.NO_EMI, classes: tuple = (),
@@ -278,7 +277,6 @@ def render_samples_bvh_stats(table, nodes_f, nodes_i, cfg: RenderConfig, start_s
     most scratch a launch takes; more samples go to more launches, each sum going on
     from the last. A CUDA table launches `csrc/bvh_megakernel.cu`; a CPU table runs
     the plain version."""
-    global LAUNCHES
     check_bvh_call(table, nodes_f, nodes_i, cfg, n_samples, max_leaf, scan, classes, 8, 4)
     if table.device.type == "cpu":
         return _render_samples_bvh_stats_plain(table, nodes_f, nodes_i, cfg, start_sample,
@@ -288,7 +286,7 @@ def render_samples_bvh_stats(table, nodes_f, nodes_i, cfg: RenderConfig, start_s
                                        cfg, scan, classes, table.shape[0], start_sample,
                                        n_samples, emi_const, nodes_f.shape[0],
                                        scratch_bytes=scratch_bytes)
-    LAUNCHES += launches
+    profiling.count("launch.bvh", launches)
     return out, segs
 
 

@@ -109,9 +109,11 @@ def _load_library(build_dir: str):
     t0 = time.perf_counter()
     built, log = False, ""
     if not os.path.exists(path):
+        from oclpathtracer_tpu_torch.runtime import profiling
+
         os.makedirs(build_dir, exist_ok=True)
         nvcc = _nvcc()
-        with tempfile.TemporaryDirectory(dir=build_dir) as tmpdir:
+        with profiling.span("build.nvcc"), tempfile.TemporaryDirectory(dir=build_dir) as tmpdir:
             objs = [os.path.join(tmpdir, s + ".o") for s in SOURCES]
             log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
                             for s, o in zip(SOURCES, objs)])

@@ -46,15 +46,12 @@ from oclpathtracer_tpu_torch.integrators.ao import DEFAULT_AO_RADIUS
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import rng as krng
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 # Light table layout (L, 16) f32:
 #  0:3 p1 | 3:6 p2 | 6:9 p3 | 9:12 normal | 12:15 emissive | 15 cdf (normalized)
 LIGHT_COLS = 16
-
-# Kernel launches made by render_ao_pallas and render_direct_pallas on CUDA tensors.
-AO_LAUNCHES = 0
-DIRECT_LAUNCHES = 0
 
 # The kernels' lanes a pixel (a power of two up to 32; fewer for n below it).
 AO_LANES = 8
@@ -344,6 +341,7 @@ def _check_lanes(lanes: int) -> int:
     return lanes
 
 
+@profiling.spanned("kernel.ao")
 def render_ao_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
                      n_samples: int, radius: float = DEFAULT_AO_RADIUS, pid_base: int = 0,
                      n_rays: int | None = None, lanes: int | None = None) -> torch.Tensor:
@@ -355,7 +353,6 @@ def render_ao_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
     32 gives the same bits), the table and its eye rows in shared memory where
     `ao_in_shared`, else the table read from global memory; a CPU table runs the
     plain version, split as the kernel splits."""
-    global AO_LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     mk.check_call(table, cfg, n_samples, "parity", (), n_pix)
     if n_samples > AO_MAX_SAMPLES:
@@ -373,10 +370,11 @@ def render_ao_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
     out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
     cuda_build.launch("opt_ao_launch", (table,), floats + [float(np.float32(radius))],
                       ints + [lanes], out)
-    AO_LAUNCHES += 1
+    profiling.count("launch.ao")
     return out
 
 
+@profiling.spanned("kernel.direct")
 def render_direct_pallas(table: torch.Tensor, light_table: torch.Tensor, total_area,
                          cfg: RenderConfig, start_sample: int, n_samples: int,
                          pid_base: int = 0, n_rays: int | None = None,
@@ -389,7 +387,6 @@ def render_direct_pallas(table: torch.Tensor, light_table: torch.Tensor, total_a
     `direct_lanes(n_samples)`; any power of two up to 32 gives the same bits), the
     tables and the eye rows in shared memory where `direct_in_shared`, else the
     tables read from global memory; a CPU table runs the plain version."""
-    global DIRECT_LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     mk.check_call(table, cfg, n_samples, "parity", (), n_pix)
     lanes = direct_lanes(n_samples) if lanes is None else _check_lanes(lanes)
@@ -409,5 +406,5 @@ def render_direct_pallas(table: torch.Tensor, light_table: torch.Tensor, total_a
     cuda_build.launch("opt_direct_launch", (table, light_table),
                       floats + [float(np.float32(total_area))],
                       ints + [light_table.shape[0], lanes], out)
-    DIRECT_LAUNCHES += 1
+    profiling.count("launch.direct")
     return out

@@ -40,6 +40,7 @@ import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 CLASS_COLS = mk.CLASS_COLS  # albedo[3] | emissive[3] | roughness | mtype
@@ -51,9 +52,6 @@ BLOCK = 128  # threads a block (csrc/trace.cuh): one (C, 6) partial each
 # thread), which the table leaves room for whatever the class count.
 STATIC_SMEM_BYTES = 2048
 CARRY_SMEM_BYTES = 9 * mk.TP_CLASS_CAP * BLOCK * 4
-
-# Kernel launches made by render_grads_pallas_stats on CUDA tensors.
-LAUNCHES = 0
 
 
 def pack_class_table(classes, device=None) -> torch.Tensor:
@@ -187,6 +185,7 @@ def _render_grads_plain(table: torch.Tensor, class_table: torch.Tensor, cfg: Ren
 
 # ---- the kernel's entry point ----------------------------------------------------
 
+@profiling.spanned("kernel.grad")
 def render_grads_pallas_stats(table: torch.Tensor, class_table: torch.Tensor,
                               cfg: RenderConfig, start_sample: int, n_samples: int,
                               n_classes: int, weight: torch.Tensor | None = None,
@@ -206,7 +205,6 @@ def render_grads_pallas_stats(table: torch.Tensor, class_table: torch.Tensor,
     A CUDA table launches `csrc/grad_megakernel.cu`; a CPU table runs the plain
     version.
     """
-    global LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     if with_grads and weight is None:
         weight = torch.zeros((n_pix, 3), dtype=torch.float32, device=table.device)
@@ -233,7 +231,7 @@ def render_grads_pallas_stats(table: torch.Tensor, class_table: torch.Tensor,
         grads = torch.empty((n_classes, 6), dtype=torch.float32, device=dev)
     cuda_build.launch("opt_grad_megakernel_launch", (table, class_table, weight), floats,
                       ints + [n_classes], out, scratch, segs, partials, grads)
-    LAUNCHES += 1
+    profiling.count("launch.grad")
     return out, grads, segs[0]
 
 

@@ -43,6 +43,7 @@ import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.kernels import rng as krng
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 INV_PI = 0.31830988618
@@ -77,11 +78,6 @@ TP_ORIGIN_FACTOR = 64.0
 #  16 code = material class index + 1 (0 = "no hit") |
 #  17:24 pad, UNLESS the tp0 peel is on: augment_table_tp0 fills them with
 #  17:20 U | 20:23 V | 23 t0 (the collapsed bounce-0 scan constants)
-
-# Kernel launches made by render_samples_pallas_stats on CUDA tensors, and by
-# trace_rays_pallas_stats (csrc/trace_rays.cu).
-LAUNCHES = 0
-TRACE_RAYS_LAUNCHES = 0
 
 # Samples a lane takes at a time by default (`run`) in the linear kernels (the
 # megakernel, trace_rays, the wavefront), the fastest on the card at their main
@@ -825,6 +821,7 @@ def _render_samples_stats_plain(table: torch.Tensor, cfg: RenderConfig, start_sa
 
 # ---- the kernel's entry point ----------------------------------------------------
 
+@profiling.spanned("kernel.megakernel")
 def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
                                 n_samples: int, pid_base: int = 0,
                                 n_rays: int | None = None, scan: str = "parity",
@@ -845,7 +842,6 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
     A CUDA table launches `csrc/megakernel.cu` (table in shared memory where
     `table_in_shared`, else in global memory); a CPU table runs the plain version.
     """
-    global LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     check_call(table, cfg, n_samples, scan, classes, n_pix)
     run = check_run(run, n_samples, n_pix)
@@ -864,7 +860,7 @@ def render_samples_pallas_stats(table: torch.Tensor, cfg: RenderConfig, start_sa
     out, scratch, counters = split_buffers(n_samples, n_pix, run, table.device)
     cuda_build.launch("opt_megakernel_launch", (table,), floats,
                       ints + [run], out, scratch, counters)
-    LAUNCHES += 1
+    profiling.count("launch.megakernel")
     return out, counters[0]
 
 
@@ -968,6 +964,7 @@ def trace_rays_split_plain(table: torch.Tensor, o: torch.Tensor, d: torch.Tensor
     return scratch, segs
 
 
+@profiling.spanned("kernel.trace_rays")
 def trace_rays_pallas_stats(table: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                             cfg: RenderConfig, n_samples: int, row_base: int = 0,
                             start_sample: int = 0, scan: str = "parity", classes: tuple = (),
@@ -985,7 +982,6 @@ def trace_rays_pallas_stats(table: torch.Tensor, o: torch.Tensor, d: torch.Tenso
     A CUDA table launches `csrc/trace_rays.cu`; a CPU table runs the plain version,
     which equals the twin `trace_paths` on `ref_uniforms(rows, s, 2 * bounces)`.
     """
-    global TRACE_RAYS_LAUNCHES
     n = o.shape[0]
     check_call(table, cfg, n_samples, scan, classes, n)
     check_table("o", o, 3)
@@ -1006,5 +1002,5 @@ def trace_rays_pallas_stats(table: torch.Tensor, o: torch.Tensor, d: torch.Tenso
     out, scratch, counters = split_buffers(n_samples, n, run, table.device)
     cuda_build.launch("opt_trace_rays_launch", (table, o, d), floats, ints + [run], out,
                       scratch, counters)
-    TRACE_RAYS_LAUNCHES += 1
+    profiling.count("launch.trace_rays")
     return out, counters[0]

@@ -43,13 +43,11 @@ from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import rng as krng
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 # Origin-cell quantization for the sort key: 16^3 cells x 8 octants = 32k bins.
 _CELLS = 16
-
-# Bounce-kernel launches made by _bounce_step on CUDA tensors.
-LAUNCHES = 0
 
 
 # The bounce launch's modes (csrc/sorted_wavefront.cu MODE_*): start every ray from
@@ -198,7 +196,6 @@ def _bounce_step(ctx: Bounce, state: RayState, lists: LiveLists, segs: torch.Ten
     """One segment for every ray of `mode`, in place (see _bounce_plain); `segs` (1,)
     int64 gains the rays traced. A CUDA table launches `csrc/sorted_wavefront.cu`; a
     CPU table runs the plain version."""
-    global LAUNCHES
     if ctx.launch is None:
         return _bounce_plain(ctx, state, lists, segs, mode, dst)
     ints = ctx.launch.ints
@@ -206,7 +203,7 @@ def _bounce_step(ctx: Bounce, state: RayState, lists: LiveLists, segs: torch.Ten
     ints[len(ints) - 1] = dst
     bk.check_aligned16(state=state.rows)
     ctx.launch(state.rows, segs, *lists)
-    LAUNCHES += 1
+    profiling.count("launch.sorted")
 
 
 def _sort_key(o, d, live, lo, hi):
@@ -262,6 +259,7 @@ def _render_samples_sorted_stats_plain(table, nodes_f, nodes_i, cfg: RenderConfi
                                 n_samples, max_leaf, sort)
 
 
+@profiling.spanned("kernel.sorted")
 def render_samples_sorted_stats(table, nodes_f, nodes_i, cfg: RenderConfig, start_sample: int,
                                 n_samples: int, max_leaf: int = 32, sort: bool = False):
     """SUM of `n_samples` progressive frames + traced-segment count: (img (n_pixels, 3)

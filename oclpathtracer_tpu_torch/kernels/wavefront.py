@@ -38,10 +38,8 @@ from oclpathtracer_tpu_torch.kernels.megakernel import (
     prepare_scan,
     split_buffers,
 )
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
-
-# Kernel launches made by render_samples_wavefront_stats on CUDA tensors.
-LAUNCHES = 0
 
 
 def scan_table(table: torch.Tensor, scan: str) -> torch.Tensor:
@@ -84,6 +82,7 @@ def _render_samples_wavefront_plain(table: torch.Tensor, cfg: RenderConfig,
     return acc, segs.sum(dtype=torch.int64)
 
 
+@profiling.spanned("kernel.wavefront")
 def render_samples_wavefront_stats(table: torch.Tensor, cfg: RenderConfig,
                                    start_sample: int, n_samples: int, interleave: int = 1,
                                    scan: str = "parity", classes: tuple = (),
@@ -101,7 +100,6 @@ def render_samples_wavefront_stats(table: torch.Tensor, cfg: RenderConfig,
     it changes no bit of the result.
     A CUDA table launches `csrc/wavefront.cu`; a CPU table runs the plain version.
     """
-    global LAUNCHES
     n_pix = n_rays if n_rays is not None else cfg.n_pixels
     check_call(table, cfg, n_samples, scan, classes, n_pix)
     run = check_run(run, n_samples, n_pix)
@@ -123,7 +121,7 @@ def render_samples_wavefront_stats(table: torch.Tensor, cfg: RenderConfig,
     out, scratch, counters = split_buffers(n_samples, n_pix, run, table.device)
     cuda_build.launch("opt_wavefront_launch", (table, scan_tbl), floats,
                       ints + [run, int(scan_in_shared(scan_tbl))], out, scratch, counters)
-    LAUNCHES += 1
+    profiling.count("launch.wavefront")
     return out, counters[0]
 
 

@@ -37,6 +37,7 @@ from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.core.bvh import build_bvh, reorder_geometry, widen_bvh
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 WIDE = 8
@@ -44,9 +45,6 @@ WIDE = 8
 # 4 bytes a level for each of 128 threads, and the group indices a stack word holds.
 WIDE_MAX_DEPTH = mk.SMEM_TABLE_MAX_BYTES // (4 * 128)
 MAX_GROUPS = 1 << 24
-
-# Kernel launches made by render_samples_wide_bvh_stats on CUDA tensors.
-LAUNCHES = 0
 
 # Index of the lowest set bit of an 8-bit mask (0 for 0).
 _LOWEST_BIT = torch.tensor([(m & -m).bit_length() - 1 if m else 0 for m in range(256)])
@@ -156,6 +154,7 @@ def _render_samples_wide_bvh_stats_plain(table, wn_f, wn_i, cfg: RenderConfig,
 
 # ---- the kernel's entry point ------------------------------------------------------
 
+@profiling.spanned("kernel.wide_bvh")
 def render_samples_wide_bvh_stats(table, wn_f, wn_i, cfg: RenderConfig, start_sample: int,
                                   n_samples: int, max_leaf: int = 32, max_depth: int = 8,
                                   scan: str = "parity", emi_const: tuple = mk.NO_EMI,
@@ -170,7 +169,6 @@ def render_samples_wide_bvh_stats(table, wn_f, wn_i, cfg: RenderConfig, start_sa
     launch makes it). scratch_bytes: the most scratch a launch takes; more samples
     go to more launches, each sum going on from the last. A CUDA table launches
     `csrc/wide_bvh.cu`; a CPU table runs the plain version."""
-    global LAUNCHES
     if wn_f.dim() != 3 or wn_f.shape[1:] != (WIDE, 6) or wn_i.dim() != 3 \
             or wn_i.shape[1:] != (WIDE, 3) or wn_f.shape[0] != wn_i.shape[0]:
         raise ValueError(f"wn_f must be (G, {WIDE}, 6) and wn_i (G, {WIDE}, 3), got "
@@ -194,5 +192,5 @@ def render_samples_wide_bvh_stats(table, wn_f, wn_i, cfg: RenderConfig, start_sa
     out, segs, launches = bk.launch_split("opt_wide_bvh_launch", (table, boxes, meta), cfg, scan,
                                           classes, table.shape[0], start_sample, n_samples,
                                           emi_const, wn_f.shape[0], max_depth, scratch_bytes)
-    LAUNCHES += launches
+    profiling.count("launch.wide_bvh", launches)
     return out, segs

@@ -18,6 +18,7 @@ from oclpathtracer_tpu_torch.core import rng
 from oclpathtracer_tpu_torch.integrators.path import render_sample
 from oclpathtracer_tpu_torch.render import checkpoint as ckpt
 from oclpathtracer_tpu_torch.render.accumulate import Accumulator
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 # Auto-backend rule, as in the JAX package (driver.py:27-42): the linear-scan
@@ -69,8 +70,22 @@ def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: i
     same bits; the depth decides before any launch. scan ∈ {auto, parity, fast,
     tp}: auto is the fastest scan the scene's materials support, for every backend.
     The kernels use the reference RNG keyed by absolute (pixel, sample); there is no
-    seed.
+    seed. The build is the span `driver.prepare`, each step `driver.step`.
     """
+    with profiling.span("driver.prepare"):
+        chunk = _kernel_chunk(scene, cfg, samples_per_step, backend, scan, bvh_leaf)
+
+    @profiling.spanned("driver.step")
+    def step(acc: Accumulator, start_sample: int) -> Accumulator:
+        return acc.add_sum(chunk(start_sample), samples_per_step)
+
+    return step
+
+
+def _kernel_chunk(scene: Scene, cfg: RenderConfig, samples_per_step: int, backend: str,
+                  scan: str, bvh_leaf: int):
+    """make_kernel_render_step's build: the chunk start_sample → the SUM image of
+    samples_per_step samples, on the picked kernel with its tables made."""
     from oclpathtracer_tpu_torch.kernels.megakernel import prepare_scan
 
     n_tris = int(scene.geometry.p1.shape[0])
@@ -121,8 +136,7 @@ def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: i
         if depth > wb.WIDE_MAX_DEPTH:
             # Deeper than the kernel's shared-memory stack: the skip-link kernel on the
             # same build gives the same bits and needs no stack.
-            return make_kernel_render_step(scene, cfg, samples_per_step, "bvh", scan,
-                                           bvh_leaf=leaf)
+            return _kernel_chunk(scene, cfg, samples_per_step, "bvh", scan, leaf)
         record = wb.group_record(wn_f, wn_i)
 
         def chunk(start):
@@ -148,11 +162,7 @@ def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: i
             return img
     else:
         raise ValueError(f"unknown kernel backend {backend!r}")
-
-    def step(acc: Accumulator, start_sample: int) -> Accumulator:
-        return acc.add_sum(chunk(start_sample), samples_per_step)
-
-    return step
+    return chunk
 
 
 def render_progressive(scene: Scene, cfg: RenderConfig, total_spp: int,

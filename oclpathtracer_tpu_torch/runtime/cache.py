@@ -59,7 +59,11 @@ def register_compile_listener(callback) -> None:
 
 
 def notify(event: str, seconds: float) -> None:
-    """Report one finished build to the listeners (and the log, where on)."""
+    """Report one finished build to the listeners (and the log, where on), and count
+    it: "compile/nvcc" adds one to runtime.profiling's counter "build.nvcc"."""
+    from oclpathtracer_tpu_torch.runtime import profiling
+
+    profiling.count("build." + event.rsplit("/", 1)[-1])
     if _log:
         logger.warning("built %s in %.2f s", event, seconds)
     for cb in list(_listeners):

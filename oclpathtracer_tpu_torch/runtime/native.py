@@ -52,8 +52,10 @@ def _load_library(build_dir: str):
     t0 = time.perf_counter()
     built, log = False, ""
     if not os.path.exists(path):
+        from oclpathtracer_tpu_torch.runtime import profiling
+
         os.makedirs(build_dir, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=build_dir) as tmpdir:
+        with profiling.span("build.g++"), tempfile.TemporaryDirectory(dir=build_dir) as tmpdir:
             tmp = os.path.join(tmpdir, "lib.so")
             proc = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp,
                                    *(os.path.join(NATIVE_DIR, s) for s in SOURCES)],

@@ -1,4 +1,5 @@
-"""Error/log subsystem (`errors.py`) and throughput counters (`metrics.py`).
+"""Error/log subsystem (`errors.py`). The program's spans and counters are in
+`runtime/profiling.py`.
 
 Counterpart of `oclpathtracer_tpu.utils`, which exports nothing at package level
 either: import the modules.

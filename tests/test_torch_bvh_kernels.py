@@ -29,6 +29,7 @@ from oclpathtracer_tpu_torch.convert import scene_from_numpy
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
+from oclpathtracer_tpu_torch.runtime import profiling
 
 torch.set_num_threads(1)
 
@@ -91,7 +92,8 @@ def test_plain_matches_jax_reference(scenes, references, name, kernel, scan):
     _, tscene, _, cfg = scenes[name]
     img, segs = _render(kernel, tscene, cfg, scan, leaf=8)
     _meets_contract(img, segs, *references[name])
-    assert bk.LAUNCHES == wb.LAUNCHES == 0
+    launches = profiling.counts()
+    assert launches.get("launch.bvh", 0) == launches.get("launch.wide_bvh", 0) == 0
 
 
 @pytest.mark.parametrize("scan", SCANS)

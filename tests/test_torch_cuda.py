@@ -24,12 +24,19 @@ import pytest
 import torch
 
 from oclpathtracer_tpu_torch.kernels import selfcheck
+from oclpathtracer_tpu_torch.runtime import profiling
 
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
 SIZE = 64
+
+
+def _launches(*kernels):
+    """Each kernel's launches so far: runtime.profiling's `launch.<kernel>` counters."""
+    now = profiling.counts()
+    return tuple(now.get("launch." + k, 0) for k in kernels)
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +100,6 @@ def test_skip_kernel_renders_a_tree_deeper_than_the_wide_stack(cuda_tables, monk
     """render/driver.py's route: with the wide kernel's stack cut to 13 levels, the
     14-level deep_scene goes to the skip-link kernel, which gives the wide kernel's
     image bit for bit."""
-    from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
     from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
     from oclpathtracer_tpu_torch.render import driver
 
@@ -106,9 +112,10 @@ def test_skip_kernel_renders_a_tree_deeper_than_the_wide_stack(cuda_tables, monk
 
     wide = render()
     monkeypatch.setattr(wb, "WIDE_MAX_DEPTH", 13)
-    before = (bk.LAUNCHES, wb.LAUNCHES)
+    before = _launches("bvh", "wide_bvh")
     img = render()
-    assert (bk.LAUNCHES - before[0], wb.LAUNCHES - before[1]) == (2, 0)
+    after = _launches("bvh", "wide_bvh")
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 0)
     assert torch.equal(img, wide)
 
 
@@ -176,15 +183,14 @@ def test_grad_kernel_on_a_ragged_pixel_range_matches_plain(grad_results):
 def test_kernel_train_step_launches_the_grad_kernel_four_times(cuda_tables):
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.diff import fast
-    from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
 
     scene = cuda_tables.scene("cornell")
     cfg = RenderConfig(width=SIZE, height=SIZE, bounces=4)
     step = fast.make_kernel_train_step(scene, cfg, spp=2, lr=1e-3)
     params = fast.extract_class_params(scene)
-    before = gk.LAUNCHES
+    before, = _launches("grad")
     params, loss = step(params, torch.zeros((cfg.n_pixels, 3), device="cuda"), 0)
-    assert gk.LAUNCHES - before == 4
+    assert _launches("grad")[0] - before == 4
     assert bool(torch.isfinite(loss)) and params.albedo.device.type == "cuda"
 
 
@@ -196,16 +202,15 @@ def test_hybrid_forward_matches_the_plain_megakernel_on_a_card_packed_table(cuda
 def test_hybrid_loss_launches_the_megakernel_twice_a_step(cuda_tables):
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.diff import fast, inverse
-    from oclpathtracer_tpu_torch.kernels import megakernel as mk
 
     scene = cuda_tables.scene("cornell")
     cfg = RenderConfig(width=SIZE, height=SIZE, bounces=4)
     loss_fn = fast.make_fast_loss_fn(scene, cfg, spp=2)
     params = inverse.extract_params(scene, albedo=True, emissive=True)
-    before = mk.LAUNCHES
+    before, = _launches("megakernel")
     loss, grads = inverse.value_and_grad(loss_fn, params,
                                          torch.zeros((cfg.n_pixels, 3), device="cuda"), 0)
-    assert mk.LAUNCHES - before == 2
+    assert _launches("megakernel")[0] - before == 2
     assert bool(torch.isfinite(loss))
     assert all(bool(torch.isfinite(g).all()) for g in inverse.params_leaves(grads))
 
@@ -243,7 +248,6 @@ def test_vertex_step_launches_the_megakernel_twice_and_trace_rays_four_times(cud
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.core import rng
     from oclpathtracer_tpu_torch.diff import extract_params, make_vertex_train_step
-    from oclpathtracer_tpu_torch.kernels import megakernel as mk
 
     scene = cuda_tables.scene("cornell")
     cfg = RenderConfig(width=32, height=32, bounces=2)
@@ -252,10 +256,11 @@ def test_vertex_step_launches_the_megakernel_twice_and_trace_rays_four_times(cud
                                         secondary_samples_per_edge=4)
     params = extract_params(scene, albedo=False, vertices=True)
     state = init(params)
-    before = (mk.LAUNCHES, mk.TRACE_RAYS_LAUNCHES)
+    before = _launches("megakernel", "trace_rays")
     params, state, loss = step(params, state, torch.zeros((cfg.n_pixels, 3), device="cuda"), 0,
                                rng.make_key(1))
-    assert (mk.LAUNCHES - before[0], mk.TRACE_RAYS_LAUNCHES - before[1]) == (2, 4)
+    after = _launches("megakernel", "trace_rays")
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 4)
     assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v).all())
                                               for v in params.vertices)
 
@@ -344,18 +349,17 @@ def test_sorted_wavefront_when_every_ray_dies_in_the_first_launch(sorted_results
 
 def test_integrator_wrappers_launch_their_kernels_once(cuda_tables):
     from oclpathtracer_tpu_torch.config import RenderConfig
-    from oclpathtracer_tpu_torch.kernels import fast_integrators as fi
     from oclpathtracer_tpu_torch.kernels import sorted_wavefront as sw
 
     cfg = RenderConfig(width=32, height=32, bounces=3)
-    before = (fi.AO_LAUNCHES, fi.DIRECT_LAUNCHES, sw.LAUNCHES)
+    before = _launches("ao", "direct", "sorted")
     for kind in ("ao", "direct"):
         img = selfcheck.run_fast(kind, cuda_tables, cfg, 0, 4)
         assert img.shape == (cfg.n_pixels, 3) and bool(torch.isfinite(img).all())
     img = sw.render_sorted(cuda_tables.scene("cornell"), cfg, 4)
     assert bool(torch.isfinite(img).all()) and img.device.type == "cuda"
-    assert (fi.AO_LAUNCHES - before[0], fi.DIRECT_LAUNCHES - before[1],
-            sw.LAUNCHES - before[2]) == (1, 1, 3)
+    after = _launches("ao", "direct", "sorted")
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (1, 1, 3)
 
 
 def test_bench_on_the_card_counts_the_plain_segments(cuda_tables, capsys):
@@ -403,14 +407,13 @@ def test_sharded_kernel_step_is_one_call_bitwise(cuda_tables, kernel, n_dev):
     cfg = RenderConfig(SIZE, SIZE, bounces=4)
     table, emi, classes = cuda_tables.linear("cornell", "tp")
     kw = dict(scan="tp", emi_const=emi, classes=classes)
-    module = mk if kernel == "megakernel" else wf
     single = (mk.render_samples_pallas_stats if kernel == "megakernel"
               else wf.render_samples_wavefront_stats)
     want, want_segs = single(table, cfg, 3, 4, **kw)
-    before = module.LAUNCHES
+    before, = _launches(kernel)
     img, segs = make_sharded_kernel_step(cfg, _card_mesh(n_dev), 4, kernel=kernel,
                                          **kw)(table, 3)
-    assert module.LAUNCHES - before == n_dev
+    assert _launches(kernel)[0] - before == n_dev
     assert torch.equal(img, want) and int(segs) == int(want_segs) > 0
 
 
@@ -433,7 +436,6 @@ def test_sharded_kernel_train_step_forwards_are_bitwise(cuda_tables):
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.diff import fast
     from oclpathtracer_tpu_torch.examples import train_kernel
-    from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
 
     scene = cuda_tables.scene("cornell")
     cfg = RenderConfig(SIZE, SIZE, bounces=4)
@@ -441,10 +443,10 @@ def test_sharded_kernel_train_step_forwards_are_bitwise(cuda_tables):
     params = train_kernel.perturbed(fast.extract_class_params(scene))
     out = {}
     for n in (8, 1, 8):
-        before = gk.LAUNCHES
+        before, = _launches("grad")
         step = fast.make_sharded_kernel_train_step(scene, cfg, _card_mesh(n), 2, 3e-2)
         new, loss = step(params, target, 0)
-        assert gk.LAUNCHES - before == 4 * n
+        assert _launches("grad")[0] - before == 4 * n
         if n in out:
             assert torch.equal(out[n][1], loss) and all(torch.equal(a, b)
                                                         for a, b in zip(out[n][0], new))

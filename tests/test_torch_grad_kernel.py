@@ -29,6 +29,7 @@ from oclpathtracer_tpu_torch.convert import class_params_from_numpy, scene_from_
 from oclpathtracer_tpu_torch.diff import fast
 from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
+from oclpathtracer_tpu_torch.runtime import profiling
 
 torch.set_num_threads(1)
 
@@ -167,9 +168,9 @@ def test_adjoint_is_right_derivative_at_boundary(grad_scene, weights):
 
 def test_cpu_tensors_never_launch(grad_scene):
     table, ct, n_classes, _ = grad_scene
-    before = gk.LAUNCHES
+    before = profiling.counts().get("launch.grad", 0)
     gk.render_grads_pallas(table, ct, RenderConfig(4, 4, bounces=1), 0, 1, n_classes)
-    assert gk.LAUNCHES == before
+    assert profiling.counts().get("launch.grad", 0) == before
 
 
 @pytest.mark.parametrize("bad", ["classes", "n_classes", "weight", "device"])

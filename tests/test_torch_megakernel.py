@@ -18,6 +18,7 @@ from oclpathtracer_tpu.kernels import megakernel as jmk
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.convert import scene_from_numpy
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
+from oclpathtracer_tpu_torch.runtime import profiling
 
 torch.set_num_threads(1)
 
@@ -104,10 +105,10 @@ def test_plain_fast_matches_jax_fast_megakernel(scene, port_scene):
 
 
 def test_cpu_tensors_never_launch(port_scene):
-    before = mk.LAUNCHES
+    before = profiling.counts().get("launch.megakernel", 0)
     mk.render_samples_pallas_stats(mk.pack_scene(port_scene), RenderConfig(8, 8, bounces=1),
                                    0, 1)
-    assert mk.LAUNCHES == before == 0
+    assert profiling.counts().get("launch.megakernel", 0) == before == 0
 
 
 def test_tp0_gate():

@@ -186,7 +186,6 @@ def test_port_never_imports_jax():
             "import oclpathtracer_tpu_torch.runtime.native, oclpathtracer_tpu_torch.runtime.profiling\n"
             "import oclpathtracer_tpu_torch.runtime.replay\n"
             "import oclpathtracer_tpu_torch.utils, oclpathtracer_tpu_torch.utils.errors\n"
-            "import oclpathtracer_tpu_torch.utils.metrics\n"
             "import oclpathtracer_tpu_torch.parallel, oclpathtracer_tpu_torch.parallel.mesh\n"
             "import oclpathtracer_tpu_torch.parallel.sharded\n"
             "import oclpathtracer_tpu_torch.parallel.sharded_pallas\n"

@@ -1,6 +1,6 @@
 """The port's runtime and utils layers (`oclpathtracer_tpu_torch/runtime/`, `utils/`)
 against the JAX package's (tests/test_runtime.py's cases), on the same numpy inputs:
-buffers, launch replay, errors, metrics, device queries, the stopwatch and timed
+buffers, launch replay, errors, device queries, the stopwatch and timed
 calls, profiler traces, and the build cache with its compile listener."""
 
 import logging
@@ -16,7 +16,6 @@ from oclpathtracer_tpu.runtime import buffers as jbuffers
 from oclpathtracer_tpu.runtime import devices as jdevices
 from oclpathtracer_tpu.runtime import replay as jreplay
 from oclpathtracer_tpu.utils import errors as jerrors
-from oclpathtracer_tpu.utils import metrics as jmetrics
 from oclpathtracer_tpu_torch.diff import extract_params
 from oclpathtracer_tpu_torch.runtime import buffers, cache, native, replay
 from oclpathtracer_tpu_torch.runtime.devices import (
@@ -28,7 +27,6 @@ from oclpathtracer_tpu_torch.runtime.profiling import Stopwatch, timed, trace
 from oclpathtracer_tpu_torch.scene import load_cornell_box
 from oclpathtracer_tpu_torch.utils import errors
 from oclpathtracer_tpu_torch.utils.errors import ErrorCode, PathTracerError, require
-from oclpathtracer_tpu_torch.utils.metrics import RenderMetrics
 
 torch.set_num_threads(1)
 
@@ -131,19 +129,6 @@ def test_check_finite():
             errors.check_finite(torch.tensor([1.0, bad]), "radiance")
         assert e.value.code == ErrorCode.ERROR_INVALID_VALUE
         assert "non-finite radiance" in str(e.value)
-
-
-def test_metrics_accounting_matches_jax():
-    m = RenderMetrics(n_pixels=100).start()
-    jm = jmetrics.RenderMetrics(n_pixels=100).start()
-    for r in (m, jm):
-        r.step(samples=0, first_call=True)
-        r.step(samples=4, segments=1e6)
-    s, js = m.summary(), jm.summary()
-    assert s.keys() == js.keys()
-    assert s["samples"] == js["samples"] == 4
-    assert s["mrays_per_s"] >= 0.0 and m.compile_s >= 0.0
-    assert m.segments_done == jm.segments_done == 1e6
 
 
 def test_device_queries():

@@ -16,6 +16,7 @@ from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.convert import scene_from_numpy
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import wavefront as wf
+from oclpathtracer_tpu_torch.runtime import profiling
 
 torch.set_num_threads(1)
 
@@ -61,7 +62,7 @@ def test_plain_matches_jax_pallas_wavefront(scene, port_scene):
                                                       interleave=1, scan="parity")
     np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), rtol=1e-4, atol=1e-4)
     assert int(segs_t) == int(segs_j)
-    assert wf.LAUNCHES == 0
+    assert profiling.counts().get("launch.wavefront", 0) == 0
 
 
 @pytest.mark.parametrize("k", [1, 2])
