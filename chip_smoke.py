@@ -5,7 +5,7 @@
 
 Phases, each of which raises on failure (the script then exits non-zero):
   1. device: require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build: compile the eight CUDA sources from kernels/csrc with nvcc, one process
+  2. build: compile the nine CUDA sources from kernels/csrc with nvcc, one process
      per source, all at once; print every kernel's ptxas lines (registers, stack,
      spills) and its SASS opcode counts (cuobjdump -sass: loads by memory space,
      FP32 arithmetic and compares, branches);
@@ -83,7 +83,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      10 steps of make_kernel_optax_step (torch.optim.Adam, 5e-2) at 256², 4
      bounces, 8 spp, on fixed frames, whose loss must drop; 3 steps each of the hybrid
      (make_fast_loss_fn: megakernel forward, twin backward; exactly 2 megakernel
-     launches a step) and of make_train_step (the twin, none) at that size, the
+     launches a step) and of make_train_step (the twin, none) at that size, their
+     backwards calling the material gathers' kernel, gather_grad.cu, once for each
+     gather of the twin they reach (8 samples' 7 a render; the hybrid's backward
+     renders twice), the
      megakernel's launches in this phase being those 6; render_progressive(backend="jnp")
      at 128², 4 bounces, 16 spp, whose mean must agree with the megakernel's
      render of as many samples within 5 % (other streams, same estimator);
@@ -132,7 +135,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the megakernel against the 8-wide BVH kernel, fast scan, on sphere_field(n, 2)
      for n = 1..16 at 256², 4 bounces.
      The adjoint kernel forward-only and with gradients against its plain version
-     at 256², 4 bounces, 8 spp (bench_train.py's shape), and the three train steps
+     at 256², 4 bounces, 8 spp (bench_train.py's shape); the material gathers'
+     backward (gather_grad.cu, the port's own kernel) at the twin step's shape (the
+     Cornell box's 65,536 primary-hit mat_ids at 256² onto its (18, 3) albedo table)
+     bit for bit against its plain version and a rerun, against autograd's index_put_
+     backward of the same gather (its `library_ms`); and the three train steps
      (kernel, hybrid, twin) in ms/step (host clock around synchronize, median) and
      Mrays/s counted as bench_train.py:12-18 counts: 4 × the segments of one spp
      window for the kernel and hybrid steps, 2 × for the twin; one more step of each
@@ -493,7 +500,8 @@ def phase_checks(tables):
 COUNTERS = {"megakernel": "launch.megakernel", "wavefront": "launch.wavefront",
             "bvh_megakernel": "launch.bvh", "wide_bvh": "launch.wide_bvh",
             "grad_megakernel": "launch.grad", "trace_rays": "launch.trace_rays",
-            "ao": "launch.ao", "direct": "launch.direct", "sorted_bounce": "launch.sorted"}
+            "ao": "launch.ao", "direct": "launch.direct", "sorted_bounce": "launch.sorted",
+            "gather_grad": "launch.gather_grad"}
 _counts_base: dict = {}
 
 
@@ -646,22 +654,31 @@ def phase_train(tables):
     require(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
             f"kernel optax step: the loss did not drop: {losses}")
 
-    # The hybrid's forwards are the parity megakernel, 2 a step; its backward and the
-    # twin launch no kernel. Nothing else in this phase launches the megakernel.
-    for name, run, mk_per_step in (
-            ("hybrid make_fast_loss_fn", bench_train.hybrid_step(cornell, cfg, TRAIN_SPP), 2),
-            ("twin make_train_step", bench_train.twin_step(cornell, cfg, TRAIN_SPP), 0)):
+    # The hybrid's forwards are the parity megakernel, 2 a step, and its backward renders
+    # both through the twin; the twin step renders once. Each backward calls gather_grad
+    # once for each gather of the twin it reaches: a sample's 4 emissive and 3 albedo
+    # gathers (the last bounce's albedo feeds only the mask, which nothing reads after
+    # it). Nothing else in this phase launches the megakernel or gather_grad.
+    gathers = TRAIN_SPP * (2 * cfg.bounces - 1)
+    for name, run, per_step_want in (
+            ("hybrid make_fast_loss_fn", bench_train.hybrid_step(cornell, cfg, TRAIN_SPP),
+             (2, 2 * gathers)),
+            ("twin make_train_step", bench_train.twin_step(cornell, cfg, TRAIN_SPP),
+             (0, gathers))):
         params = inverse.extract_params(cornell, albedo=True, emissive=True)
         losses, per_step = [], set()
         for i in range(3):
-            before = read_counts()["megakernel"]
+            before = read_counts()
             params, loss = run(params, target, i)
-            per_step.add(read_counts()["megakernel"] - before)
+            after = read_counts()
+            per_step.add(tuple(after[k] - before[k] for k in ("megakernel", "gather_grad")))
             losses.append(float(loss))
         log(f"[train] {name} {TRAIN_SIZE}x{TRAIN_SIZE} b4 {TRAIN_SPP}spp, 3 steps: "
-            f"losses {[round(x, 6) for x in losses]}, megakernel launches a step {per_step}")
-        require(per_step == {mk_per_step},
-                f"{name}: megakernel launches a step {per_step}, not {mk_per_step}")
+            f"losses {[round(x, 6) for x in losses]}, (megakernel, gather_grad) launches a "
+            f"step {per_step}")
+        require(per_step == {per_step_want},
+                f"{name}: (megakernel, gather_grad) launches a step {per_step}, not "
+                f"{per_step_want}")
         require(bool(np.isfinite(losses).all())
                 and all(bool(torch.isfinite(x).all()) for x in inverse.params_leaves(params)),
                 f"{name}: a loss or a parameter is not finite")
@@ -1193,6 +1210,57 @@ def phase_grad_timing(tables):
             failed.append(mode)
     require(not failed, f"grad kernel vs plain at {TRAIN_SIZE}x{TRAIN_SIZE} failed: {failed}")
     return rows
+
+
+def phase_gather_grad_timing(tables):
+    """The material gathers' backward at the twin step's shape: the Cornell box's
+    primary-hit mat_ids at 256² (65,536 rows) onto its (18, 3) albedo table. The kernel
+    (two launches) bit for bit against its plain version and a rerun; its time against
+    the plain version's and against autograd's backward of the same gather
+    (index_put_(accumulate=True): a sort, then the duplicates of each index added in
+    series), which it replaces."""
+    import torch
+
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.kernels import gather_grad as gg
+    from oclpathtracer_tpu_torch.kernels import selfcheck
+
+    cornell = tables.scene("cornell")
+    idx = selfcheck.primary_mat_ids(cornell, RenderConfig(TRAIN_SIZE, TRAIN_SIZE))
+    table = cornell.materials.albedo.detach().clone().requires_grad_()
+    m, c = table.shape
+    grad = torch.randn((idx.shape[0], c), generator=torch.Generator("cuda").manual_seed(0),
+                       device="cuda")
+    out = table[idx]  # autograd's gather, its graph kept for the timed backwards
+
+    def autograd_backward():
+        return torch.autograd.grad(out, table, grad, retain_graph=True)[0]
+
+    ms, got = cuda_time_ms(lambda: gg.gather_grad(idx, grad, m),
+                           lambda: gg.gather_grad(idx, grad, m), calls=GRAD_TIME_CALLS)
+    again = gg.gather_grad(idx, grad, m)
+    plain_ms, want = cuda_time_ms(lambda: gg.gather_grad_plain(idx, grad, m), lambda: None,
+                                  reps=1)
+    library_ms, lib = cuda_time_ms(autograd_backward, autograd_backward, calls=GRAD_TIME_CALLS)
+    exact = torch.zeros((m, c), dtype=torch.float64, device="cuda").index_add_(
+        0, idx.long(), grad.double())
+
+    def gap(x):
+        return float((x.double() - exact).norm() / exact.norm())
+
+    row = {"name": f"gather_grad Cornell {TRAIN_SIZE}x{TRAIN_SIZE} mat_id -> ({m}, {c})",
+           "rows": idx.shape[0], "table": [m, c], "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bitwise": bool(torch.equal(got, want)),
+           "rerun_bitwise": bool(torch.equal(got, again)),
+           "max_abs_err": float((got - want).abs().max()), "gap_f64": gap(got),
+           "library_gap_f64": gap(lib)}
+    log(f"[time] {row['name']}: kernel {ms:.4f} ms (2 launches), plain {plain_ms:.1f} ms, "
+        f"autograd index_put_ backward {library_ms:.4f} ms; bitwise {row['bitwise']}, rerun "
+        f"{row['rerun_bitwise']}; off the float64 sum: kernel {row['gap_f64']:.3g}, "
+        f"index_put_ {row['library_gap_f64']:.3g}")
+    require(row["bitwise"] and row["rerun_bitwise"],
+            f"gather_grad vs its plain version or its rerun: not bit for bit: {row}")
+    return row
 
 
 def phase_trace_rays_timing(tables):
@@ -1887,6 +1955,9 @@ def kernel_bounds(tables, main_rows) -> dict:
         bounds.bvh_ops("parity", r["walk"]["boxes"] * per_seg, r["walk"]["tris"] * per_seg,
                        r["segments"]) + r["rays"] * bounds.CAMERA_OPS,
         nbytes(tb, nf, ni) + bounds.RAY_STATE_BYTES * (2 * r["segments"] - r["rays"]))
+    r = main_rows["gather_grad"]  # idx (int32) and grad (N, C) in, the (M, C) table out
+    m, c = r["table"]
+    out["gather_grad"] = bounds.bound_ms(0.0, r["rows"] * (4 + 4 * c) + m * c * 4)
     for name, (ms, by) in out.items():
         log(f"[bound] {name}: {ms:.4f} ms ({by}); kernel {main_rows[name]['ms']:.3f} ms, "
             f"roofline share {ms / main_rows[name]['ms']:.3f}")
@@ -1919,6 +1990,7 @@ def main() -> int:
     log(f"[done] integrator path at {time.perf_counter() - t0:.1f} s")
     rows = phase_timing(tables)
     grad_rows = phase_grad_timing(tables)
+    gather_row = phase_gather_grad_timing(tables)
     train_rows = phase_train_timing(tables)
     rays_row = phase_trace_rays_timing(tables)
     vertex_launch_rows = phase_vertex_launch_timing(tables)
@@ -1955,12 +2027,13 @@ def main() -> int:
                                   "oclpathtracer_tpu/kernels/grad_megakernel.py:455")
     sources["trace_rays"] = ("trace_rays.cu", "oclpathtracer_tpu/kernels/megakernel.py:1139")
     main_rows.update(ao=fast_rows["ao"], direct=fast_rows["direct"],
-                     sorted_bounce=sorted_rows["spheres5k"])
+                     sorted_bounce=sorted_rows["spheres5k"], gather_grad=gather_row)
     sources["ao"] = ("fast_integrators.cu", "oclpathtracer_tpu/kernels/fast_integrators.py:231")
     sources["direct"] = ("fast_integrators.cu",
                          "oclpathtracer_tpu/kernels/fast_integrators.py:351")
     sources["sorted_bounce"] = ("sorted_wavefront.cu",
                                 "oclpathtracer_tpu/kernels/sorted_wavefront.py:154")
+    sources["gather_grad"] = ("gather_grad.cu", None)  # the port's own: no TPU kernel
     bounds = kernel_bounds(tables, main_rows)
     # Each path is counted in its own window (counts set to 0 just before it):
     # `launches` sums the render, training, vertex, integrator, bench and sharded paths'
@@ -1989,12 +2062,14 @@ def main() -> int:
             "launches": sum(c[name] for c in paths.values()),
             "launches_by_path": {path: c[name] for path, c in paths.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": row.get("library_ms"),
             **{k: row[k] for k in ("spp", "plain_spp", "forward_ms", "forward_plain_ms", "rows",
                                     "ms_by_lanes") if k in row}, **second})
     log(f"[done] {card}; all phases passed in {time.perf_counter() - t0:.1f} s")
     print(card)  # nvidia-smi's name and power limit, as it gives them
     print(json.dumps({"timing": rows, "grad_timing": grad_rows, "train_timing": train_rows,
+                      "gather_grad_timing": gather_row,
                       "trace_rays_timing": rays_row, "vertex_launch_timing": vertex_launch_rows,
                       "vertex_timing": vertex_rows,
                       "fast_timing": fast_rows, "sorted_timing": sorted_rows,

@@ -26,6 +26,7 @@ import torch
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.core import rng
 from oclpathtracer_tpu_torch.core.brdf import eval_brdf, sample_brdf
+from oclpathtracer_tpu_torch.core.gather import gather_rows
 from oclpathtracer_tpu_torch.core.intersect import intersect_world
 from oclpathtracer_tpu_torch.diff.edge import _edge_soa, _fold, _twin_probe, rays_at
 from oclpathtracer_tpu_torch.scene.types import Scene
@@ -94,8 +95,8 @@ def _secondary_grads(scene: Scene, cfg: RenderConfig, weight, key, tri_idx: tupl
         hit = active & rec.hit
         x = rec.point
         nrm = torch.where((_dot(rec.normal, d) < 0.0)[:, None], rec.normal, -rec.normal)
-        albedo = mats.albedo[rec.mat_id]
-        rough = mats.roughness[rec.mat_id]
+        albedo = gather_rows(mats.albedo, rec.mat_id)
+        rough = gather_rows(mats.roughness, rec.mat_id)
         mty = mats.mtype[rec.mat_id]
         wo = -d
         wcur = weight * mask

@@ -16,6 +16,7 @@ from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.core import rng
 from oclpathtracer_tpu_torch.core.brdf import eval_brdf
 from oclpathtracer_tpu_torch.core.camera import generate_rays
+from oclpathtracer_tpu_torch.core.gather import gather_rows
 from oclpathtracer_tpu_torch.core.intersect import intersect_world, occluded
 from oclpathtracer_tpu_torch.integrators.ao import _pixel_ids
 from oclpathtracer_tpu_torch.scene.types import Scene
@@ -48,7 +49,7 @@ def sample_lights(scene: Scene, u_tri, u1, u2):
              + (su * (1.0 - u2))[:, None] * b
              + (su * u2)[:, None] * c)
     normal = lights.normal[li]
-    emissive = scene.materials.emissive[geom.mat_id[tri]]
+    emissive = gather_rows(scene.materials.emissive, geom.mat_id[tri])
     pdf_area = 1.0 / total  # scalar; area-uniform over all light area
     return point, normal, emissive, torch.broadcast_to(pdf_area, u_tri.shape)
 
@@ -72,9 +73,9 @@ def render_direct_sample(scene: Scene, cfg: RenderConfig, sample_idx,
     o, d = generate_rays(px, py, cfg.width, cfg.height, us[:, 0], us[:, 1], cfg.camera)
     rec = intersect_world(o, d, scene.geometry)
     mats = scene.materials
-    albedo = mats.albedo[rec.mat_id]
-    emissive = mats.emissive[rec.mat_id]
-    roughness = mats.roughness[rec.mat_id]
+    albedo = gather_rows(mats.albedo, rec.mat_id)
+    emissive = gather_rows(mats.emissive, rec.mat_id)
+    roughness = gather_rows(mats.roughness, rec.mat_id)
     mtype = mats.mtype[rec.mat_id]
     nrm = rec.normal
     nrm = torch.where((_dot(nrm, d) < 0.0)[:, None], nrm, -nrm)

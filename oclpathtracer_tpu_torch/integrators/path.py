@@ -14,6 +14,7 @@ from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.core import rng
 from oclpathtracer_tpu_torch.core.brdf import sample_brdf
 from oclpathtracer_tpu_torch.core.camera import generate_rays
+from oclpathtracer_tpu_torch.core.gather import gather_rows
 from oclpathtracer_tpu_torch.core.intersect import intersect_world
 from oclpathtracer_tpu_torch.scene.types import Scene
 
@@ -53,9 +54,9 @@ def trace_paths(o: torch.Tensor, d: torch.Tensor, scene: Scene,
         radiance = radiance + torch.where(miss[:, None], mask * bg, 0.0)
         active = active & rec.hit
 
-        albedo = mats.albedo[rec.mat_id]
-        emissive = mats.emissive[rec.mat_id]
-        roughness = mats.roughness[rec.mat_id]
+        albedo = gather_rows(mats.albedo, rec.mat_id)
+        emissive = gather_rows(mats.emissive, rec.mat_id)
+        roughness = gather_rows(mats.roughness, rec.mat_id)
         mtype = mats.mtype[rec.mat_id]
 
         # Emission with the reference's ×3 boost (GenerateColors.cl:241).

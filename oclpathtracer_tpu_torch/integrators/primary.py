@@ -11,6 +11,7 @@ import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.core.camera import generate_rays
+from oclpathtracer_tpu_torch.core.gather import gather_rows
 from oclpathtracer_tpu_torch.core.intersect import intersect_world
 from oclpathtracer_tpu_torch.scene.types import Scene
 
@@ -32,8 +33,8 @@ def render_primary(scene: Scene, cfg: RenderConfig, pixel_ids=None, jitter=None)
                          cfg.camera)
     rec = intersect_world(o, d, scene.geometry)
 
-    albedo = scene.materials.albedo[rec.mat_id]
-    emissive = scene.materials.emissive[rec.mat_id]
+    albedo = gather_rows(scene.materials.albedo, rec.mat_id)
+    emissive = gather_rows(scene.materials.emissive, rec.mat_id)
     nrm = rec.normal
     nrm = torch.where((torch.sum(nrm * d, dim=-1) < 0.0)[:, None], nrm, -nrm)
     cos = torch.clamp(torch.sum(nrm * (-d), dim=-1), min=0.0)

@@ -43,14 +43,14 @@
 //
 // Determinism: no atomics in any float sum. A thread sums its path's bounces in
 // order; the block reduces its threads' sums by a fixed shuffle tree in each warp,
-// then over the warps in order, into (n_blocks, C, 6) partials, and grad_sum adds
-// the partials over the blocks in a fixed order. Without a weight (forward only)
-// the kernel reads no weight and writes no gradients.
+// then over the warps in order, into (n_blocks, C, 6) partials, and grad_sum
+// (fixed_sum.cuh) adds the partials over the blocks in a fixed order. Without a
+// weight (forward only) the kernel reads no weight and writes no gradients.
+#include "fixed_sum.cuh"
 #include "regen.cuh"
 
 namespace opt {
 
-constexpr int WARPS = BLOCK / 32;
 constexpr int CARRIES = 9;  // floats a class: 3 carries, 6 sums
 
 template <bool GRADS, int ROUTE>
@@ -145,26 +145,6 @@ __global__ void __launch_bounds__(BLOCK)
     float sum = warp_sums[0][r];
     for (int wp = 1; wp < WARPS; ++wp) sum += warp_sums[wp][r];
     partials[(size_t)blockIdx.x * 6 * nc + r] = sum;
-  }
-}
-
-// grads[r] = the sum of partials[b][r] over the n_blocks blocks: block r of the
-// launch, thread j adding the blocks j, j + BLOCK, ... in order, then the block's
-// fixed reduction (a shuffle tree in each warp, the warps in order).
-__global__ void __launch_bounds__(BLOCK) grad_sum(const float* __restrict__ partials,
-                                                int n_blocks, int n6,
-                                                float* __restrict__ grads) {
-  __shared__ float warp_sums[WARPS];
-  const int r = blockIdx.x;
-  float v = 0.0f;
-  for (int b = threadIdx.x; b < n_blocks; b += BLOCK) v += partials[(size_t)b * n6 + r];
-  for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(0xffffffffu, v, off);
-  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float sum = warp_sums[0];
-    for (int wp = 1; wp < WARPS; ++wp) sum += warp_sums[wp];
-    grads[r] = sum;
   }
 }
 

@@ -31,8 +31,8 @@ from oclpathtracer_tpu_torch.runtime import cache
 CSRC = os.path.join(os.path.dirname(__file__), "csrc")
 SOURCES = ("megakernel.cu", "wavefront.cu", "bvh_megakernel.cu", "wide_bvh.cu",
            "grad_megakernel.cu", "trace_rays.cu", "fast_integrators.cu",
-           "sorted_wavefront.cu")
-HEADERS = ("trace.cuh", "bvh.cuh", "split.cuh", "regen.cuh")
+           "sorted_wavefront.cu", "gather_grad.cu")
+HEADERS = ("trace.cuh", "bvh.cuh", "split.cuh", "regen.cuh", "fixed_sum.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +51,7 @@ LAUNCHERS = {
     # table, nodes_f, nodes_i -> the ray state rows in place, segs, the live lists, their
     # counts, the sort keys (or None)
     "opt_sorted_bounce_launch": (3, 5),
+    "opt_gather_grad_launch": (2, 2),      # idx, grad -> partials, grad_table
 }
 
 

@@ -30,7 +30,7 @@ the fast scan) and sphere_field(80, 3) (102,404 triangles) with the JAX package'
 camera for procedural scenes; `deep_scene` (488 triangles whose leaf-32 tree is 14
 levels deep) with its own camera.
 
-Used by `chip_smoke.py` and `tests/test_torch_cuda.py`.
+Used by `chip_smoke.py`, `tests/test_torch_cuda.py` and `tests/test_torch_gather_grad.py`.
 """
 
 from __future__ import annotations
@@ -42,6 +42,8 @@ import numpy as np
 import torch
 
 from oclpathtracer_tpu_torch.config import CameraConfig, RenderConfig
+from oclpathtracer_tpu_torch.core.camera import generate_rays
+from oclpathtracer_tpu_torch.core.intersect import intersect_world
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import fast_integrators as fi
 from oclpathtracer_tpu_torch.kernels import grad_megakernel as gk
@@ -479,6 +481,18 @@ def bvh_matches_linear(tables: Tables, width, height, scene="spheres5k", scan="f
 # largest entry would pass a zeroed small class.
 GRAD_REL_TOL = 1e-4
 GRAD_FLOOR_TOL = 1e-6
+
+
+def primary_mat_ids(scene, cfg: RenderConfig) -> torch.Tensor:
+    """(n_pixels,) mat_id of each pixel's primary hit through its centre, on the scene's
+    device: the rows of the twins' first material gathers (65,536 onto the Cornell
+    box's 18 materials at 256²), which the gathers' backward kernel is checked on."""
+    dev = scene.geometry.p1.device
+    pid = torch.arange(cfg.n_pixels, device=dev)
+    half = torch.full((cfg.n_pixels,), 0.5, device=dev)
+    o, d = generate_rays(pid % cfg.width, pid // cfg.width, cfg.width, cfg.height, half, half,
+                         cfg.camera)
+    return intersect_world(o, d, scene.geometry).mat_id
 
 
 def grad_points(tables: Tables) -> dict:
