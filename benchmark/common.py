@@ -3,12 +3,14 @@ the program's segment counts, and the reference's side of a render check."""
 
 from __future__ import annotations
 
+import functools
 import gc
 import random
 
 import torch
 
 from benchmark import compare
+from benchmark.reference import culled
 from benchmark.reference import pathtrace as pt
 from benchmark.reference import scene as rs
 
@@ -16,20 +18,36 @@ from benchmark.reference import scene as rs
 MAX_START = 1 << 30
 
 
+def camera(cell) -> dict:
+    """The configuration's camera (`camera`: any of `eye`, `look`, `up`, three numbers
+    each, and `vfov_degrees`), the renderer's own default for what it leaves out."""
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in cell.config.get("camera", {}).items()}
+
+
 def program_scene(cell, device):
-    """The program's scene, read from the benchmark's copy of the scene file, and its
-    render settings."""
-    from oclpathtracer_tpu_torch.config import RenderConfig
-    from oclpathtracer_tpu_torch.scene import load_cornell_box
+    """The program's scene and its render settings: read from the benchmark's copy of
+    the scene file, or built by the port's own generator of that name."""
+    from oclpathtracer_tpu_torch.config import CameraConfig, RenderConfig
+    from oclpathtracer_tpu_torch.scene import load_cornell_box, procgen
 
     c = cell.config
-    return (load_cornell_box(cell.scene_path, device=device),
-            RenderConfig(width=c["width"], height=c["height"], bounces=c["bounces"]))
+    spec = c["scene"]
+    if isinstance(spec, dict):
+        args = {k: v for k, v in spec.items() if k != "generator"}
+        scene = getattr(procgen, spec["generator"])(**args, device=device)
+    else:
+        scene = load_cornell_box(cell.scene_path, device=device)
+    return scene, RenderConfig(width=c["width"], height=c["height"], bounces=c["bounces"],
+                               camera=CameraConfig(**camera(cell)))
 
 
 def reference_render(cell) -> pt.Render:
     c = cell.config
-    return pt.Render(c["width"], c["height"], c["bounces"])
+    cam = camera(cell)
+    if "vfov_degrees" in cam:
+        cam["vfov"] = cam.pop("vfov_degrees")
+    return pt.Render(c["width"], c["height"], c["bounces"], **cam)
 
 
 def pixel_blocks(rnd: random.Random, n_pixels: int, blocks: int, size: int) -> list:
@@ -112,16 +130,23 @@ class RenderCheck:
 
     def __init__(self, cell, starts: list, size: int):
         self.cell, self.starts, self.size = cell, starts, size
-        self.scene = rs.read_scene(cell.scene_path)
         self.render = reference_render(cell)
 
-    def sums(self, device, dtype, first: int, n: int):
-        """(float64 sums at the block pixels (P, 3), segments) of a sample range."""
-        g = pt.geometry(self.scene, device, dtype)
-        ids = block_ids(self.starts, self.size, device)
-        alb = torch.as_tensor(self.scene.albedo, device=device)
-        emi = torch.as_tensor(self.scene.emissive, device=device)
-        return pt.pixel_sums(g, self.render, ids, first, n, alb, emi)
+    @functools.cached_property
+    def scene(self) -> rs.SceneData:
+        return rs.scene_data(self.cell)
+
+    def sums(self, device, dtype, first: int, n: int, pixels=None):
+        """(float64 sums at the block pixels, or at `pixels`, (P, 3), segments) of a
+        sample range. A generated scene's hits come from `culled.py`."""
+        sd = self.scene
+        g = pt.geometry(sd, device, dtype)
+        ids = block_ids(self.starts, self.size, device) if pixels is None else pixels
+        alb = torch.as_tensor(sd.albedo, device=device)
+        emi = torch.as_tensor(sd.emissive, device=device)
+        scan = pt.nearest if sd.balls is None else functools.partial(culled.nearest,
+                                                                     balls=sd.balls)
+        return pt.pixel_sums(g, self.render, ids, first, n, alb, emi, nearest=scan)
 
     def means(self, device, dtype, ranges: dict):
         """Per range, (mean at the blocks (P, 3) float64 on the CPU, segments).

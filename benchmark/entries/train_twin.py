@@ -50,7 +50,7 @@ class TrainEntry:
         self.cell, self.seed, self.device = cell, seed, device
         self.spp, self.lr = c["spp"], c["lr"]
         self.read_every, self.first_steps = t["read_loss_every"], t["first_steps"]
-        self.sd = rs.read_scene(cell.scene_path)
+        self.sd = rs.scene_data(cell)
         self.rows = torch.as_tensor(self.groups(), device=device)
         gen = torch.Generator(device=device).manual_seed(seed)
         ta, te = materials(gen, self.sd, device, self.rows)

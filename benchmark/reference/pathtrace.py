@@ -167,13 +167,15 @@ def sample_lobe(n, d, u1, u2, rough, spec):
     return n, wi, torch.where(spec, pdf_s, pdf_d), torch.where(spec, q_s, INV_PI)
 
 
-def trace(g: Geometry, r: Render, pixel, u, albedo, emissive, clamp_grad: str = "max"):
+def trace(g: Geometry, r: Render, pixel, u, albedo, emissive, clamp_grad: str = "max",
+          nearest=nearest):
     """Trace rows to their end: (radiance (R, 3), segments (R,) int64).
 
     u: (R, 2 + 2 bounces) uniforms. albedo, emissive: (M, 3). clamp_grad: the
     derivative taken through max(radiance, 0): "max" torch.maximum's (1/2 where the
     radiance is exactly 0), "identity" 1 everywhere (the derivative of the unclamped
-    sum)."""
+    sum). nearest: (g, o, d) → (hit, t, triangle), this module's scan of every
+    triangle or one with its answers (`culled.py`)."""
     dt = g.p1.dtype
     u = u.to(dt)
     albedo, emissive = albedo.to(dt), emissive.to(dt)
@@ -218,7 +220,8 @@ def uniforms(stream: tuple, r: Render, pixel, sample):
 
 
 def pixel_sums(g: Geometry, r: Render, pixels, first_sample: int, n_samples: int,
-               albedo, emissive, stream=("lcg",), block_rows: int = BLOCK_ROWS):
+               albedo, emissive, stream=("lcg",), block_rows: int = BLOCK_ROWS,
+               nearest=nearest):
     """The float64 sums over samples first_sample .. first_sample + n_samples - 1 of
     each pixel's radiance, (P, 3), and the segments traced, without gradients."""
     sums = torch.zeros((pixels.shape[0], 3), dtype=torch.float64, device=pixels.device)
@@ -229,7 +232,8 @@ def pixel_sums(g: Geometry, r: Render, pixels, first_sample: int, n_samples: int
             s1 = min(s0 + chunk, first_sample + n_samples)
             samples = torch.arange(s0, s1, dtype=torch.int64, device=pixels.device)
             pix, smp = _rows(pixels, samples)
-            rad, sg = trace(g, r, pix, uniforms(stream, r, pix, smp), albedo, emissive)
+            rad, sg = trace(g, r, pix, uniforms(stream, r, pix, smp), albedo, emissive,
+                            nearest=nearest)
             sums += rad.double().view(pixels.shape[0], s1 - s0, 3).sum(1)
             segs += int(sg.sum())
     return sums, segs

@@ -8,6 +8,10 @@ whose file albedo is not 0.5 is the light: emissive 30, albedo 1 (:147-153). The
 materials are set by mesh index (:163-176): meshes 0-2 albedo 0.7 (the light, mesh 2,
 included), mesh 3 red 0.6, mesh 4 green 0.6, mesh 5 specular gold (.5, .35, .05) with
 roughness 0.008.
+
+`scene_data(cell)` gives a cell's scene: its file read here, or, where the
+configuration's `scene` names a generator, that generator's scene built by
+`procgen.py`.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ _LIGHT_EMISSIVE = 30.0
 
 class SceneData(NamedTuple):
     """Triangles (T, 3) float32 corners with their material index, and the material
-    records (M rows)."""
+    records (M rows); a generated scene also its triangles' bounding spheres
+    (`procgen.Balls`)."""
 
     p1: np.ndarray
     p2: np.ndarray
@@ -39,6 +44,19 @@ class SceneData(NamedTuple):
     emissive: np.ndarray   # (M, 3) float32
     roughness: np.ndarray  # (M,) float32
     mtype: np.ndarray      # (M,) int64
+    balls: object = None
+
+
+def scene_data(cell) -> SceneData:
+    """The scene of `cell`'s configuration: `scene` is a file under the benchmark's
+    folder, or {"generator": <a function of procgen.py>, its arguments...}."""
+    spec = cell.config["scene"]
+    if isinstance(spec, dict):
+        from benchmark.reference import procgen
+
+        args = {k: v for k, v in spec.items() if k != "generator"}
+        return getattr(procgen, spec["generator"])(**args)
+    return read_scene(cell.scene_path)
 
 
 def read_scene(path: str) -> SceneData:

@@ -67,6 +67,7 @@ class Run:
     trace: trace.Trace | None
     n_tris: int
     n_classes: int
+    memory_peak_bytes: int = 0
 
 
 def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
@@ -90,9 +91,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     checks = {k: {"value": v, "limit": cell.limits[k]} for k, v in numbers.items()}
     failed = sum(not (c["value"] <= c["limit"]) for c in checks.values())
 
-    sd = rs.read_scene(cell.scene_path)
+    sd = rs.scene_data(cell)
     run = Run(cell, setup_s, window, counts, tr, int(sd.p1.shape[0]),
-              int(rs.material_classes(sd).max()) + 1)
+              int(rs.material_classes(sd).max()) + 1, peak)
     metrics = {}
     for m in (cell.per_layer if traced else cell.end_to_end):
         value = spec.load_module("metrics", m["name"], cell.here).read(run)

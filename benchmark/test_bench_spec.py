@@ -13,6 +13,7 @@ import sys
 import pytest
 
 from benchmark import spec
+from benchmark.reference import scene as rs
 
 BENCH = json.load(open(os.path.join(spec.ROOT, "BENCHMARK.json")))
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -26,7 +27,7 @@ def test_every_cell_finds_its_files(name):
         assert callable(spec.load_module("metrics", m["name"]).read)
     assert "setup_s" in [m["name"] for m in cell.end_to_end]
     assert len(cell.end_to_end) >= 2 and cell.per_layer
-    assert os.path.exists(cell.scene_path) and cell.limits
+    assert rs.scene_data(cell).p1.shape[0] >= 1 and cell.limits
 
 
 def test_a_cell_added_as_files_only_is_found(tmp_path):
@@ -107,6 +108,8 @@ def test_the_reference_loads_nothing_of_the_program():
         "import sys\n"
         "import benchmark.reference.pathtrace, benchmark.reference.streams\n"
         "import benchmark.reference.scene, benchmark.compare, benchmark.counts.bounds\n"
+        "import benchmark.reference.procgen, benchmark.reference.culled\n"
+        "import benchmark.counts.spheres_102k\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & {'oclpathtracer_tpu_torch',\n"
         "      'oclpathtracer_tpu', 'jax', 'jaxlib', 'flax'}))\n")
     assert out.returncode == 0, out.stderr[-3000:]

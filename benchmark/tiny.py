@@ -11,6 +11,8 @@ def tiny_cell(name: str, bench_path: str | None = None) -> spec.Cell:
     cell = spec.load_cell(name, bench_path)
     c, t = cell.config, cell.traffic
     c.update(width=16, height=16)
+    if isinstance(c["scene"], dict):  # still past the linear kernels' size: the same backend
+        c["scene"] = {**c["scene"], "n_spheres": 8, "subdivisions": 2}
     if c["bounces"] > 4:
         c["bounces"] = 10  # still past the driver's megakernel cap: the same backend
     if "spp" in c:
