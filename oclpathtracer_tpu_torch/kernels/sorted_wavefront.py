@@ -272,8 +272,10 @@ def render_samples_sorted_stats(table, nodes_f, nodes_i, cfg: RenderConfig, star
 
 def render_sorted(scene: Scene, cfg: RenderConfig, total_spp: int, samples_per_call: int = 0,
                   leaf_size: int = 32) -> torch.Tensor:
-    """Progressive mean image via the sorted wavefront, on the scene's device."""
-    table, nodes_f, nodes_i = bk.pack_bvh_scene(scene, leaf_size=leaf_size)
+    """Progressive mean image via the sorted wavefront, on the scene's device. The
+    skip-link build of every call is the span `sorted.prepare`."""
+    with profiling.span("sorted.prepare"):
+        table, nodes_f, nodes_i = bk.pack_bvh_scene(scene, leaf_size=leaf_size)
     chunk = samples_per_call or min(total_spp, 8)
     acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=table.device)
     s = 0

@@ -11,12 +11,12 @@ mechanisms (SURVEY.md §5.1):
     (trace() context manager below)
 
 Spans (`span`, `spanned`) name the program's host code at its layer boundaries
-(`driver.*`, `kernel.*`, `train.*`, `build.*`). They follow the profiler's state:
-with no profiler running a span costs one check of it and does nothing else; under a
-profiler it is a range on the profiler's own timeline (the clock of the device
-events) and adds its calls, total and self seconds to a table in memory
-(`span_stats`), which holds the latest profiler session: it starts afresh at the
-first span under a profiler after a span that ran without one (a benchmark's
+(`driver.*`, `sorted.*`, `kernel.*`, `train.*`, `build.*`). They follow the
+profiler's state: with no profiler running a span costs one check of it and does
+nothing else; under a profiler it is a range on the profiler's own timeline (the
+clock of the device events) and adds its calls, total and self seconds to a table in
+memory (`span_stats`), which holds the latest profiler session: it starts afresh at
+the first span under a profiler after a span that ran without one (a benchmark's
 warm-up before its traced window), and where `trace` starts. Counters (`count`,
 `counts`: kernel launches `launch.<kernel>`, builds `build.<compiler>`) are plain
 host integers and always on.
