@@ -1,7 +1,12 @@
-"""Flattened BVH: host build (numpy) and a per-ray reference traversal (torch).
+"""Flattened BVH: host build (native C++, numpy) and a per-ray reference traversal
+(torch).
 
 Counterpart of `oclpathtracer_tpu.core.bvh`. The build is the JAX package's numpy
-code, so every node array, `order` and `depth` is bitwise the same:
+code, run as native C++ (`native/bvh_build.cpp`, operation for operation) where the
+library loads and the input is not one whose median split only numpy reproduces, so
+every node array, `order` and `depth` is bitwise the same either way. Each
+`build_bvh` call counts `bvh_build.native` or `bvh_build.fallback`, each `widen_bvh`
+call `bvh_widen.native` or `bvh_widen.fallback` (`runtime/profiling.count`):
 
   * pre-order depth-first layout with skip links: node i's first child is i+1 and
     `skip[i]` is the node after i's subtree, so a walk is
@@ -24,7 +29,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Geometry
+from oclpathtracer_tpu_torch.utils.errors import logger
 
 T_MAX = 1e20
 
@@ -105,12 +112,40 @@ def _sah_split(idxs: np.ndarray, centroid: np.ndarray,
     return idxs[go_left], idxs[~go_left]
 
 
+def _native():
+    """`runtime.native` where its library builds and loads, else None."""
+    try:
+        from oclpathtracer_tpu_torch.runtime import native
+
+        native.load_library()
+        return native
+    except (OSError, RuntimeError, AttributeError) as e:  # no compiler, a failed build
+        logger.debug("native BVH build unavailable (%s); building in numpy", e)
+        return None
+
+
 def build_bvh(geom: Geometry, leaf_size: int = 4, branching: int = 2) -> FlatBVH:
     """Host-side build of the flattened pre-order skip-link BVH.
 
     branching: children per internal node (a power of two), each node built as
     repeated binned-SAH splits of its largest group, so that it has at most
-    `branching` children (what widen_bvh's 8-wide groups hold)."""
+    `branching` children (what widen_bvh's 8-wide groups hold). Runs natively
+    where it can, else `build_bvh_numpy`; both give the same bits."""
+    native = _native()
+    arrays = None
+    if native is not None:
+        arrays = native.build_bvh(*(p.cpu().numpy() for p in (geom.p1, geom.p2, geom.p3)),
+                                  leaf_size, branching)
+    if arrays is None:
+        profiling.count("bvh_build.fallback")
+        return build_bvh_numpy(geom, leaf_size, branching)
+    profiling.count("bvh_build.native")
+    return FlatBVH(*(torch.from_numpy(a) for a in arrays))
+
+
+def build_bvh_numpy(geom: Geometry, leaf_size: int = 4, branching: int = 2) -> FlatBVH:
+    """`build_bvh` in numpy: the JAX package's code, the plain version of the native
+    build and the route where that declines."""
     p1 = geom.p1.cpu().numpy().astype(np.float64)
     p2 = geom.p2.cpu().numpy().astype(np.float64)
     p3 = geom.p3.cpu().numpy().astype(np.float64)
@@ -185,10 +220,31 @@ class WideBVH(NamedTuple):
 
 
 def widen_bvh(bvh: FlatBVH, max_children: int = 8) -> WideBVH:
-    """Group each internal node's children into one wide node (host, numpy).
+    """Group each internal node's children into one wide node (host). Runs natively
+    where it can, else `widen_bvh_numpy`; both give the same bits and raise the same
+    ValueError on a node with more than `max_children` children.
 
     Slot 0 is the leftmost child, so popping the lowest set bit of a group's hit
     mask visits children in the skip-link walk's pre-order."""
+    native = _native()
+    arrays = None
+    if native is not None:
+        try:
+            arrays = native.widen_bvh(*(t.numpy() for t in bvh[:5]), max_children)
+        except ValueError:
+            profiling.count("bvh_widen.native")
+            raise
+    if arrays is None:
+        profiling.count("bvh_widen.fallback")
+        return widen_bvh_numpy(bvh, max_children)
+    profiling.count("bvh_widen.native")
+    *groups, depth = arrays
+    return WideBVH(*(torch.from_numpy(x) for x in groups), bvh.order, depth)
+
+
+def widen_bvh_numpy(bvh: FlatBVH, max_children: int = 8) -> WideBVH:
+    """`widen_bvh` in numpy: the JAX package's code, the plain version of the native
+    regrouping and the route where that declines."""
     skip = bvh.skip.numpy()
     start = bvh.tri_start.numpy()
     count = bvh.tri_count.numpy()

@@ -1,7 +1,9 @@
 """Procedural scenes, the BVH build and its packed tables: the port against the JAX
-package, bit for bit; the per-ray `intersect_bvh` against JAX's and against the
-brute-force scan; and the auto driver, which sends a 564-triangle scene to the
-8-wide BVH kernel, against JAX's (its Pallas kernel in interpret mode)."""
+package, bit for bit; the native build and widening against JAX's and the port's
+numpy code, and the inputs that send them to the numpy code; the per-ray
+`intersect_bvh` against JAX's and against the brute-force scan; and the auto driver,
+which sends a 564-triangle scene to the 8-wide BVH kernel, against JAX's (its Pallas
+kernel in interpret mode)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from oclpathtracer_tpu_torch.core.intersect import intersect_world
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
 from oclpathtracer_tpu_torch.render import driver
+from oclpathtracer_tpu_torch.runtime import native, profiling
 from oclpathtracer_tpu_torch.scene import procgen
 from oclpathtracer_tpu_torch.scene.types import Geometry
 
@@ -46,14 +49,34 @@ def _assert_bitwise(port, ref):
     np.testing.assert_array_equal(got, ref)
 
 
+def _assert_same_bits(port, ref):
+    """Equal dtype, shape and bytes (so also the sign of every zero)."""
+    assert port.dtype == ref.dtype and port.shape == ref.shape
+    assert port.numpy().tobytes() == ref.numpy().tobytes()
+
+
+def _build_counts():
+    c = profiling.counts()
+    return {k: c.get(k, 0) for k in ("bvh_build.native", "bvh_build.fallback",
+                                      "bvh_widen.native", "bvh_widen.fallback")}
+
+
+def _rose(before, after):
+    return {k for k in after if after[k] != before[k]}
+
+
 @pytest.fixture(scope="module")
 def geoms(scene):
-    """(JAX geometry, port geometry) of the three build cases."""
+    """(JAX geometry, port geometry) of the build cases."""
     jsf = jprocgen.sphere_field(3, 1, seed=2)
     jrt = jprocgen.random_triangles(777, seed=3)
+    j5k = jprocgen.sphere_field()
+    j102k = jprocgen.sphere_field(80, 3)
     return {"cornell": (scene.geometry, _port(scene).geometry),
             "random777": (jrt, _port_geometry(jrt)),
-            "spheres244": (jsf.geometry, _port(jsf).geometry)}
+            "spheres244": (jsf.geometry, _port(jsf).geometry),
+            "spheres5k": (j5k.geometry, _port(j5k).geometry),
+            "spheres102k": (j102k.geometry, _port(j102k).geometry)}
 
 
 @pytest.fixture(scope="module")
@@ -84,24 +107,100 @@ def test_random_triangles_and_icosphere_bitwise():
         np.testing.assert_array_equal(t, j)
 
 
-@pytest.mark.parametrize("branching", [2, 8])
-@pytest.mark.parametrize("leaf", [4, 8, 32])
-@pytest.mark.parametrize("name", ["cornell", "random777", "spheres244"])
+BUILD_CASES = ([(name, leaf, branching) for branching in (2, 8) for leaf in (4, 8, 32)
+                for name in ("cornell", "random777", "spheres244")]
+               + [("spheres5k", leaf, branching) for branching in (2, 8) for leaf in (8, 32)]
+               + [("spheres102k", 64, 8)])
+
+
+@pytest.mark.parametrize("name,leaf,branching", BUILD_CASES,
+                         ids=[f"{n}-{leaf}-{b}" for n, leaf, b in BUILD_CASES])
 def test_build_bvh_bitwise(geoms, name, leaf, branching):
+    """The native build and widening, against JAX's and the port's numpy code; each
+    call takes the native route."""
     jgeom, tgeom = geoms[name]
     ref = jbvh.build_bvh(jgeom, leaf_size=leaf, branching=branching)
+    before = _build_counts()
     got = bvh.build_bvh(tgeom, leaf_size=leaf, branching=branching)
+    tw = bvh.widen_bvh(got)
+    assert _rose(before, _build_counts()) == {"bvh_build.native", "bvh_widen.native"}
+    assert _build_counts()["bvh_build.native"] == before["bvh_build.native"] + 1
+    plain = bvh.build_bvh_numpy(tgeom, leaf_size=leaf, branching=branching)
     for field in bvh.FlatBVH._fields:
         _assert_bitwise(getattr(got, field), getattr(ref, field))
+        _assert_same_bits(getattr(got, field), getattr(plain, field))
     assert got.num_nodes == ref.num_nodes
-    if branching == 8:
-        jw = jbvh.widen_bvh(ref)
-        tw = bvh.widen_bvh(got)
-        for field in bvh.WideBVH._fields[:-1]:
-            _assert_bitwise(getattr(tw, field), getattr(jw, field))
-        assert tw.depth == jw.depth
+    jw = jbvh.widen_bvh(ref)
+    pw = bvh.widen_bvh_numpy(plain)
+    for field in bvh.WideBVH._fields[:-1]:
+        _assert_bitwise(getattr(tw, field), getattr(jw, field))
+        _assert_same_bits(getattr(tw, field), getattr(pw, field))
+    assert tw.depth == jw.depth == pw.depth
     for t, j in zip(bvh.reorder_geometry(tgeom, got), jbvh.reorder_geometry(jgeom, ref)):
         _assert_bitwise(t, j)
+
+
+@pytest.mark.parametrize("branching", [2, 8])
+def test_build_bvh_falls_back_on_coincident_centroids(branching):
+    """40 copies of one triangle among random ones: a group of them has degenerate
+    centroids, where the numpy build takes np.argpartition's order, so the whole
+    build runs in numpy, bit for bit JAX's."""
+    jrt = jprocgen.random_triangles(300, seed=11)
+    parts = [np.asarray(x) for x in jrt]
+    at = 150
+    parts = [np.concatenate([x[:at], np.repeat(x[at:at + 1], 40, axis=0), x[at:]])
+             for x in parts]
+    jgeom = jrt._replace(**dict(zip(jrt._fields, parts)))
+    ref = jbvh.build_bvh(jgeom, leaf_size=4, branching=branching)
+    before = _build_counts()
+    got = bvh.build_bvh(_port_geometry(jgeom), leaf_size=4, branching=branching)
+    after = _build_counts()
+    assert _rose(before, after) == {"bvh_build.fallback"}
+    assert after["bvh_build.fallback"] == before["bvh_build.fallback"] + 1
+    for field in bvh.FlatBVH._fields:
+        _assert_bitwise(getattr(got, field), getattr(ref, field))
+    jw, tw = jbvh.widen_bvh(ref), bvh.widen_bvh(got)
+    for field in bvh.WideBVH._fields[:-1]:
+        _assert_bitwise(getattr(tw, field), getattr(jw, field))
+    assert tw.depth == jw.depth
+
+
+def test_build_bvh_falls_back_without_the_library(geoms, monkeypatch):
+    """Where the native library cannot be built or loaded, the build and the
+    widening run in numpy, bit for bit JAX's, and count a fallback each."""
+    def no_library():
+        raise OSError("no native library")
+
+    monkeypatch.setattr(native, "load_library", no_library)
+    jgeom, tgeom = geoms["spheres244"]
+    ref = jbvh.build_bvh(jgeom, leaf_size=8, branching=8)
+    before = _build_counts()
+    got = bvh.build_bvh(tgeom, leaf_size=8, branching=8)
+    tw = bvh.widen_bvh(got)
+    after = _build_counts()
+    assert _rose(before, after) == {"bvh_build.fallback", "bvh_widen.fallback"}
+    assert after["bvh_build.fallback"] == before["bvh_build.fallback"] + 1
+    for field in bvh.FlatBVH._fields:
+        _assert_bitwise(getattr(got, field), getattr(ref, field))
+    jw = jbvh.widen_bvh(ref)
+    for field in bvh.WideBVH._fields[:-1]:
+        _assert_bitwise(getattr(tw, field), getattr(jw, field))
+    assert tw.depth == jw.depth
+
+
+def test_native_widen_raises_on_too_many_children(geoms):
+    """A node with more children than `max_children` raises the numpy code's
+    ValueError through the native route."""
+    _, tgeom = geoms["spheres244"]
+    flat = bvh.build_bvh(tgeom, leaf_size=4, branching=8)
+    with pytest.raises(ValueError) as plain:
+        bvh.widen_bvh_numpy(flat, max_children=4)
+    before = _build_counts()
+    with pytest.raises(ValueError) as got:
+        bvh.widen_bvh(flat, max_children=4)
+    assert _rose(before, _build_counts()) == {"bvh_widen.native"}
+    assert str(got.value) == str(plain.value)
+    assert "more than 4 children" in str(got.value)
 
 
 @pytest.mark.parametrize("leaf", [4, 32])
