@@ -74,53 +74,49 @@ def _reordered(scene: Scene, leaf_size: int, branching: int):
     return bvh, scene._replace(geometry=reorder_geometry(scene.geometry, bvh))
 
 
+def _pack_bvh(scene: Scene, leaf_size: int, branching: int, scan: str):
+    """(table for `scan` in BVH leaf order with the leaf window, nodes_f, nodes_i,
+    classes), on the scene's device."""
+    bvh, rscene = _reordered(scene, leaf_size, branching)
+    dev = scene.geometry.p1.device
+    table, classes = mk.pack_for_scan(rscene, scan)
+    nodes_f, nodes_i = _pack_nodes(bvh)
+    return _pad_leaf_window(table, leaf_size), nodes_f.to(dev), nodes_i.to(dev), classes
+
+
 def pack_bvh_scene(scene: Scene, leaf_size: int = 8, branching: int = 8):
     """(table (T + leaf_size, 24) pack_scene rows in BVH leaf order, nodes_f, nodes_i),
     on the scene's device."""
-    bvh, rscene = _reordered(scene, leaf_size, branching)
-    dev = scene.geometry.p1.device
-    nodes_f, nodes_i = _pack_nodes(bvh)
-    return _pad_leaf_window(mk.pack_scene(rscene), leaf_size), nodes_f.to(dev), nodes_i.to(dev)
+    return _pack_bvh(scene, leaf_size, branching, "parity")[:3]
 
 
 def pack_bvh_scene_tp(scene: Scene, leaf_size: int = 8, branching: int = 8):
     """pack_bvh_scene for tp leaves: (table in pack_scene_tp layout, nodes_f,
     nodes_i, classes)."""
-    bvh, rscene = _reordered(scene, leaf_size, branching)
-    dev = scene.geometry.p1.device
-    table, classes = mk.pack_scene_tp(rscene)
-    nodes_f, nodes_i = _pack_nodes(bvh)
-    return _pad_leaf_window(table, leaf_size), nodes_f.to(dev), nodes_i.to(dev), classes
-
-
-def resolve_bvh_scan(scene: Scene, requested: str = "auto") -> str:
-    """auto = the fastest leaf test the scene supports (tp, else fast, else parity);
-    an explicit 'tp' or 'fast' is validated and raises ValueError on a scene it
-    can't encode."""
-    if requested == "auto":
-        return mk.resolve_scan(scene, "auto")
-    if requested == "tp" and not mk.tp_scan_supported(scene):
-        raise ValueError("scan='tp' requested but tp_scan_supported(scene) is False; "
-                         "use scan='auto' to fall back")
-    if requested == "fast" and not mk.fast_scan_supported(scene):
-        raise ValueError("scan='fast' requested but the scene fails fast_scan_supported; "
-                         "use scan='auto'")
-    if requested not in ("parity", "fast", "tp"):
-        raise ValueError(f"scan must be 'auto', 'parity', 'fast' or 'tp', got {requested!r}")
-    return requested
+    return _pack_bvh(scene, leaf_size, branching, "tp")
 
 
 def prepare_bvh_scan(scene: Scene, requested: str = "auto", leaf_size: int = 8,
                      branching: int = 8):
-    """Resolve the scan and build the BVH tables: (scan, table, nodes_f, nodes_i,
+    """megakernel.checked_scan and the BVH tables: (scan, table, nodes_f, nodes_i,
     emi_const, classes), the arguments render_samples_bvh_stats takes."""
-    scan = resolve_bvh_scan(scene, requested)
-    if scan == "tp":
-        table, nodes_f, nodes_i, classes = pack_bvh_scene_tp(scene, leaf_size, branching)
-        return scan, table, nodes_f, nodes_i, mk.NO_EMI, classes
-    emi = mk.scene_emissive_const(scene) if scan == "fast" else mk.NO_EMI
-    table, nodes_f, nodes_i = pack_bvh_scene(scene, leaf_size, branching)
-    return scan, table, nodes_f, nodes_i, emi, ()
+    scan, emi = mk.checked_scan(scene, requested)
+    table, nodes_f, nodes_i, classes = _pack_bvh(scene, leaf_size, branching, scan)
+    return scan, table, nodes_f, nodes_i, emi, classes
+
+
+def prepare_chunks(scene: Scene, cfg: RenderConfig, scan: str = "auto", leaf_size: int = 8):
+    """The tables at `leaf_size`, made once (prepare_bvh_scan), and the chunk, as
+    megakernel.prepare_chunks."""
+    scan, table, nodes_f, nodes_i, emi, classes = prepare_bvh_scan(scene, scan,
+                                                                   leaf_size=leaf_size)
+
+    def chunk(start: int, n: int):
+        return render_samples_bvh_stats(table, nodes_f, nodes_i, cfg, start, n,
+                                        max_leaf=leaf_size, scan=scan, emi_const=emi,
+                                        classes=classes)
+
+    return chunk
 
 
 # ---- plain PyTorch version -------------------------------------------------------
@@ -293,16 +289,5 @@ def render_samples_bvh_stats(table, nodes_f, nodes_i, cfg: RenderConfig, start_s
 def render_bvh(scene: Scene, cfg: RenderConfig, total_spp: int, samples_per_call: int = 0,
                leaf_size: int = 8, scan: str = "auto") -> torch.Tensor:
     """Progressive mean image via the BVH megakernel, on the scene's device."""
-    scan, table, nodes_f, nodes_i, emi, classes = prepare_bvh_scan(scene, scan,
-                                                                   leaf_size=leaf_size)
-    chunk = samples_per_call or total_spp
-    acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=table.device)
-    s = 0
-    while s < total_spp:
-        n = min(chunk, total_spp - s)
-        img, _ = render_samples_bvh_stats(table, nodes_f, nodes_i, cfg, s, n,
-                                          max_leaf=leaf_size, scan=scan, emi_const=emi,
-                                          classes=classes)
-        acc = acc + img
-        s += n
-    return acc / total_spp
+    return mk.mean_of_chunks(prepare_chunks(scene, cfg, scan, leaf_size), cfg, total_spp,
+                             samples_per_call or total_spp, scene.geometry.p1.device)

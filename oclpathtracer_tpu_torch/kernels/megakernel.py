@@ -256,31 +256,33 @@ def resolve_scan(scene: Scene, requested: str = "auto") -> str:
 NO_EMI = (0.0, 0.0, 0.0)
 
 
-def prepare_scan(scene: Scene, requested: str = "auto"):
-    """Resolve the scan and pack its table: (scan, table, emi_const, classes), the
-    JAX package's tuple: the kernels' `scan`, table, `emi_const` (the fast scan's
-    shared emitter RGB, else zeros) and `classes` (tp's, else ()).
-
-    An explicitly requested 'tp' or 'fast' is validated against its support
-    predicate and raises ValueError on a scene it can't encode."""
+def checked_scan(scene: Scene, requested: str = "auto"):
+    """(scan, emi_const), resolve_scan's scan and the fast scan's emitter RGB (else
+    NO_EMI), for every kernel's preparation: an explicit 'tp' or 'fast' the scene
+    can't encode, or a name that is no scan, raises ValueError."""
     scan = resolve_scan(scene, requested)
-    if scan == "tp":
-        if requested == "tp" and not tp_scan_supported(scene):
-            raise ValueError(
-                "scan='tp' requested but tp_scan_supported(scene) is False; "
-                "use scan='auto' to fall back")
-        table, classes = pack_scene_tp(scene)
-        return scan, table, NO_EMI, classes
-    if scan == "fast":
-        if not fast_scan_supported(scene):
-            raise ValueError(
-                "scan='fast' requested but fast_scan_supported(scene) is False "
-                "(emitters with differing RGBs, roughness >= 4, or mtype not "
-                "diffuse/specular); use scan='auto' to fall back")
-        return scan, pack_scene(scene), scene_emissive_const(scene), ()
-    if scan != "parity":
+    if requested == "tp" and not tp_scan_supported(scene):
+        raise ValueError("scan='tp' requested but tp_scan_supported(scene) is False; "
+                         "use scan='auto' to fall back")
+    if requested == "fast" and not fast_scan_supported(scene):
+        raise ValueError("scan='fast' requested but fast_scan_supported(scene) is False "
+                         "(emitters with differing RGBs, roughness >= 4, or mtype not "
+                         "diffuse/specular); use scan='auto' to fall back")
+    if scan not in ("parity", "fast", "tp"):
         raise ValueError(f"scan must be 'auto', 'parity', 'fast' or 'tp', got {scan!r}")
-    return scan, pack_scene(scene), NO_EMI, ()
+    return scan, scene_emissive_const(scene) if scan == "fast" else NO_EMI
+
+
+def pack_for_scan(scene: Scene, scan: str):
+    """(table, classes) for a resolved scan: pack_scene_tp's, else (pack_scene, ())."""
+    return pack_scene_tp(scene) if scan == "tp" else (pack_scene(scene), ())
+
+
+def prepare_scan(scene: Scene, requested: str = "auto"):
+    """checked_scan and its table: (scan, table, emi_const, classes), the JAX tuple."""
+    scan, emi = checked_scan(scene, requested)
+    table, classes = pack_for_scan(scene, scan)
+    return scan, table, emi, classes
 
 
 # ---- launch parameters shared by both kernels and their plain versions --------
@@ -903,21 +905,39 @@ def render_samples_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: 
     return img
 
 
+def prepare_chunks(scene: Scene, cfg: RenderConfig, scan: str = "auto"):
+    """The tables, made once (prepare_scan, tp0_table_for), and the chunk (start, n) →
+    (SUM image (n_pixels, 3) of samples start .. start + n - 1, segments () int64)."""
+    scan, table, emi, classes = prepare_scan(scene, scan)
+    tp0_table = tp0_table_for(table, cfg, scan)
+
+    def chunk(start: int, n: int):
+        return render_samples_pallas_stats(table, cfg, start, n, scan=scan, classes=classes,
+                                           tp0_table=tp0_table, emi_const=emi)
+
+    return chunk
+
+
+def mean_of_chunks(chunk, cfg: RenderConfig, total_spp: int, samples_per_call: int,
+                   device) -> torch.Tensor:
+    """Mean image of samples 0 .. total_spp - 1 on `device`: a prepare_chunks chunk's
+    images of samples_per_call samples (the last call takes the samples left) added
+    in order to zeros, divided by total_spp."""
+    acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=device)
+    s = 0
+    while s < total_spp:
+        n = min(samples_per_call, total_spp - s)
+        acc = acc + chunk(s, n)[0]
+        s += n
+    return acc / total_spp
+
+
 def render_pallas(scene: Scene, cfg: RenderConfig, total_spp: int,
                   samples_per_call: int = 0, scan: str = "auto") -> torch.Tensor:
     """Progressive mean image via the megakernel (host loop over sample chunks), on
     the scene's device."""
-    scan, table, emi, classes = prepare_scan(scene, scan)
-    tp0_table = tp0_table_for(table, cfg, scan)
-    chunk = samples_per_call or total_spp
-    acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=table.device)
-    s = 0
-    while s < total_spp:
-        n = min(chunk, total_spp - s)
-        acc = acc + render_samples_pallas(table, cfg, s, n, scan=scan, classes=classes,
-                                          tp0_table=tp0_table, emi_const=emi)
-        s += n
-    return acc / total_spp
+    return mean_of_chunks(prepare_chunks(scene, cfg, scan), cfg, total_spp,
+                          samples_per_call or total_spp, scene.geometry.p1.device)
 
 
 # ---- arbitrary rays: the boundary estimators' probes ------------------------------

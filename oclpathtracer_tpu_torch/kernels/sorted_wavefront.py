@@ -270,19 +270,22 @@ def render_samples_sorted_stats(table, nodes_f, nodes_i, cfg: RenderConfig, star
                                 n_samples, max_leaf, sort)
 
 
+def prepare_chunks(scene: Scene, cfg: RenderConfig, leaf_size: int = 32):
+    """The skip-link build at `leaf_size` (the span `sorted.prepare`) and the chunk, as
+    megakernel.prepare_chunks."""
+    with profiling.span("sorted.prepare"):
+        table, nodes_f, nodes_i = bk.pack_bvh_scene(scene, leaf_size=leaf_size)
+
+    def chunk(start: int, n: int):
+        return render_samples_sorted_stats(table, nodes_f, nodes_i, cfg, start, n,
+                                           max_leaf=leaf_size)
+
+    return chunk
+
+
 def render_sorted(scene: Scene, cfg: RenderConfig, total_spp: int, samples_per_call: int = 0,
                   leaf_size: int = 32) -> torch.Tensor:
     """Progressive mean image via the sorted wavefront, on the scene's device. The
     skip-link build of every call is the span `sorted.prepare`."""
-    with profiling.span("sorted.prepare"):
-        table, nodes_f, nodes_i = bk.pack_bvh_scene(scene, leaf_size=leaf_size)
-    chunk = samples_per_call or min(total_spp, 8)
-    acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=table.device)
-    s = 0
-    while s < total_spp:
-        n = min(chunk, total_spp - s)
-        img, _ = render_samples_sorted_stats(table, nodes_f, nodes_i, cfg, s, n,
-                                             max_leaf=leaf_size)
-        acc = acc + img
-        s += n
-    return acc / total_spp
+    return mk.mean_of_chunks(prepare_chunks(scene, cfg, leaf_size), cfg, total_spp,
+                             samples_per_call or min(total_spp, 8), scene.geometry.p1.device)

@@ -35,6 +35,7 @@ from oclpathtracer_tpu_torch.kernels.megakernel import (
     check_run,
     host_params,
     linear_nearest,
+    mean_of_chunks,
     prepare_scan,
     split_buffers,
 )
@@ -125,20 +126,23 @@ def render_samples_wavefront_stats(table: torch.Tensor, cfg: RenderConfig,
     return out, counters[0]
 
 
+def prepare_chunks(scene: Scene, cfg: RenderConfig, scan: str = "auto", interleave: int = 1):
+    """The tables, made once (prepare_scan, scan_table), and the chunk at `interleave`,
+    as megakernel.prepare_chunks."""
+    scan, table, emi, classes = prepare_scan(scene, scan)
+    scan_tbl = scan_table(table, scan)
+
+    def chunk(start: int, n: int):
+        return render_samples_wavefront_stats(table, cfg, start, n, interleave=interleave,
+                                              scan=scan, classes=classes, emi_const=emi,
+                                              scan_tbl=scan_tbl)
+
+    return chunk
+
+
 def render_wavefront(scene: Scene, cfg: RenderConfig, total_spp: int,
                      samples_per_call: int = 0, scan: str = "auto",
                      interleave: int = 1) -> torch.Tensor:
     """Progressive mean image via the path-regeneration kernel, on the scene's device."""
-    scan, table, emi, classes = prepare_scan(scene, scan)
-    scan_tbl = scan_table(table, scan)
-    chunk = samples_per_call or total_spp
-    acc = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=table.device)
-    s = 0
-    while s < total_spp:
-        n = min(chunk, total_spp - s)
-        img, _ = render_samples_wavefront_stats(table, cfg, s, n, interleave=interleave,
-                                                scan=scan, classes=classes, emi_const=emi,
-                                                scan_tbl=scan_tbl)
-        acc = acc + img
-        s += n
-    return acc / total_spp
+    return mean_of_chunks(prepare_chunks(scene, cfg, scan, interleave), cfg, total_spp,
+                          samples_per_call or total_spp, scene.geometry.p1.device)

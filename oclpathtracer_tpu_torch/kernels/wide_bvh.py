@@ -17,7 +17,7 @@ the same order: the wide kernel gives the skip-link kernel's bits. The stack has
 `depth` levels, the tree's own (pack_wide_bvh_scene's `depth`): the plain version
 sizes its stack from it and never skips a push, and the kernel holds it in shared
 memory, depth × 4 bytes × 128 threads a block, so any tree up to WIDE_MAX_DEPTH
-(454) levels; the wrapper raises ValueError beyond, and render/driver.py sends such
+(454) levels; the wrapper raises ValueError beyond, and `prepare_chunks` sends such
 a tree to the skip-link kernel. The JAX kernel's 900 KB SMEM limit is a TPU limit
 and is not copied.
 
@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
-from oclpathtracer_tpu_torch.core.bvh import build_bvh, reorder_geometry, widen_bvh
+from oclpathtracer_tpu_torch.core.bvh import widen_bvh
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.runtime import profiling
@@ -54,14 +54,9 @@ def pack_wide_bvh_scene(scene: Scene, leaf_size: int = 32, scan: str = "parity")
     """(table, wn_f (G, 8, 6) f32, wn_i (G, 8, 3) i32, depth, classes), on the scene's
     device: the build and leaf order of pack_bvh_scene (branching 8), regrouped.
     The table follows the scan (pack_scene_tp's for tp, else pack_scene's)."""
-    bvh = build_bvh(scene.geometry, leaf_size=leaf_size, branching=WIDE)
+    bvh, rscene = bk._reordered(scene, leaf_size, WIDE)
     wide = widen_bvh(bvh, WIDE)
-    rscene = scene._replace(geometry=reorder_geometry(scene.geometry, bvh))
-    classes = ()
-    if scan == "tp":
-        table, classes = mk.pack_scene_tp(rscene)
-    else:
-        table = mk.pack_scene(rscene)
+    table, classes = mk.pack_for_scan(rscene, scan)
     dev = scene.geometry.p1.device
     wn_f = torch.cat([wide.child_min, wide.child_max], -1).to(dev)
     wn_i = torch.stack([wide.child_kind, wide.child_a, wide.child_b], -1).to(dev)
@@ -73,6 +68,23 @@ def group_record(wn_f: torch.Tensor, wn_i: torch.Tensor):
     values with the slot index last, the rows bmin.x … bmax.z and kind, a, b of a
     group's 8 slots. Made once per pack_wide_bvh_scene result."""
     return wn_f.transpose(1, 2).contiguous(), wn_i.transpose(1, 2).contiguous()
+
+
+def prepare_chunks(scene: Scene, cfg: RenderConfig, scan: str = "auto", leaf_size: int = 32):
+    """The tables at `leaf_size`, made once, and the chunk, as megakernel.prepare_chunks;
+    a tree deeper than WIDE_MAX_DEPTH gets the skip-link kernel's (the same bits)."""
+    scan, emi = mk.checked_scan(scene, scan)
+    table, wn_f, wn_i, depth, classes = pack_wide_bvh_scene(scene, leaf_size, scan)
+    if depth > WIDE_MAX_DEPTH:
+        return bk.prepare_chunks(scene, cfg, scan, leaf_size)
+    record = group_record(wn_f, wn_i)
+
+    def chunk(start: int, n: int):
+        return render_samples_wide_bvh_stats(table, wn_f, wn_i, cfg, start, n,
+                                             max_leaf=leaf_size, max_depth=depth, scan=scan,
+                                             emi_const=emi, classes=classes, record=record)
+
+    return chunk
 
 
 # ---- plain PyTorch version -------------------------------------------------------

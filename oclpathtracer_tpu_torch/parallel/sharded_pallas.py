@@ -85,17 +85,13 @@ def render_pallas_sharded(scene: Scene, cfg: RenderConfig, mesh: Mesh, total_spp
     """Progressive mean image over the mesh via the megakernel, on the first entry's
     device; a last chunk shorter than samples_per_call takes the samples left."""
     scan, table, emi, classes = mk.prepare_scan(scene, scan)
-    chunk = samples_per_call or total_spp
-    step = make_sharded_kernel_step(cfg, mesh, chunk, scan=scan, emi_const=emi,
-                                    classes=classes)
-    acc = None
-    s = 0
-    while s < total_spp:
-        n = min(chunk, total_spp - s)
-        if n != chunk:
-            step = make_sharded_kernel_step(cfg, mesh, n, scan=scan, emi_const=emi,
-                                            classes=classes)
-        img, _ = step(table, s)
-        acc = img if acc is None else acc + img
-        s += n
-    return acc / total_spp
+    steps = {}  # samples a call → its step
+
+    def chunk(start: int, n: int):
+        if n not in steps:
+            steps[n] = make_sharded_kernel_step(cfg, mesh, n, scan=scan, emi_const=emi,
+                                                classes=classes)
+        return steps[n](table, start)
+
+    return mk.mean_of_chunks(chunk, cfg, total_spp, samples_per_call or total_spp,
+                             tile_devices(mesh)[0])

@@ -1,7 +1,7 @@
 """Progressive render driver (counterpart of `oclpathtracer_tpu.render.driver`).
 
 The host loops over S-sample chunks, folded into a linear accumulator on the device.
-On the kernel backends each chunk is one kernel launch that returns the chunk's
+On the kernel backends a chunk is the picked kernel's `prepare_chunks` chunk, its
 per-pixel sum; on the "jnp" backend (the JAX default) a chunk is S samples of the
 batched torch integrator on threefry streams. The accumulator plus the next sample
 index is the checkpoint.
@@ -16,6 +16,10 @@ import torch
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.core import rng
 from oclpathtracer_tpu_torch.integrators.path import render_sample
+from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
+from oclpathtracer_tpu_torch.kernels import megakernel as mk
+from oclpathtracer_tpu_torch.kernels import wavefront as wf
+from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
 from oclpathtracer_tpu_torch.render import checkpoint as ckpt
 from oclpathtracer_tpu_torch.render.accumulate import Accumulator
 from oclpathtracer_tpu_torch.runtime import profiling
@@ -57,112 +61,44 @@ def make_render_step(cfg: RenderConfig, samples_per_step: int,
 
 
 def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: int,
-                            backend: str = "auto", scan: str = "auto",
-                            bvh_leaf: int = BVH_LEAF):
-    """Build a step (Accumulator, start_sample) → Accumulator over one of the kernels.
-
-    backend ∈ {auto, pallas, wavefront, bvh, widebvh}: auto picks the 8-wide BVH
-    kernel ("widebvh") above LINEAR_KERNEL_MAX_TRIS triangles, else the megakernel
-    ("pallas") up to MEGAKERNEL_MAX_BOUNCES and the path-regeneration kernel
-    ("wavefront") beyond; "bvh" is the skip-link walk (leaf size `bvh_leaf`).
-    "widebvh" on a tree deeper than the wide kernel's stack (wide_bvh.WIDE_MAX_DEPTH
-    levels) renders with the skip-link kernel on the same build, which gives the
-    same bits; the depth decides before any launch. scan ∈ {auto, parity, fast,
-    tp}: auto is the fastest scan the scene's materials support, for every backend.
-    The kernels use the reference RNG keyed by absolute (pixel, sample); there is no
-    seed. The build is the span `driver.prepare`, each step `driver.step`.
-    """
+                            backend: str = "auto", scan: str = "auto"):
+    """Build a step (Accumulator, start_sample) → Accumulator that adds prepare_chunks'
+    chunk of samples_per_step samples. The kernels key the reference RNG on absolute
+    (pixel, sample): no seed. The build is the span `driver.prepare`, a step
+    `driver.step`."""
     with profiling.span("driver.prepare"):
-        chunk = _kernel_chunk(scene, cfg, samples_per_step, backend, scan, bvh_leaf)
+        chunk = prepare_chunks(scene, cfg, backend, scan)
 
     @profiling.spanned("driver.step")
     def step(acc: Accumulator, start_sample: int) -> Accumulator:
-        return acc.add_sum(chunk(start_sample), samples_per_step)
+        return acc.add_sum(chunk(start_sample, samples_per_step)[0], samples_per_step)
 
     return step
 
 
-def _kernel_chunk(scene: Scene, cfg: RenderConfig, samples_per_step: int, backend: str,
-                  scan: str, bvh_leaf: int):
-    """make_kernel_render_step's build: the chunk start_sample → the SUM image of
-    samples_per_step samples, on the picked kernel with its tables made."""
-    from oclpathtracer_tpu_torch.kernels.megakernel import prepare_scan
-
+def prepare_chunks(scene: Scene, cfg: RenderConfig, backend: str = "auto",
+                   scan: str = "auto"):
+    """The picked kernel's prepare_chunks: its tables, made once, and its chunk (start,
+    n) → (SUM image (n_pixels, 3), segments () int64). backend ∈ {auto, pallas,
+    wavefront, bvh, widebvh}: auto picks "widebvh" (the 8-wide BVH kernel) above
+    LINEAR_KERNEL_MAX_TRIS triangles, else "pallas" (the megakernel) up to
+    MEGAKERNEL_MAX_BOUNCES and "wavefront" (path regeneration) beyond; "bvh" is the
+    skip-link walk at BVH_LEAF. "widebvh" renders a tree deeper than its stack with
+    the skip-link kernel on the same build (the same bits). scan ∈ {auto, parity,
+    fast, tp}: auto is the fastest scan the scene's materials support."""
     n_tris = int(scene.geometry.p1.shape[0])
     if backend == "auto":
         if n_tris > LINEAR_KERNEL_MAX_TRIS:
             backend = "widebvh"
         else:
             backend = "wavefront" if cfg.bounces > MEGAKERNEL_MAX_BOUNCES else "pallas"
-
-    if backend == "pallas":
-        from oclpathtracer_tpu_torch.kernels.megakernel import (
-            render_samples_pallas_stats,
-            tp0_table_for,
-        )
-
-        scan, table, emi, classes = prepare_scan(scene, scan)
-        tp0_table = tp0_table_for(table, cfg, scan)
-
-        def chunk(start):
-            img, _ = render_samples_pallas_stats(table, cfg, start, samples_per_step,
-                                                 scan=scan, classes=classes,
-                                                 tp0_table=tp0_table, emi_const=emi)
-            return img
-    elif backend == "wavefront":
-        from oclpathtracer_tpu_torch.kernels.wavefront import (
-            render_samples_wavefront_stats,
-            scan_table,
-        )
-
-        scan, table, emi, classes = prepare_scan(scene, scan)
-        scan_tbl = scan_table(table, scan)
-
-        def chunk(start):
-            img, _ = render_samples_wavefront_stats(table, cfg, start, samples_per_step,
-                                                    scan=scan, classes=classes,
-                                                    emi_const=emi, scan_tbl=scan_tbl)
-            return img
-    elif backend == "widebvh":
-        from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
-        from oclpathtracer_tpu_torch.kernels.bvh_megakernel import resolve_bvh_scan
-        from oclpathtracer_tpu_torch.kernels.megakernel import NO_EMI, scene_emissive_const
-
-        leaf = 32 if n_tris <= WIDE_BVH_LEAF_SWITCH_TRIS else 64
-        scan = resolve_bvh_scan(scene, scan)
-        emi = scene_emissive_const(scene) if scan == "fast" else NO_EMI
-        wtable, wn_f, wn_i, depth, classes = wb.pack_wide_bvh_scene(scene, leaf_size=leaf,
-                                                                    scan=scan)
-        if depth > wb.WIDE_MAX_DEPTH:
-            # Deeper than the kernel's shared-memory stack: the skip-link kernel on the
-            # same build gives the same bits and needs no stack.
-            return _kernel_chunk(scene, cfg, samples_per_step, "bvh", scan, leaf)
-        record = wb.group_record(wn_f, wn_i)
-
-        def chunk(start):
-            img, _ = wb.render_samples_wide_bvh_stats(wtable, wn_f, wn_i, cfg, start,
-                                                      samples_per_step, max_leaf=leaf,
-                                                      max_depth=depth, scan=scan,
-                                                      emi_const=emi, classes=classes,
-                                                      record=record)
-            return img
-    elif backend == "bvh":
-        from oclpathtracer_tpu_torch.kernels.bvh_megakernel import (
-            prepare_bvh_scan,
-            render_samples_bvh_stats,
-        )
-
-        scan, table, nodes_f, nodes_i, emi, classes = prepare_bvh_scan(scene, scan,
-                                                                       leaf_size=bvh_leaf)
-
-        def chunk(start):
-            img, _ = render_samples_bvh_stats(table, nodes_f, nodes_i, cfg, start,
-                                              samples_per_step, max_leaf=bvh_leaf,
-                                              scan=scan, emi_const=emi, classes=classes)
-            return img
-    else:
+    wide_leaf = 32 if n_tris <= WIDE_BVH_LEAF_SWITCH_TRIS else 64
+    prepares = {"pallas": mk.prepare_chunks, "wavefront": wf.prepare_chunks,
+                "bvh": lambda *a: bk.prepare_chunks(*a, leaf_size=BVH_LEAF),
+                "widebvh": lambda *a: wb.prepare_chunks(*a, leaf_size=wide_leaf)}
+    if backend not in prepares:
         raise ValueError(f"unknown kernel backend {backend!r}")
-    return chunk
+    return prepares[backend](scene, cfg, scan)
 
 
 def render_progressive(scene: Scene, cfg: RenderConfig, total_spp: int,

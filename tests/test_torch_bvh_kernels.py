@@ -29,6 +29,7 @@ from oclpathtracer_tpu_torch.convert import scene_from_numpy
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
+from oclpathtracer_tpu_torch.render import driver
 from oclpathtracer_tpu_torch.runtime import profiling
 
 torch.set_num_threads(1)
@@ -167,3 +168,33 @@ def test_bvh_wrappers_reject_bad_tables(scenes):
                                          max_depth=depth)
     with pytest.raises(ValueError):
         bk.prepare_bvh_scan(tscene, "bogus")
+
+
+def _with_material_0(scene, **fields):
+    """The scene with material 0's `fields` replaced."""
+    m = scene.materials
+    changed = {k: getattr(m, k).clone() for k in fields}
+    for k, v in fields.items():
+        changed[k][0] = v
+    return scene._replace(materials=m._replace(**changed))
+
+
+@pytest.mark.parametrize("prepare", ["linear", "bvh", "widebvh"])
+@pytest.mark.parametrize("change,scan", [({"mtype": 3}, "tp"), ({"mtype": 3}, "fast"),
+                                         ({"roughness": 5.0}, "fast")])
+def test_every_prepare_refuses_an_explicit_scan_the_scene_cannot_encode(scenes, prepare,
+                                                                        change, scan):
+    """prepare_scan, prepare_bvh_scan and the driver's widebvh route resolve an explicit
+    scan in one place (megakernel.checked_scan): where prepare_scan raises ValueError on
+    the Cornell box with material 0 changed, each of them raises it."""
+    bad = _with_material_0(scenes["cornell"][1], **change)
+    supported = mk.tp_scan_supported if scan == "tp" else mk.fast_scan_supported
+    assert supported(scenes["cornell"][1]) and not supported(bad)
+    with pytest.raises(ValueError, match=f"scan='{scan}' requested"):
+        mk.prepare_scan(bad, scan)
+    run = {"linear": lambda: mk.prepare_scan(bad, scan),
+           "bvh": lambda: bk.prepare_bvh_scan(bad, scan, leaf_size=4),
+           "widebvh": lambda: driver.render_progressive(bad, RenderConfig(4, 4, bounces=1), 1,
+                                                        backend="widebvh", scan=scan)}[prepare]
+    with pytest.raises(ValueError, match=f"scan='{scan}' requested"):
+        run()
