@@ -125,15 +125,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
      versions; each run queued behind a 0.1 s spin kernel, so that the events time
      the device's work and not the host's launch work between kernels) of each
      kernel and its plain version at the main path's launch
-     shape (512², 64 samples per launch; the BVH kernels' plain versions at 1
+     shape (512², 64 samples per launch; the BVH kernels on sphere_field() and
+     sphere_field(80, 3), the 8-wide one at render/driver.py's leaf, the skip-link one
+     at leaf 32 and 64, their plain versions at 1
      sample, against the kernel at 1 sample), as Mrays/s = traced segments per
      second; the two results of each pair are held against each other by phase
      3's rule (the skip-link kernel bit for bit); the wavefront (tp) also with runs
      of 1, 4 and 64 samples a lane, the megakernel (tp with the tp0 peel, and parity) with runs of 1, 2, 4, 8 and 64,
      and the SM clock and power draw (nvidia-smi, every 100 ms)
      over 200 back-to-back megakernel launches. Then the linear-vs-BVH crossover:
-     the megakernel against the 8-wide BVH kernel, fast scan, on sphere_field(n, 2)
-     for n = 1..16 at 256², 4 bounces.
+     the megakernel against the 8-wide BVH kernel at render/driver.py's leaf, fast
+     scan, on sphere_field(n, 2) for n = 1..16 at 256², 4 bounces.
      The adjoint kernel forward-only and with gradients against its plain version
      at 256², 4 bounces, 8 spp (bench_train.py's shape); the material gathers'
      backward (gather_grad.cu, the port's own kernel) at the twin step's shape (the
@@ -208,8 +210,8 @@ counts and, for the BVH walks (the sorted wavefront's too), the boxes and leaf
 triangles their plain versions tested, per segment, at the timed shape, and for AO
 and direct the rays, eye rows and any-hit triangles theirs counted), `library_ms` null (no
 PyTorch call computes a path trace, AO or NEE) and its launches on each path; the
-BVH kernels also their time and bound at sphere_field(80, 3) (`ms_102k`,
-`bound_ms_102k`), the adjoint kernel its forward-only launch's bound
+BVH kernels also their leaf, and their time and bound at sphere_field(80, 3) (`ms_102k`,
+`bound_ms_102k`, `leaf_102k`), the adjoint kernel its forward-only launch's bound
 (`forward_bound_ms`), the megakernel and trace_rays theirs at the vertex recovery
 step's launches (`ms_vertex_step`, `plain_ms_vertex_step`, `bound_ms_vertex_step`:
 sums over its `launches_vertex_step` launches).
@@ -1085,6 +1087,7 @@ def phase_timing(tables):
     from oclpathtracer_tpu_torch.config import RenderConfig
     from oclpathtracer_tpu_torch.kernels import megakernel as mk
     from oclpathtracer_tpu_torch.kernels.selfcheck import Case, run
+    from oclpathtracer_tpu_torch.render import driver
 
     rows, failed = [], []
     for kernel, scan, bounces in (("megakernel", "parity", 4), ("megakernel", "tp", 4),
@@ -1142,14 +1145,15 @@ def phase_timing(tables):
     log(f"[time] SM clock and power over {clock['launches']} back-to-back launches of the last "
         f"megakernel case: {clock}")
     rows.append({"name": "megakernel clock", **clock})
-    for scene, leaf in (("spheres5k", 32), ("spheres102k", 64)):
-        for kernel in ("bvh", "widebvh"):
+    for scene, skip_leaf in (("spheres5k", 32), ("spheres102k", 64)):
+        wide_leaf = driver.wide_leaf(int(tables.scene(scene).num_triangles))
+        for kernel, leaf in (("bvh", skip_leaf), ("widebvh", wide_leaf)):
             case = Case(kernel, "fast", 512, 512, 16, scene=scene, leaf=leaf)
             row = time_pair(f"{kernel} fast leaf {leaf} {scene} 512x512 b16",
                             lambda n, c=case: run(c, tables, start=TIME_START, n=n),
                             lambda n, c=case: run(c, tables, plain=True, start=TIME_START, n=n),
                             MAIN_STEP, 1, rows, failed, kernel=kernel, scan="fast", bounces=16,
-                            scene=scene)
+                            scene=scene, leaf=leaf)
             if kernel == "bvh" and not row["bitwise"]:  # the skip-link kernel: bit for bit
                 failed.append(f"{row['name']}: not bit for bit")
     require(not failed, f"kernel vs plain at the main path's shapes failed: {failed}")
@@ -1868,27 +1872,32 @@ def phase_sharded(tables):
 
 
 def phase_crossover(tables):
-    """Linear megakernel vs 8-wide BVH kernel (leaf 32), fast scan, 256², 4 bounces,
-    64 spp per launch, on sphere_field(n, 2): Mrays/s of each and their ratio."""
+    """Linear megakernel vs 8-wide BVH kernel (at render/driver.py's leaf), fast scan,
+    256², 4 bounces, 64 spp per launch, on sphere_field(n, 2): Mrays/s of each and
+    their ratio."""
     from oclpathtracer_tpu_torch.kernels.selfcheck import Case, run
+    from oclpathtracer_tpu_torch.render import driver
 
     rows = []
     for n in CROSSOVER_SPHERES:
         name = f"spheres{n}x2"
+        n_tris = int(tables.scene(name).num_triangles)
+        leaf = driver.wide_leaf(n_tris)
         times = {}
         for kernel in ("megakernel", "widebvh"):
             case = Case(kernel, "fast", CROSSOVER_SIZE, CROSSOVER_SIZE, 4, tp0=False,
-                        scene=name, leaf=32)
+                        scene=name, leaf=leaf)
             ms, (_, segs) = cuda_time_ms(lambda c=case: run(c, tables, start=0, n=MAIN_STEP),
                                          lambda c=case: run(c, tables, start=0, n=MAIN_STEP))
             times[kernel] = (ms, int(segs) / (ms * 1e3))
-        n_tris = int(tables.scene(name).num_triangles)
-        rows.append({"n_spheres": n, "n_tris": n_tris, "linear_ms": times["megakernel"][0],
+        rows.append({"n_spheres": n, "n_tris": n_tris, "leaf": leaf,
+                     "linear_ms": times["megakernel"][0],
                      "linear_mrays": times["megakernel"][1], "widebvh_ms": times["widebvh"][0],
                      "widebvh_mrays": times["widebvh"][1],
                      "widebvh_over_linear": times["widebvh"][1] / times["megakernel"][1]})
         log(f"[crossover] {n_tris} tris: linear fast {times['megakernel'][0]:.3f} ms "
-            f"({times['megakernel'][1]:.1f} Mrays/s), widebvh fast {times['widebvh'][0]:.3f} ms "
+            f"({times['megakernel'][1]:.1f} Mrays/s), widebvh fast leaf {leaf} "
+            f"{times['widebvh'][0]:.3f} ms "
             f"({times['widebvh'][1]:.1f} Mrays/s), widebvh/linear "
             f"{rows[-1]['widebvh_over_linear']:.3f}")
     return rows
@@ -1918,10 +1927,10 @@ def kernel_bounds(tables, main_rows) -> dict:
                                                          n_classes=n_cls),
                                        nbytes(table) + 16 * n)
     for name, key in (("bvh_megakernel", "bvh"), ("wide_bvh", "wide")):
-        for suffix, scene, leaf in (("", "spheres5k", 32), ("_102k", "spheres102k", 64)):
+        for suffix in ("", "_102k"):
             r = main_rows[name + suffix]
             per_seg = r["segments"] / r["plain_segments"]
-            packed = getattr(tables, key)(scene, "fast", leaf)
+            packed = getattr(tables, key)(r["scene"], "fast", r["leaf"])
             out[name + suffix] = bounds.bound_ms(  # the tables in, the image and counter out
                 bounds.bvh_ops("fast", r["walk"]["boxes"] * per_seg, r["walk"]["tris"] * per_seg,
                                r["segments"]),
@@ -2004,13 +2013,15 @@ def main() -> int:
     log(f"[done] sharded path at {time.perf_counter() - t0:.1f} s")
     by_name = {r["name"]: r for r in rows}
     # What the main path runs: the tp megakernel at 4 bounces, the tp wavefront at 16,
-    # and sphere_field()'s fast BVH kernels.
+    # and the fast BVH kernels on sphere_field() and sphere_field(80, 3) (the 8-wide
+    # kernel at the driver's leaf).
+    bvh_rows = {(r["kernel"], r["scene"]): r for r in rows if "leaf" in r}
     main_rows = {"megakernel": by_name["megakernel tp Cornell 512x512 b4"],
                  "wavefront": by_name["wavefront tp Cornell 512x512 b16"],
-                 "bvh_megakernel": by_name["bvh fast leaf 32 spheres5k 512x512 b16"],
-                 "wide_bvh": by_name["widebvh fast leaf 32 spheres5k 512x512 b16"],
-                 "bvh_megakernel_102k": by_name["bvh fast leaf 64 spheres102k 512x512 b16"],
-                 "wide_bvh_102k": by_name["widebvh fast leaf 64 spheres102k 512x512 b16"]}
+                 "bvh_megakernel": bvh_rows["bvh", "spheres5k"],
+                 "wide_bvh": bvh_rows["widebvh", "spheres5k"],
+                 "bvh_megakernel_102k": bvh_rows["bvh", "spheres102k"],
+                 "wide_bvh_102k": bvh_rows["widebvh", "spheres102k"]}
     sources = {"megakernel": ("megakernel.cu", "oclpathtracer_tpu/kernels/megakernel.py:1052"),
                "wavefront": ("wavefront.cu", "oclpathtracer_tpu/kernels/wavefront.py:489"),
                "bvh_megakernel": ("bvh_megakernel.cu",
@@ -2046,8 +2057,9 @@ def main() -> int:
         row = main_rows[name]
         second = {}  # each kernel's second shape
         if name + "_102k" in main_rows:  # the BVH kernels at sphere_field(80, 3) too
-            second = {"ms_102k": main_rows[name + "_102k"]["ms"],
-                       "bound_ms_102k": bounds[name + "_102k"][0]}
+            second = {"leaf": row["leaf"], "ms_102k": main_rows[name + "_102k"]["ms"],
+                      "bound_ms_102k": bounds[name + "_102k"][0],
+                      "leaf_102k": main_rows[name + "_102k"]["leaf"]}
         if name == "grad_megakernel":  # the forward-only launch too
             second = {"forward_bound_ms": bounds["grad_megakernel_forward"][0],
                       "forward_bound_by": bounds["grad_megakernel_forward"][1]}

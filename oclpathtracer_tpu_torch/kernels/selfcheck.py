@@ -27,8 +27,8 @@ first launch.
 Scenes: the Cornell box with its own camera; sphere_field(3, 1, seed=2) (244
 triangles, tp-capable), sphere_field() (5,124 triangles, 18 material classes, so
 the fast scan) and sphere_field(80, 3) (102,404 triangles) with the JAX package's
-camera for procedural scenes; `deep_scene` (488 triangles whose leaf-32 tree is 14
-levels deep) with its own camera.
+camera for procedural scenes; `deep_scene` (488 triangles whose leaf-16 and leaf-32
+trees are 14 levels deep) with its own camera.
 
 Used by `chip_smoke.py`, `tests/test_torch_cuda.py` and `tests/test_torch_gather_grad.py`.
 """
@@ -61,6 +61,9 @@ N_SAMPLES = 8  # k = 4 wavefront streams then trace two samples each
 BVH_SAMPLES = 2
 PROCGEN_EYE = (0.0, 3.0, 9.0)  # the JAX package's camera for procedural scenes
 DEEP_EYE = (-0.3, -0.2, -0.25)
+# The 8-wide leaf render/driver.py builds for sphere_field() and sphere_field(80, 3)
+# (its WIDE_BVH_LEAF; tests/test_torch_bvh.py holds the two equal).
+DRIVER_WIDE_LEAF = 6
 
 
 def deep_scene(device="cuda", n_chain: int = 88, n_fill: int = 400, ratio: float = 2.53):
@@ -69,8 +72,8 @@ def deep_scene(device="cuda", n_chain: int = 88, n_fill: int = 400, ratio: float
     0.08-wide cluster at the origin, all facing DEEP_EYE. ratio**3 > 16, so along
     each split's longest centroid axis the farthest triangle sits alone in the top
     of the binned SAH's 16 bins (core/bvh.py) and is peeled off by itself: a node
-    takes 7 of the chain, and at leaf 32 (render/driver.py's) the 8-wide tree is 14 levels
-    deep. The farthest lies 2.4e33 from the origin, inside f32."""
+    takes 7 of the chain, and at leaf 16 (render/driver.py's at this size) and at leaf 32
+    the 8-wide tree is 14 levels deep. The farthest lies 2.4e33 from the origin, inside f32."""
     from oclpathtracer_tpu_torch.convert import scene_from_numpy
 
     i = np.arange(n_chain)
@@ -165,12 +168,13 @@ def cases(width: int, height: int, ragged=(100, 77)) -> list:
 
 
 def bvh_cases(width: int, height: int, bounces: int = 4) -> list:
-    """The BVH kernels' cases (leaf 32, the driver's): parity, fast and tp on
-    sphere_field(3, 1); parity and fast on sphere_field(); parity, fast and tp on
-    the Cornell box at leaf 4, where every ray hits."""
+    """The BVH kernels' cases: parity, fast and tp on sphere_field(3, 1) at leaf 32;
+    parity and fast on sphere_field() at leaf 32 and at DRIVER_WIDE_LEAF; parity, fast
+    and tp on the Cornell box at leaf 4, where every ray hits."""
     out = []
     for scene, scans, leaf in (("spheres244", ("parity", "fast", "tp"), 32),
                                ("spheres5k", ("parity", "fast"), 32),
+                               ("spheres5k", ("parity", "fast"), DRIVER_WIDE_LEAF),
                                ("cornell", ("parity", "fast", "tp"), 4)):
         for scan in scans:
             for kernel in ("bvh", "widebvh"):
@@ -394,7 +398,8 @@ def wide_equals_skip_walk(tables: Tables, width, height, bounces=4) -> dict:
     for case in bvh_cases(width, height, bounces) + deep:
         if case.kernel == "bvh":
             wide = dataclasses.replace(case, kernel="widebvh")
-            out[f"{case.scene} {case.scan}"] = _same(run(case, tables), run(wide, tables))
+            out[f"{case.scene} {case.scan} leaf {case.leaf}"] = _same(run(case, tables),
+                                                                    run(wide, tables))
     return out
 
 

@@ -72,11 +72,13 @@ def group_record(wn_f: torch.Tensor, wn_i: torch.Tensor):
 
 def prepare_chunks(scene: Scene, cfg: RenderConfig, scan: str = "auto", leaf_size: int = 32):
     """The tables at `leaf_size`, made once, and the chunk, as megakernel.prepare_chunks;
-    a tree deeper than WIDE_MAX_DEPTH gets the skip-link kernel's (the same bits)."""
+    a tree deeper than WIDE_MAX_DEPTH gets the skip-link kernel's (the same bits).
+    Counts `wide_leaf.<leaf_size>` once a call whose tree the 8-wide kernel walks."""
     scan, emi = mk.checked_scan(scene, scan)
     table, wn_f, wn_i, depth, classes = pack_wide_bvh_scene(scene, leaf_size, scan)
     if depth > WIDE_MAX_DEPTH:
         return bk.prepare_chunks(scene, cfg, scan, leaf_size)
+    profiling.count(f"wide_leaf.{leaf_size}")
     record = group_record(wn_f, wn_i)
 
     def chunk(start: int, n: int):

@@ -25,13 +25,24 @@ from oclpathtracer_tpu_torch.render.accumulate import Accumulator
 from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
-# Auto-backend rule, as in the JAX package (driver.py:27-42): the linear-scan
-# kernels up to LINEAR_KERNEL_MAX_TRIS triangles, the 8-wide BVH kernel beyond,
-# with leaf 32 up to WIDE_BVH_LEAF_SWITCH_TRIS and leaf 64 past it. Both numbers
-# were measured on the JAX package's chip; they are kept so that the same call
-# builds the same tree in both packages (PERF.md has this card's crossover).
+# Auto-backend rule: the linear-scan kernels up to LINEAR_KERNEL_MAX_TRIS triangles
+# (the JAX package's crossover, driver.py:27-33), the 8-wide BVH kernel beyond. The
+# 8-wide tree's leaf (`wide_leaf`, on the "widebvh" backend too) was measured on an
+# NVIDIA H100 (PERF.md §6, the leaf sweep: one 64-spp launch at 512², 16 bounces, on
+# sphere_field scenes of 564 to 102,404 triangles). WIDE_BVH_LEAF was picked at
+# 102,404 triangles, where it is the fastest and takes 0.51 times leaf 64's time;
+# from 964 to 40,964 triangles it is within about 8 % of the fastest leaf. Up to
+# WIDE_BVH_LEAF_SWITCH_TRIS triangles WIDE_BVH_SMALL_LEAF is the fastest (leaf 6
+# takes 4-14 % longer at 564 and 804). Below the auto route's range only an explicit
+# "widebvh" builds the tree, at WIDE_BVH_TINY_LEAF: on the Cornell box (36
+# triangles) leaf 16 takes 8 % longer and leaf 6 55 %. The leaf only schedules the
+# walk: a ray's nearest hit moves only where two triangles tie and the walk visits
+# them in another order.
 LINEAR_KERNEL_MAX_TRIS = 480
-WIDE_BVH_LEAF_SWITCH_TRIS = 12_000
+WIDE_BVH_LEAF_SWITCH_TRIS = 900
+WIDE_BVH_TINY_LEAF = 32
+WIDE_BVH_SMALL_LEAF = 16
+WIDE_BVH_LEAF = 6
 
 # Past this bounce cap auto picks the path-regeneration kernel: mean paths are far
 # shorter than the cap, so regeneration keeps more lanes busy.
@@ -76,6 +87,13 @@ def make_kernel_render_step(scene: Scene, cfg: RenderConfig, samples_per_step: i
     return step
 
 
+def wide_leaf(n_tris: int) -> int:
+    """The 8-wide tree's leaf size for a scene of n_tris triangles."""
+    if n_tris <= LINEAR_KERNEL_MAX_TRIS:
+        return WIDE_BVH_TINY_LEAF
+    return WIDE_BVH_SMALL_LEAF if n_tris <= WIDE_BVH_LEAF_SWITCH_TRIS else WIDE_BVH_LEAF
+
+
 def prepare_chunks(scene: Scene, cfg: RenderConfig, backend: str = "auto",
                    scan: str = "auto"):
     """The picked kernel's prepare_chunks: its tables, made once, and its chunk (start,
@@ -83,19 +101,19 @@ def prepare_chunks(scene: Scene, cfg: RenderConfig, backend: str = "auto",
     wavefront, bvh, widebvh}: auto picks "widebvh" (the 8-wide BVH kernel) above
     LINEAR_KERNEL_MAX_TRIS triangles, else "pallas" (the megakernel) up to
     MEGAKERNEL_MAX_BOUNCES and "wavefront" (path regeneration) beyond; "bvh" is the
-    skip-link walk at BVH_LEAF. "widebvh" renders a tree deeper than its stack with
-    the skip-link kernel on the same build (the same bits). scan ∈ {auto, parity,
-    fast, tp}: auto is the fastest scan the scene's materials support."""
+    skip-link walk at BVH_LEAF, "widebvh" the 8-wide one at wide_leaf, which renders a
+    tree deeper than its stack with the skip-link kernel on the same build (the same
+    bits). scan ∈ {auto, parity, fast, tp}: auto is the fastest scan the scene's
+    materials support."""
     n_tris = int(scene.geometry.p1.shape[0])
     if backend == "auto":
         if n_tris > LINEAR_KERNEL_MAX_TRIS:
             backend = "widebvh"
         else:
             backend = "wavefront" if cfg.bounces > MEGAKERNEL_MAX_BOUNCES else "pallas"
-    wide_leaf = 32 if n_tris <= WIDE_BVH_LEAF_SWITCH_TRIS else 64
     prepares = {"pallas": mk.prepare_chunks, "wavefront": wf.prepare_chunks,
                 "bvh": lambda *a: bk.prepare_chunks(*a, leaf_size=BVH_LEAF),
-                "widebvh": lambda *a: wb.prepare_chunks(*a, leaf_size=wide_leaf)}
+                "widebvh": lambda *a: wb.prepare_chunks(*a, leaf_size=wide_leaf(n_tris))}
     if backend not in prepares:
         raise ValueError(f"unknown kernel backend {backend!r}")
     return prepares[backend](scene, cfg, scan)

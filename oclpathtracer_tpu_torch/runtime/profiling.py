@@ -18,8 +18,9 @@ clock of the device events) and adds its calls, total and self seconds to a tabl
 memory (`span_stats`), which holds the latest profiler session: it starts afresh at
 the first span under a profiler after a span that ran without one (a benchmark's
 warm-up before its traced window), and where `trace` starts. Counters (`count`,
-`counts`: kernel launches `launch.<kernel>`, builds `build.<compiler>`) are plain
-host integers and always on.
+`counts`: kernel launches `launch.<kernel>`, builds `build.<compiler>`, the leaf
+size of an 8-wide BVH a render walks with the 8-wide kernel `wide_leaf.<leaf>`) are
+plain host integers and always on.
 """
 
 from __future__ import annotations

@@ -23,10 +23,11 @@ from oclpathtracer_tpu_torch.convert import scene_from_numpy
 from oclpathtracer_tpu_torch.core import bvh
 from oclpathtracer_tpu_torch.core.intersect import intersect_world
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
+from oclpathtracer_tpu_torch.kernels import selfcheck
 from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
 from oclpathtracer_tpu_torch.render import driver
 from oclpathtracer_tpu_torch.runtime import native, profiling
-from oclpathtracer_tpu_torch.scene import procgen
+from oclpathtracer_tpu_torch.scene import load_cornell_box, procgen
 from oclpathtracer_tpu_torch.scene.types import Geometry
 
 torch.set_num_threads(1)
@@ -272,10 +273,11 @@ def test_intersect_bvh_matches_jax_and_brute_force(scene, case):
 
 
 def test_auto_sends_large_scenes_to_widebvh_and_matches_jax(monkeypatch):
-    """sphere_field(7, 1) has 564 triangles: auto picks the 8-wide BVH kernel (tp
-    leaves, leaf 32) in both packages. 32×32, 2 bounces, 1 spp; JAX's kernel runs in
-    interpret mode. Images allclose at rtol = atol = 1e-4, the JAX package's
-    contract (the driver returns no segment count)."""
+    """sphere_field(7, 1) has 564 triangles: auto picks the 8-wide BVH kernel with tp
+    leaves in both packages (JAX's at leaf 32, the port's at WIDE_BVH_SMALL_LEAF).
+    32×32, 2 bounces, 1 spp; JAX's kernel runs in interpret mode. Images allclose at
+    rtol = atol = 1e-4, the JAX package's contract (the driver returns no segment
+    count)."""
     jscene = jprocgen.sphere_field(7, 1)
     tscene = procgen.sphere_field(7, 1, device="cpu")
     assert tscene.num_triangles == 564 > driver.LINEAR_KERNEL_MAX_TRIS
@@ -297,18 +299,68 @@ def test_auto_sends_large_scenes_to_widebvh_and_matches_jax(monkeypatch):
     np.testing.assert_allclose(img_t.numpy(), np.asarray(img_j), rtol=1e-4, atol=1e-4)
 
 
-def test_default_sphere_field_takes_the_fast_scan_on_widebvh(monkeypatch):
-    """sphere_field() (5,124 triangles, 18 material classes): auto goes to widebvh
-    with leaf 32 and the fast scan, as in the JAX driver. The render itself is not
-    run here (the plain version at this size is the card's test)."""
-    scene = procgen.sphere_field(device="cpu")
+def _auto_launch(scene, monkeypatch, backend="auto") -> dict:
+    """The keyword arguments and table rows of the 8-wide launch that the driver makes
+    for `scene` on `backend` (the launch itself replaced by zeros), and under `built`
+    the leaves whose `wide_leaf.<leaf>` counter the render raised, by how much."""
     seen = {}
+    before = profiling.counts()
 
     def fake(table, wn_f, wn_i, cfg, start, n, **kw):
         seen.update(kw, rows=table.shape[0])
         return torch.zeros((cfg.n_pixels, 3)), torch.zeros((), dtype=torch.int64)
 
     monkeypatch.setattr(wb, "render_samples_wide_bvh_stats", fake)
-    driver.render_progressive(scene, RenderConfig(8, 8, bounces=16), 1, backend="auto")
-    assert seen["scan"] == "fast" and seen["max_leaf"] == 32 and seen["max_depth"] == 4
-    assert seen["emi_const"] == (30.0, 30.0, 30.0) and seen["rows"] == 5124 + 32
+    driver.render_progressive(scene, RenderConfig(8, 8, bounces=16), 1, backend=backend)
+    after = profiling.counts()
+    seen["built"] = {int(k.split(".")[1]): v - before.get(k, 0) for k, v in after.items()
+                     if k.startswith("wide_leaf.") and v != before.get(k, 0)}
+    return seen
+
+
+def test_default_sphere_field_takes_the_fast_scan_on_widebvh(monkeypatch):
+    """sphere_field() (5,124 triangles, 18 material classes): auto goes to widebvh
+    with the fast scan, as in the JAX driver, at the leaf measured on the H100 for
+    scenes past WIDE_BVH_LEAF_SWITCH_TRIS (6; the JAX driver's is 32), a 5-level
+    tree. The render itself is not run here (the plain version at this size is the
+    card's test)."""
+    seen = _auto_launch(procgen.sphere_field(device="cpu"), monkeypatch)
+    assert seen["scan"] == "fast" and seen["max_leaf"] == 6 and seen["max_depth"] == 5
+    assert seen["emi_const"] == (30.0, 30.0, 30.0) and seen["rows"] == 5124 + 6
+    assert seen["built"] == {6: 1}
+
+
+@pytest.mark.parametrize("spheres, subdivisions, tris, leaf, depth",
+                         [(10, 1, 804, 16, 3), (3, 2, 964, 6, 4)])
+def test_auto_leaf_switches_at_the_measured_triangle_count(monkeypatch, spheres,
+                                                           subdivisions, tris, leaf, depth):
+    """One scene on each side of WIDE_BVH_LEAF_SWITCH_TRIS (900): leaf 16 at or below,
+    leaf 6 above; the table carries that many zero rows past the triangles."""
+    scene = procgen.sphere_field(spheres, subdivisions, device="cpu")
+    assert scene.num_triangles == tris
+    assert (tris <= driver.WIDE_BVH_LEAF_SWITCH_TRIS) == (leaf == driver.WIDE_BVH_SMALL_LEAF)
+    seen = _auto_launch(scene, monkeypatch)
+    assert seen["max_leaf"] == leaf and seen["max_depth"] == depth
+    assert seen["rows"] == tris + leaf and seen["built"] == {leaf: 1}
+
+
+def test_explicit_widebvh_below_the_auto_range_keeps_leaf_32(monkeypatch):
+    """The Cornell box (36 triangles, at or below LINEAR_KERNEL_MAX_TRIS, so auto takes
+    the linear kernels): an explicit backend="widebvh" builds at leaf 32, as before
+    the leaf was measured on the H100 (leaf 16 is 8 % slower there)."""
+    scene = load_cornell_box(device="cpu")
+    assert scene.num_triangles == 36 <= driver.LINEAR_KERNEL_MAX_TRIS
+    seen = _auto_launch(scene, monkeypatch, backend="widebvh")
+    assert seen["max_leaf"] == driver.WIDE_BVH_TINY_LEAF == 32
+    assert seen["rows"] == 36 + 32 and seen["built"] == {32: 1}
+
+
+def test_the_cards_checks_take_the_drivers_wide_leaf():
+    """kernels/selfcheck.py's DRIVER_WIDE_LEAF, at which the card's checks hold the
+    8-wide kernel bit for bit its plain version on sphere_field(), is the leaf the
+    driver builds for sphere_field() and sphere_field(80, 3)."""
+    assert selfcheck.DRIVER_WIDE_LEAF == driver.WIDE_BVH_LEAF
+    assert driver.wide_leaf(5124) == driver.wide_leaf(102_404) == driver.WIDE_BVH_LEAF
+    assert {(c.scene, c.scan) for c in selfcheck.bvh_cases(8, 8)
+            if c.kernel == "widebvh" and c.leaf == driver.WIDE_BVH_LEAF} == {
+        ("spheres5k", "parity"), ("spheres5k", "fast")}

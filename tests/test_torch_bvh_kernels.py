@@ -31,6 +31,7 @@ from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
 from oclpathtracer_tpu_torch.render import driver
 from oclpathtracer_tpu_torch.runtime import profiling
+from oclpathtracer_tpu_torch.scene import procgen
 
 torch.set_num_threads(1)
 
@@ -118,7 +119,7 @@ def test_plain_wide_walk_matches_jax_kernel(scenes, scan):
     _meets_contract(*_render("widebvh", tscene, cfg, scan, leaf=4), ref_img, float(ref_segs))
 
 
-@pytest.mark.parametrize("leaf", [4, 32])
+@pytest.mark.parametrize("leaf", [4, driver.WIDE_BVH_LEAF, driver.WIDE_BVH_SMALL_LEAF, 32])
 @pytest.mark.parametrize("scan", SCANS)
 @pytest.mark.parametrize("name", ["cornell", "spheres244"])
 def test_plain_wide_walk_is_the_skip_walk_bitwise(scenes, name, scan, leaf):
@@ -127,6 +128,23 @@ def test_plain_wide_walk_is_the_skip_walk_bitwise(scenes, name, scan, leaf):
     skip = _render("bvh", tscene, cfg, scan, leaf, start=3, n=2)
     wide = _render("widebvh", tscene, cfg, scan, leaf, start=3, n=2)
     assert torch.equal(skip[0], wide[0]) and int(skip[1]) == int(wide[1])
+
+
+@pytest.mark.parametrize("spheres, scan", [((7, 1), scan) for scan in SCANS]
+                         + [((16, 2), scan) for scan in ("parity", "fast")])
+def test_the_leaf_only_schedules_the_plain_wide_walk(spheres, scan):
+    """sphere_field(7, 1) (564 triangles) and sphere_field() (5,124; 18 material
+    classes, so no tp scan) at 16², 2 bounces, samples 3-4: the plain 8-wide walk
+    gives the same image and segments, bit for bit, at both of the auto driver's
+    leaves, at 32 and at 64."""
+    scene = procgen.sphere_field(*spheres, device="cpu")
+    cfg = RenderConfig(width=16, height=16, bounces=2, camera=CameraConfig(eye=EYE))
+    leaves = (driver.WIDE_BVH_LEAF, driver.WIDE_BVH_SMALL_LEAF, 32, 64)
+    (img, segs), *others = [_render("widebvh", scene, cfg, scan, leaf, start=3, n=2)
+                            for leaf in leaves]
+    assert int(segs) > cfg.n_pixels * 2  # some paths bounce
+    for other_img, other_segs in others:
+        assert torch.equal(other_img, img) and int(other_segs) == int(segs)
 
 
 @pytest.mark.parametrize("scan", SCANS)

@@ -31,7 +31,7 @@ CFG = RenderConfig(8, 8, bounces=2)
 TOTAL, PER_CALL = 5, 2
 CHUNKS = [(0, 2), (2, 2), (4, 1)]
 MESH = Mesh(("cpu",) * 2)
-WIDE_LEAF = 32  # the driver's leaf below WIDE_BVH_LEAF_SWITCH_TRIS triangles
+WIDE_LEAF = 32  # the driver's 8-wide leaf below the auto route's range: the Cornell box's
 SORTED_LEAF = 32  # render_sorted's default
 DRIVER_BACKENDS = ("pallas", "wavefront", "bvh", "widebvh")
 

@@ -5,9 +5,10 @@ card run them with `python -m pytest --noconftest tests/test_torch_cuda.py -q` (
 file needs no fixture of tests/conftest.py, which imports jax). They are
 chip_smoke.py's phase-3 checks at 64×64 (kernels/selfcheck.py holds the cases and
 the pass rule), for the linear and the BVH kernels (with the megakernel's and the
-wavefront's work splits and table routes, the wide kernel on a 14-level tree and
-split into launches, the skip-link kernel bit for bit in each leaf form, split into
-launches and on the driver's route for trees deeper than the wide kernel's stack),
+wavefront's work splits and table routes, the wide kernel on a 14-level tree,
+split into launches and bit for bit at the driver's leaf on sphere_field(), the
+skip-link kernel bit for bit in each leaf form, split into launches and on the
+driver's route for trees deeper than the wide kernel's stack),
 the adjoint kernel (on a ragged pixel range too) and the arbitrary-ray kernel (at
 runs of 1, 2 and all samples a lane); the AO kernel (at 1, 2 and 32 lanes a pixel,
 and at the CLI's shape) and the direct kernel (at 1, 2, 8 and 32 lanes a pixel and
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from oclpathtracer_tpu_torch.kernels import selfcheck
+from oclpathtracer_tpu_torch.render import driver
 from oclpathtracer_tpu_torch.runtime import profiling
 
 torch.set_num_threads(1)
@@ -96,12 +98,19 @@ def test_skip_kernel_is_its_plain_version_bitwise(cuda_tables, case):
     assert result["bitwise"], result
 
 
+@pytest.mark.parametrize("case", [c for c in selfcheck.bvh_cases(SIZE, SIZE)
+                                  if c.kernel == "widebvh" and c.leaf == driver.WIDE_BVH_LEAF],
+                         ids=lambda c: c.name)
+def test_wide_kernel_at_the_drivers_leaf_is_its_plain_version_bitwise(cuda_tables, case):
+    result = selfcheck.check_case(case, cuda_tables)
+    assert result["bitwise"], result
+
+
 def test_skip_kernel_renders_a_tree_deeper_than_the_wide_stack(cuda_tables, monkeypatch):
     """render/driver.py's route: with the wide kernel's stack cut to 13 levels, the
     14-level deep_scene goes to the skip-link kernel, which gives the wide kernel's
     image bit for bit."""
     from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
-    from oclpathtracer_tpu_torch.render import driver
 
     deep = cuda_tables.scene("deep")
     cfg = selfcheck.scene_cfg("deep", SIZE, SIZE, 4)

@@ -1,9 +1,10 @@
 """The 8-wide walk on a tree deeper than 12 levels, and render/driver.py's routing by depth.
 
 `selfcheck.deep_scene` peels one triangle a split off a chain at exponentially
-growing distances, so its leaf-32 tree (render/driver.py's leaf) is 14 levels deep. On that
-tree the plain wide walk, whose stack is sized from the tree's depth, equals the
-plain skip-link walk bit for bit, and both take the linear scan's hit decisions.
+growing distances, so its leaf-16 tree (render/driver.py's leaf at this size) and its
+leaf-32 tree are 14 levels deep. On that tree the plain wide walk, whose stack is sized
+from the tree's depth, equals the plain skip-link walk bit for bit, and both take the
+linear scan's hit decisions.
 A tree deeper than the kernel's shared-memory stack (WIDE_MAX_DEPTH levels) goes to
 the skip-link kernel on the same build, before any launch; here the cap is lowered
 to 13 to make the 14-level tree such a tree.
@@ -18,6 +19,7 @@ from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import selfcheck
 from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
 from oclpathtracer_tpu_torch.render import driver
+from oclpathtracer_tpu_torch.runtime import profiling
 
 torch.set_num_threads(1)
 
@@ -39,7 +41,7 @@ def _wide(scene, scan, leaf=32):
 
 def test_the_deep_tree_is_deeper_than_twelve_levels(deep):
     assert deep.num_triangles > driver.LINEAR_KERNEL_MAX_TRIS  # auto takes the wide kernel
-    for leaf in (32, 64):
+    for leaf in (driver.WIDE_BVH_SMALL_LEAF, 32, 64):
         depth = _wide(deep, "parity", leaf)[3]
         assert depth == DEEP_LEVELS > 12
     table = _wide(deep, "tp")[0]
@@ -106,13 +108,21 @@ def _render(scene, backend):
                                      backend=backend)
 
 
+def _wide_leaf_counts() -> dict:
+    return {k: v for k, v in profiling.counts().items() if k.startswith("wide_leaf.")}
+
+
 def test_auto_renders_the_deep_tree_with_the_wide_kernel(deep, monkeypatch):
     calls = []
     wide = wb.render_samples_wide_bvh_stats
     monkeypatch.setattr(wb, "render_samples_wide_bvh_stats",
                         lambda *a, **kw: calls.append(kw["max_depth"]) or wide(*a, **kw))
+    key = f"wide_leaf.{driver.wide_leaf(deep.num_triangles)}"
+    before = _wide_leaf_counts()
     img = _render(deep, "auto")
     assert calls == [DEEP_LEVELS]
+    after = _wide_leaf_counts()
+    assert after == {**before, key: before.get(key, 0) + 1}
     assert torch.equal(img, _render(deep, "bvh"))
 
 
@@ -124,4 +134,7 @@ def test_a_tree_deeper_than_the_stack_goes_to_the_skip_link_kernel(deep, monkeyp
 
     monkeypatch.setattr(wb, "WIDE_MAX_DEPTH", DEEP_LEVELS - 1)
     monkeypatch.setattr(wb, "render_samples_wide_bvh_stats", refuse)
-    assert torch.equal(_render(deep, backend), _render(deep, "bvh"))
+    before = _wide_leaf_counts()
+    img = _render(deep, backend)
+    assert _wide_leaf_counts() == before  # the counter reads only the 8-wide kernel's trees
+    assert torch.equal(img, _render(deep, "bvh"))
