@@ -15,6 +15,11 @@ Counterpart of `oclpathtracer_tpu.diff.vertex`. A step is assembled from:
 The loss is the unbiased pairwise form on two disjoint reference-frame ranges
 (diff/fast.make_fast_loss_fn), and the boundary weight ∂loss/∂I = (a + b − 2t)/n3
 applies to both renders' expectations.
+
+Spans: `vertex.step` over a whole step, in it `vertex.forward` (the two renders and
+the loss), `vertex.interior` (the twin's autograd), `vertex.edges`, `vertex.rim` and
+`vertex.update` (the optimizer). The counter `vertex.probe_rows` adds the rows of
+every probe launch, a size known on the host.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from oclpathtracer_tpu_torch.kernels.megakernel import (
     render_samples_pallas_stats,
     trace_rays_pallas_stats,
 )
+from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 PROBE_SAMPLE_BASE = 1 << 20  # probe streams start past the forward renders' frames
@@ -62,6 +68,7 @@ def make_kernel_probe_fns(table: torch.Tensor, cfg: RenderConfig, edge_spp: int,
 
     def edge_probe(coords):
         o, d = rays_at(coords, cfg)
+        profiling.count("vertex.probe_rows", o.shape[0])
         img, _ = trace_rays_pallas_stats(table, o.contiguous(), d, cfg, edge_spp,
                                          start_sample=base & 0xFFFFFFFF, scan="parity")
         return img / edge_spp
@@ -71,6 +78,7 @@ def make_kernel_probe_fns(table: torch.Tensor, cfg: RenderConfig, edge_spp: int,
         # secondary_spp > 1 they overlap depth k + 1's. The JAX package does the same
         # (vertex.py:75); it is kept so that the two packages draw the same streams,
         # and recorded as a reference fault in ROADMAP queue 3.
+        profiling.count("vertex.probe_rows", o.shape[0])
         img, _ = trace_rays_pallas_stats(
             table, o, d, cfg.with_(bounces=rem), secondary_spp,
             start_sample=(base + SECONDARY_SAMPLE_OFFSET + depth) & 0xFFFFFFFF, scan="parity")
@@ -114,7 +122,7 @@ def make_vertex_loss_and_grads(scene: Scene, cfg: RenderConfig, spp: int, *,
         step_idx = int(step_idx)
         leaves = [x.detach() for x in params_leaves(params)]
         params = params_from_leaves(params, leaves)
-        with torch.no_grad():
+        with profiling.span("vertex.forward"), torch.no_grad():
             sc = apply_params(scene, params)
             table = pack_scene_table(sc)
             a, _ = render_samples_pallas_stats(table, cfg, (2 * step_idx) * spp, spp,
@@ -128,7 +136,7 @@ def make_vertex_loss_and_grads(scene: Scene, cfg: RenderConfig, spp: int, *,
         # Interior terms (every leaf) through the twin at interior_spp.
         if interior_spp > 0:
             ins = [x.detach().requires_grad_() for x in leaves]
-            with torch.enable_grad():
+            with profiling.span("vertex.interior"), torch.enable_grad():
                 grads = grads_or_zeros(twin_pair_loss(params_from_leaves(params, ins), target,
                                                       step_idx), ins)
         else:
@@ -141,14 +149,17 @@ def make_vertex_loss_and_grads(scene: Scene, cfg: RenderConfig, spp: int, *,
             edge_probe, sec_probe = make_kernel_probe_fns(table, cfg, edge_spp, secondary_spp,
                                                           step_idx)
             skey = rng.fold_in(key, step_idx)
-            dp = boundary_vertex_grads(sc, cfg, weight, skey, samples_per_edge=samples_per_edge,
-                                       spp=edge_spp, delta=delta, probe_fn=edge_probe)
+            with profiling.span("vertex.edges"):
+                dp = boundary_vertex_grads(sc, cfg, weight, skey,
+                                           samples_per_edge=samples_per_edge, spp=edge_spp,
+                                           delta=delta, probe_fn=edge_probe)
             if sec_tris:
-                sp = secondary_boundary_vertex_grads(
-                    sc, cfg, weight, skey, tri_idx=sec_tris,
-                    samples_per_edge=secondary_samples_per_edge, spp=secondary_spp,
-                    delta=secondary_delta, max_prefix_depth=secondary_depth,
-                    pixel_stride=secondary_pixel_stride, probe_fn=sec_probe)
+                with profiling.span("vertex.rim"):
+                    sp = secondary_boundary_vertex_grads(
+                        sc, cfg, weight, skey, tri_idx=sec_tris,
+                        samples_per_edge=secondary_samples_per_edge, spp=secondary_spp,
+                        delta=secondary_delta, max_prefix_depth=secondary_depth,
+                        pixel_stride=secondary_pixel_stride, probe_fn=sec_probe)
                 dp = tuple(x + y for x, y in zip(dp, sp))
         grads = grads._replace(vertices=tuple(v + x for v, x in zip(grads.vertices, dp)))
         return loss, grads
@@ -172,14 +183,16 @@ def make_vertex_train_step(scene: Scene, cfg: RenderConfig, spp: int, optimizer,
     def opt_init(params: SceneParams):
         return optimizer([x.detach().clone() for x in params_leaves(params)])
 
+    @profiling.spanned("vertex.step")
     def step(params: SceneParams, opt_state, target, step_idx, key):
         tensors = [t for group in opt_state.param_groups for t in group["params"]]
         loss, g = loss_and_grads(params, target, step_idx, key)
-        with torch.no_grad():
-            for t, p, gt in zip(tensors, params_leaves(params), params_leaves(g)):
-                t.copy_(p)
-                t.grad = gt
-        opt_state.step()
+        with profiling.span("vertex.update"):
+            with torch.no_grad():
+                for t, p, gt in zip(tensors, params_leaves(params), params_leaves(g)):
+                    t.copy_(p)
+                    t.grad = gt
+            opt_state.step()
         return params_from_leaves(params, [t.detach().clone() for t in tensors]), opt_state, loss
 
     return step, opt_init

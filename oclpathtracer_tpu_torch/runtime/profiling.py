@@ -11,7 +11,7 @@ mechanisms (SURVEY.md §5.1):
     (trace() context manager below)
 
 Spans (`span`, `spanned`) name the program's host code at its layer boundaries
-(`driver.*`, `sorted.*`, `kernel.*`, `train.*`, `build.*`). They follow the
+(`driver.*`, `sorted.*`, `kernel.*`, `train.*`, `vertex.*`, `build.*`). They follow the
 profiler's state: with no profiler running a span costs one check of it and does
 nothing else; under a profiler it is a range on the profiler's own timeline (the
 clock of the device events) and adds its calls, total and self seconds to a table in
@@ -19,8 +19,9 @@ memory (`span_stats`), which holds the latest profiler session: it starts afresh
 the first span under a profiler after a span that ran without one (a benchmark's
 warm-up before its traced window), and where `trace` starts. Counters (`count`,
 `counts`: kernel launches `launch.<kernel>`, builds `build.<compiler>`, the leaf
-size of an 8-wide BVH a render walks with the 8-wide kernel `wide_leaf.<leaf>`) are
-plain host integers and always on.
+size of an 8-wide BVH a render walks with the 8-wide kernel `wide_leaf.<leaf>`, the
+rows of the vertex step's probe launches `vertex.probe_rows`) are plain host integers
+and always on.
 """
 
 from __future__ import annotations

@@ -4,12 +4,14 @@ timeline nested as the calls nest, with calls, total and self seconds in a table
 holds the latest profiler session; the launch and build counters. Each session here
 follows an untraced warm-up of what it traces, as a benchmark's traced window does."""
 
+import functools
+
 import pytest
 import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.core import rng
-from oclpathtracer_tpu_torch.diff import fast, inverse
+from oclpathtracer_tpu_torch.diff import fast, inverse, make_vertex_train_step
 from oclpathtracer_tpu_torch.render import driver
 from oclpathtracer_tpu_torch.render.accumulate import Accumulator
 from oclpathtracer_tpu_torch.runtime import cache, profiling
@@ -21,6 +23,8 @@ CPU = torch.device("cpu")
 RENDER = RenderConfig(8, 8, bounces=10)  # past the megakernel's cap: the wavefront
 TRAIN = RenderConfig(4, 4, bounces=2)
 TRAIN_SPANS = ("train.step", "train.forward", "train.backward", "train.update")
+VERTEX_SPANS = ("vertex.step", "vertex.forward", "vertex.interior", "vertex.edges",
+                "vertex.rim", "vertex.update")
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +60,7 @@ def _parents(prof) -> dict:
     """{span name: the set of its events' parent names} of the program's spans."""
     out = {}
     for e in prof.events():
-        if e.name.split(".")[0] in ("driver", "kernel", "train"):
+        if e.name.split(".")[0] in ("driver", "kernel", "train", "vertex"):
             out.setdefault(e.name, set()).add(e.cpu_parent.name if e.cpu_parent else None)
     return out
 
@@ -164,6 +168,34 @@ def test_the_twin_step_records_forward_and_backward_once_a_step(scene):
     stats = profiling.span_stats()
     assert set(stats) == set(TRAIN_SPANS)
     assert all(stats[n][0] == 3 for n in TRAIN_SPANS)
+
+
+def test_a_vertex_step_records_each_phase_once_and_counts_its_probe_rows(scene):
+    S, S_RIM, STRIDE = 4, 2, 3
+    step, init = make_vertex_train_step(
+        scene, TRAIN, 1, functools.partial(torch.optim.SGD, lr=1e-4), interior_spp=1,
+        samples_per_edge=S, edge_spp=1, secondary_samples_per_edge=S_RIM, secondary_spp=1,
+        secondary_pixel_stride=STRIDE)
+    params = inverse.extract_params(scene, albedo=False, vertices=True)
+    target, key = torch.zeros((TRAIN.n_pixels, 3)), rng.make_key(3, CPU)
+
+    def run():
+        step(params, init(params), target, 0, key)
+
+    before = profiling.counts().get("vertex.probe_rows", 0)
+    parents = _parents(_profiled(run))
+    rows = profiling.counts()["vertex.probe_rows"] - before
+    # Two steps (the untraced one and the traced one), each two edge probes of
+    # 3T edges x S points and two rim probes of every STRIDE-th pixel x the light's
+    # 6 edges x S_RIM points.
+    n_pix = -(-TRAIN.n_pixels // STRIDE)
+    assert rows == 2 * (2 * 3 * scene.num_triangles * S + 2 * n_pix * 6 * S_RIM)
+    assert parents["vertex.step"] == {None}
+    assert all(parents[n] == {"vertex.step"} for n in VERTEX_SPANS[1:])
+    assert parents["kernel.trace_rays"] == {"vertex.edges", "vertex.rim"}
+    stats = profiling.span_stats()
+    assert {n for n in stats if n.startswith("vertex.")} == set(VERTEX_SPANS)
+    assert all(stats[n][0] == 1 for n in VERTEX_SPANS)
 
 
 def test_a_span_closes_on_an_exception_and_keeps_the_function():
