@@ -41,8 +41,9 @@ from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 # Work the plain walks (skip-link and 8-wide) did: boxes tested and leaf triangles
-# tested by rays that were walking. chip_smoke.py reads it for the kernels' bounds.
-WALK_COUNTS = {"boxes": 0, "tris": 0}
+# tested by rays that were walking, and the children the 8-wide walk popped (the
+# kernel's `wide_bvh.walk_pops`). chip_smoke.py reads it for the kernels' bounds.
+WALK_COUNTS = {"boxes": 0, "tris": 0, "pops": 0}
 
 
 # ---- packing (numpy, exactly as the JAX package builds it) ---------------------
@@ -237,17 +238,19 @@ def check_aligned16(**tensors) -> None:
 
 def launch_split(fn_name: str, inputs: tuple, cfg: RenderConfig, scan: str, classes: tuple,
                  n_tris: int, start_sample: int, n_samples: int, emi_const: tuple,
-                 n_nodes: int, depth: int = 0, scratch_bytes: int = mk.SCRATCH_MAX_BYTES):
+                 n_nodes: int, depth: int = 0, scratch_bytes: int = mk.SCRATCH_MAX_BYTES,
+                 n_counters: int = 1):
     """Launch a BVH kernel of the per-sample split (csrc/split.cuh) on n_samples
     frames, in launches whose (n, n_pix, 3) f32 scratch fits scratch_bytes, each sum
-    going on from the last (the launcher's `init`): (img (n_pixels, 3) f32,
-    segments () int64, launches made)."""
+    going on from the last (the launcher's `init`): (img (n_pixels, 3) f32, the
+    kernel's n_counters int64 counters, segments first, added to by every launch,
+    launches made)."""
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
     n_pix, dev = cfg.n_pixels, inputs[0].device
     chunk = max(1, scratch_bytes // (12 * n_pix))
     scratch = torch.empty((min(chunk, n_samples), n_pix, 3), dtype=torch.float32, device=dev)
-    segs = torch.zeros((1,), dtype=torch.int64, device=dev)
+    counters = torch.zeros((n_counters,), dtype=torch.int64, device=dev)
     out, launches = None, 0
     for first in range(0, n_samples, chunk):
         n = min(chunk, n_samples - first)
@@ -255,10 +258,10 @@ def launch_split(fn_name: str, inputs: tuple, cfg: RenderConfig, scan: str, clas
                                       0, n_pix, emi_const=emi_const, n_nodes=n_nodes,
                                       depth=depth)
         img = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
-        cuda_build.launch(fn_name, (*inputs, out), floats, ints, img, scratch[:n], segs)
+        cuda_build.launch(fn_name, (*inputs, out), floats, ints, img, scratch[:n], counters)
         launches += 1
         out = img
-    return out, segs[0], launches
+    return out, counters, launches
 
 
 @profiling.spanned("kernel.bvh")
@@ -278,12 +281,12 @@ def render_samples_bvh_stats(table, nodes_f, nodes_i, cfg: RenderConfig, start_s
         return _render_samples_bvh_stats_plain(table, nodes_f, nodes_i, cfg, start_sample,
                                                n_samples, max_leaf, scan, emi_const, classes)
     check_aligned16(table=table, nodes_f=nodes_f, nodes_i=nodes_i)
-    out, segs, launches = launch_split("opt_bvh_megakernel_launch", (table, nodes_f, nodes_i),
-                                       cfg, scan, classes, table.shape[0], start_sample,
-                                       n_samples, emi_const, nodes_f.shape[0],
-                                       scratch_bytes=scratch_bytes)
+    out, counters, launches = launch_split("opt_bvh_megakernel_launch",
+                                           (table, nodes_f, nodes_i), cfg, scan, classes,
+                                           table.shape[0], start_sample, n_samples, emi_const,
+                                           nodes_f.shape[0], scratch_bytes=scratch_bytes)
     profiling.count("launch.bvh", launches)
-    return out, segs
+    return out, counters[0]
 
 
 def render_bvh(scene: Scene, cfg: RenderConfig, total_spp: int, samples_per_call: int = 0,

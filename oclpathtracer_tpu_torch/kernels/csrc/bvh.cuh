@@ -14,7 +14,10 @@
 // box and links, in three aligned 16-byte loads issued together. The wide walk
 // reads a whole group, its 8 boxes and kinds, in 14 aligned 16-byte loads with
 // no load behind another, tests all 8 slots and masks by kind; its stack is one
-// 32-bit word a level in shared memory, sized by the tree's depth at launch.
+// 32-bit word a level in shared memory, sized by the tree's depth at launch. It
+// advances one pop a call (WideWalk::step), so that wide_bvh.cu's loop lets a
+// lane whose walk has ended shade and start its next walk while the warp's other
+// lanes go on walking, instead of every lane waiting on the warp's longest walk.
 //
 // The slab test follows bvh_megakernel.py:357-380: t1 = (bmin - o) * inv_d,
 // t2 = (bmax - o) * inv_d, t_near = max of the per-axis mins, t_far = min of
@@ -159,29 +162,53 @@ static __device__ __forceinline__ uint32_t expand_group(const float4* __restrict
   return mask;
 }
 
-// 8-wide walk (wide_bvh.py make_wide_traversal, per ray). The stack holds one
-// 32-bit word a level, the group's unvisited hit mask in bits 0-7 and the group
-// index above them (the wrapper keeps G below 2^24), in shared memory: level l
-// of the thread at stack[l * BLOCK], so a warp's lanes hit 32 banks. The top
-// word stays in a register; a finished group's word is replaced instead of
-// pushed over. Each step pops the lowest set bit of the top mask, so children
-// come in the skip walk's pre-order; a popped child gets the full box test with
-// the current best, as the skip walk would test it at the same point of the
-// same sequence, so both walks visit the same leaves in the same order and give
-// the same bits. Leaves are read as float4s of the (T, 24) table, 96-byte rows.
-// P.depth levels hold any tree of that depth (core/bvh.widen_bvh's depth).
+// 8-wide walk (wide_bvh.py make_wide_traversal, per ray), one pop a call of `step`, so
+// that wide_bvh.cu's loop can run a warp's lanes' walks side by side and start a new
+// one in a lane whose walk has ended while the others go on. The stack holds one
+// 32-bit word a level, the group's unvisited hit mask in bits 0-7 and the group index
+// above them (the wrapper keeps G below 2^24), in shared memory: level l of the
+// thread at stack[l * BLOCK], so a warp's lanes hit 32 banks. The top word stays in a
+// register; a finished group's word is replaced instead of pushed over. Each step pops
+// the lowest set bit of the top mask, so children come in the skip walk's pre-order; a
+// popped child gets the full box test with the current best, as the skip walk would
+// test it at the same point of the same sequence, so both walks visit the same leaves
+// in the same order and give the same bits. Leaves are read as float4s of the (T, 24)
+// table, 96-byte rows. P.depth levels hold any tree of that depth
+// (core/bvh.widen_bvh's depth). The ray's origin and direction are the caller's
+// path's, passed to each call, so a lane holds them once.
 template <int SCAN>
-static __device__ __forceinline__ Hit wide_walk(const Params& P, const float* __restrict__ tbl,
-                                                const float4* __restrict__ boxes,
-                                                const int4* __restrict__ meta,
-                                                uint32_t* __restrict__ stack, float3 o, float3 d) {
-  Ray r = make_ray<SCAN>(o, d);
-  Best best = fresh_best();
-  const float4* rows = (const float4*)tbl;
-  auto load = [&](int i) { return __ldg(rows + i); };
-  uint32_t top = expand_group(boxes, meta, 0, r);
-  int level = top != 0 ? 0 : -1;
-  while (level >= 0) {
+struct WideWalk {
+  float3 inv_d, m;  // m = cross(o, d), read by tp leaves only
+  Best best;
+  uint32_t top;
+  int level;  // the top word's level; -1 once the walk has ended
+
+  // A new walk of the ray (o, d): the root group expanded. Whether it has a child to
+  // pop (false: the ray misses the root's children, and the walk has ended).
+  __device__ __forceinline__ bool begin(const float4* __restrict__ boxes,
+                                        const int4* __restrict__ meta, float3 o, float3 d) {
+    Ray r = make_ray<SCAN>(o, d);
+    inv_d = r.inv_d;
+    m = r.m;
+    best = fresh_best();
+    top = expand_group(boxes, meta, 0, r);
+    level = top != 0 ? 0 : -1;
+    return level >= 0;
+  }
+
+  // One pop: the child's box test, then its leaf scan or its group's expansion, then
+  // the exhausted levels popped. Whether the walk goes on (false: it has ended, and
+  // `best` is its nearest hit).
+  template <typename Load>
+  __device__ __forceinline__ bool step(const Params& P, Load load,
+                                       const float4* __restrict__ boxes,
+                                       const int4* __restrict__ meta,
+                                       uint32_t* __restrict__ stack, float3 o, float3 d) {
+    Ray r;
+    r.o = o;
+    r.d = d;
+    r.inv_d = inv_d;
+    r.m = m;
     int c = __ffs(top) - 1;  // the mask is bits 0-7 and not empty
     top &= top - 1;
     int g = (int)(top >> 8);
@@ -195,7 +222,7 @@ static __device__ __forceinline__ Hit wide_walk(const Params& P, const float* __
       int a = __ldg(mg + WIDE + c);
       if (kind == 2) {
         scan_rows4<SCAN, LEAF_UNROLL>(load, TABLE_COLS / 4, a, a + __ldg(mg + 2 * WIDE + c), o,
-                                      d, r.m, best);
+                                      d, m, best);
       } else {
         uint32_t cm = expand_group(boxes, meta, a, r);
         if (cm != 0 && (top & 0xffu) == 0) {
@@ -210,8 +237,8 @@ static __device__ __forceinline__ Hit wide_walk(const Params& P, const float* __
       if (--level < 0) break;
       top = stack[BLOCK * level];
     }
+    return level >= 0;
   }
-  return decode<SCAN>(P, tbl, best);
-}
+};
 
 }  // namespace opt

@@ -59,7 +59,7 @@ static inline int launch_sample_sum(const float* scratch, int n_samples, int n_p
   return (int)cudaGetLastError();
 }
 
-// One camera path a thread, sample-major (the BVH kernels): thread t traces sample
+// One camera path a thread, sample-major (the skip-link kernel): thread t traces sample
 // t / n_pix of pixel P.pid_base + t mod n_pix, so a warp holds 32 neighbouring
 // pixels of one sample and a long pixel's samples spread over n_samples threads;
 // `walk(o, d)` gives each segment's hit. max(rad, 0) goes to the scratch buffer and

@@ -1,4 +1,4 @@
-// Path-trace kernel with a per-thread 8-wide BVH walk, for Hopper (sm_90a).
+// Path-trace kernel with a per-lane 8-wide BVH walk, for Hopper (sm_90a).
 //
 // Replaces oclpathtracer_tpu/kernels/wide_bvh.py:render_samples_wide_bvh_stats
 // (kernel body _make_kernel, traversal make_wide_traversal), in its parity,
@@ -6,28 +6,44 @@
 // tree is the skip-link kernel's (branching 8), regrouped by core/bvh.widen_bvh
 // so that each internal node's <= 8 children sit in one group.
 //
-// What bounds it on the H100: the balance of the grid first, then dependent
-// loads. Path lengths and walk lengths vary from ray to ray by an order of
-// magnitude on sphere_field(): with one thread per pixel running its 64 samples
-// in series, the 1,188 resident blocks are all busy for only the first few
-// percent of a launch and average about a third busy, the last blocks holding
-// the longest pixels (PERF.md). Read slot by slot, a group's 8 boxes and kinds
-// are 56 scalar loads, each box behind its kind, and a per-thread stack array
-// lives in local memory.
+// What bounds it on the H100: dependent loads in the walk (a box test picks the
+// child, its kind the leaf rows or the group record read next) and the shading
+// between walks. Walk lengths vary by an order of magnitude: at 102k triangles,
+// leaf 6, a segment pops 12 children on average, 29 at p90 and up to 122. With one
+// thread a path and a per-lane walk each bounce, a warp waited on its longest walk
+// at every bounce: its lanes popped in 35 % of its walk iterations (PERF.md).
 //
-// What the design does about that:
-//  - one thread per (pixel, sample) path, sample-major (a warp holds 32
-//    neighbouring pixels of one sample), so a long pixel's samples spread over
-//    64 threads; each path writes its max(rad, 0) to the (n_samples, n_pix, 3)
-//    scratch buffer and split.cuh's sample_sum adds the samples in order
-//    (sample 0 first, as the megakernel adds them), so the bits are unchanged;
+// What the design does about that: one persistent loop in which each lane walks,
+// shades and starts over on its own schedule (Aila and Laine, "Understanding the
+// Efficiency of Ray Traversal on GPUs", HPG 2009, sections 3-4: persistent
+// while-while traversal with finished rays replaced):
+//  - an iteration pops one child for every walking lane (bvh.cuh WideWalk::step:
+//    the box test with the best hit of that moment, then the leaf's scan or the
+//    group's expansion); a lane whose stack empties parks with its hit;
+//  - once REFILL lanes of the warp have parked, or none walks, the parked lanes
+//    shade together; each starts its path's next walk, or stores its sample and
+//    takes a new path. Shading fewer lanes at a time costs more shading passes,
+//    more lanes more idle pops: REFILL's value comes from a sweep of 1-32 on the
+//    H100 (below);
+//  - persistent blocks (regen.cuh persistent_grid) take paths from a queue, one
+//    atomic a warp for all its idle lanes. An item is one (pixel, sample) path,
+//    sample-major, so lanes that refill together start neighbouring pixels of one
+//    sample (their camera rays walk alike) and a launch's tail is one path long;
+//    a run of a pixel's samples as an item would give neighbouring lanes other
+//    pixels' rays and a tail of a whole run;
+//  - each path writes its max(rad, 0) to the (n_samples, n_pix, 3) scratch
+//    buffer and split.cuh's sample_sum adds the samples in order (sample 0
+//    first, as the megakernel adds them), so the bits do not depend on which
+//    lane ran a path or when;
 //  - the group record (bvh.cuh) is read as 12 float4s of boxes and 2 int4s of
 //    kinds with no load behind another, every slot tested and then masked;
 //  - the stack is one word a level in shared memory, sized at launch from the
-//    tree's depth (depth x 4 B x 128 threads), so any tree up to 454 levels
-//    walks here; render/driver.py sends a deeper one to the skip-link kernel;
+//    tree's depth (depth x 4 B x 128 threads) and held by its lane across the
+//    loop, so any tree up to 454 levels walks here; render/driver.py sends a
+//    deeper one to the skip-link kernel;
 //  - one instantiation per leaf form; leaves are read as float4s;
-//  - segments are counted in one 64-bit counter, one atomic add a warp.
+//  - segments, walk_pops (lanes that popped) and walk_slots (32 a warp's
+//    iteration that popped) are 64-bit counters, one atomic add a warp each.
 // The pop order stays the lowest set bit first (pre-order), with the best-hit
 // prune at the pop: the walk visits exactly the skip walk's leaves in its order
 // and gives its bits (the TPU kernel prunes at expansion, which a triangle and
@@ -35,37 +51,120 @@
 // from global memory through read-only loads; the JAX kernel's 900 KB SMEM
 // limit is a TPU limit and is not copied.
 #include "bvh.cuh"
-#include "split.cuh"
+#include "regen.cuh"
 
 namespace opt {
 
+// Parked lanes a warp gathers before it shades them together (or fewer, once no lane
+// of the warp walks). Swept 1-32 on the H100, one 64-spp launch at 512² b16 (PERF.md):
+// at 102k triangles (leaf 6) 1 takes 24.1 ms, 14 15.99, 16 16.09, 32 19.5; sphere_field()
+// and the Cornell box's one- or two-pop walks run faster the more lanes shade at once
+// (at 16: 3.36 and 15.66 ms, at 20: 3.30 and 14.31). 16 is within 0.7 % of the fastest
+// at 102k and near it on both others.
+constexpr int REFILL = 16;
+
+// Adds a lane's 64-bit count to `counter`, one atomic a warp. Every lane of the warp
+// calls it.
+static __device__ __forceinline__ void count_warp(unsigned long long* __restrict__ counter,
+                                                  unsigned long long n) {
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) n += __shfl_down_sync(0xffffffffu, n, k);
+  if ((threadIdx.x & 31) == 0 && n != 0) atomicAdd(counter, n);
+}
+
+// counters: [0] segments, [1] the queue's head (zero on entry), [2] walk_pops, the
+// lanes that popped in the loop iterations that popped, [3] walk_slots, 32 x those
+// iterations.
 template <int SCAN>
 __global__ void __launch_bounds__(BLOCK) wide_bvh(const float* __restrict__ table,
                                                 const float4* __restrict__ boxes,
                                                 const int4* __restrict__ meta, const Params P,
                                                 float* __restrict__ scratch,
-                                                unsigned long long* __restrict__ segs) {
+                                                unsigned long long* __restrict__ counters) {
+  enum { IDLE, WALK, PARKED };
   extern __shared__ uint32_t wide_stack[];
-  split_path(
-      P,
-      [&](float3 o, float3 d) {
-        return wide_walk<SCAN>(P, table, boxes, meta, wide_stack + threadIdx.x, o, d);
-      },
-      scratch, segs);
+  uint32_t* stack = wide_stack + threadIdx.x;
+  const float4* rows = (const float4*)table;
+  auto load = [&](int i) { return __ldg(rows + i); };
+  const int n_pix = P.n_rays;
+  const long long n_items = (long long)P.n_samples * n_pix;
+  const unsigned lane = threadIdx.x & 31u;
+  WideWalk<SCAN> w;
+  Path p;
+  p.o = p.d = v3(0.0f, 0.0f, 0.0f);
+  int state = IDLE, s = 0, idx = 0, b = 0, sg = 0;
+  bool drained = false;
+  unsigned long long pops = 0, iters = 0;
+  while (true) {
+    unsigned walking = __ballot_sync(0xffffffffu, state == WALK);
+    if (walking == 0 || __popc(__ballot_sync(0xffffffffu, state == PARKED)) >= REFILL) {
+      // The parked lanes shade their hit; a path that goes on starts its next walk, one
+      // that ends stores its sample and its lane takes the next path of the queue (one
+      // atomic a warp for all its idle lanes, consecutive items: neighbouring pixels of
+      // one sample).
+      bool fresh = false;
+      if (state == PARKED) {
+        shade(P, p, decode<SCAN>(P, table, w.best));
+        b += 1;
+        if (p.active && b < P.bounces) {
+          fresh = true;
+        } else {
+          store_sample(scratch, s, n_pix, idx, p.rad);
+          state = IDLE;
+        }
+      }
+      unsigned need = __ballot_sync(0xffffffffu, state == IDLE);
+      if (need != 0 && !drained) {
+        int leader = __ffs(need) - 1;
+        unsigned long long base = 0;
+        if ((int)lane == leader) base = atomicAdd(&counters[1], (unsigned long long)__popc(need));
+        base = __shfl_sync(0xffffffffu, base, leader);
+        drained = base + __popc(need) >= (unsigned long long)n_items;
+        long long item = (long long)base + __popc(need & ((1u << lane) - 1u));
+        if (state == IDLE && item < n_items) {
+          s = (int)(item / n_pix);
+          idx = (int)(item - (long long)s * n_pix);
+          int pid = P.pid_base + idx;
+          p = camera_path(P, pid, (float)(pid % P.width), (float)(pid / P.width), s);
+          b = 0;
+          fresh = true;
+        }
+      }
+      if (fresh) {
+        sg += 1;
+        state = w.begin(boxes, meta, p.o, p.d) ? WALK : PARKED;
+      }
+      walking = __ballot_sync(0xffffffffu, state == WALK);
+      if (walking == 0) {
+        if (__any_sync(0xffffffffu, state == PARKED)) continue;
+        break;  // no lane has a path, and the queue is drained
+      }
+    }
+    iters += 1;
+    if (state == WALK) {
+      pops += 1;
+      if (!w.step(P, load, boxes, meta, stack, p.o, p.d)) state = PARKED;
+    }
+  }
+  count_segments(&counters[0], sg);
+  count_warp(&counters[2], pops);
+  count_warp(&counters[3], lane == 0 ? 32 * iters : 0);
 }
 
 template <int SCAN>
 static int launch_wide(const float* table, const float* boxes, const int* meta, const Params& P,
-                       const float* init, float* out, float* scratch, unsigned long long* segs,
-                       cudaStream_t stream) {
+                       const float* init, float* out, float* scratch,
+                       unsigned long long* counters, cudaStream_t stream) {
   auto kernel = wide_bvh<SCAN>;
   size_t smem = (size_t)P.depth * BLOCK * sizeof(uint32_t);
-  cudaError_t err = allow_smem(kernel, smem);
+  int grid;
+  cudaError_t err = persistent_grid(kernel, smem, (long long)P.n_samples * P.n_rays, &grid);
   if (err != cudaSuccess) return (int)err;
-  int grid = split_grid((long long)P.n_samples * P.n_rays);
-  if (grid == 0) return (int)cudaErrorInvalidValue;
+  if ((err = cudaMemsetAsync(counters + 1, 0, sizeof(unsigned long long), stream)) !=
+      cudaSuccess)
+    return (int)err;
   kernel<<<grid, BLOCK, smem, stream>>>(table, (const float4*)boxes, (const int4*)meta, P, scratch,
-                                        segs);
+                                        counters);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return launch_sample_sum(scratch, P.n_samples, P.n_rays, 1, init, out, stream);
 }
@@ -74,8 +173,9 @@ static int launch_wide(const float* table, const float* boxes, const int* meta, 
 
 // boxes (G, 6, 8) f32 and meta (G, 3, 8) i32: the group record; init: null, or
 // the (n_pix, 3) sum of the samples before start_sample, which out goes on from;
-// scratch is (n_samples, n_pix, 3); segs is one int64, added to. P.depth sizes
-// the stack.
+// scratch is (n_samples, n_pix, 3); counters is four int64s, segments, the queue's
+// head (zeroed here), walk_pops and walk_slots, the three counts added to. P.depth
+// sizes the stack.
 extern "C" int opt_wide_bvh_launch(const float* table, const float* boxes, const int* meta,
                                    const float* init, const float* host_f, const int* host_i,
                                    float* out, float* scratch, long long* segs, void* stream) {

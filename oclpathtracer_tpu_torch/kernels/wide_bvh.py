@@ -7,7 +7,7 @@ wn_f (G, 8, 6) f32 [bmin.xyz bmax.xyz] and wn_i (G, 8, 3) i32 [kind a b] per slo
 The kernel reads them as `group_record`: the same values with the slot index last,
 so that a group is 12 float4s of boxes and 6 int4s of kind, a and b.
 
-The walk (`csrc/bvh.cuh` wide_walk) keeps one stack word per level: the group's
+The walk (`csrc/bvh.cuh` WideWalk) keeps one stack word per level: the group's
 unvisited hit mask and its index. Expanding a group slab-tests its children into
 the mask (empty slots are masked by kind 0, never by their inverted box, which a
 min/max slab test passes); each step pops the lowest set bit of the top mask, so
@@ -21,9 +21,15 @@ memory, depth × 4 bytes × 128 threads a block, so any tree up to WIDE_MAX_DEPT
 a tree to the skip-link kernel. The JAX kernel's 900 KB SMEM limit is a TPU limit
 and is not copied.
 
-The kernel runs one thread per (pixel, sample) path: each path's max(rad, 0) goes
+The kernel runs each (pixel, sample) path on one lane of a persistent loop: a lane
+pops one child an iteration, parks when its walk ends, and the warp's parked lanes
+shade together and start their next walk or path (one queue atomic a warp), so a
+warp stops waiting on its longest walk at every bounce. Each path's max(rad, 0) goes
 to a (n_samples, n_pix, 3) scratch buffer and a second kernel adds the samples in
-order, the megakernel's sum. `render_samples_wide_bvh_stats` launches the kernel
+order, the megakernel's sum. The kernel counts the lanes that popped
+(`wide_bvh.walk_pops`) and 32 for each of a warp's iterations that popped
+(`wide_bvh.walk_slots`) on the card; the wrapper adds them to the host counters once
+a call, only under a profiler. `render_samples_wide_bvh_stats` launches the kernel
 for CUDA tensors, or raises; for CPU tensors it runs
 `_render_samples_wide_bvh_stats_plain`, the same walk vectorized over rays with
 one stack per ray, through the same per-sample scratch and in-order sum.
@@ -129,6 +135,7 @@ def _wide_walk_nearest(ps, wn_f, wn_i, depth: int):
             masks[rows, lv] = torch.where(walking, top & (top - 1), top)
             child = torch.where(walking, groups[rows, lv] * WIDE + lowest[top], 0)
             bk.WALK_COUNTS["boxes"] += int(walking.sum())
+            bk.WALK_COUNTS["pops"] += int(walking.sum())
             hit = walking & bk.box_hit(wf[child], o, inv_d, best, ps.scan)
             a = child_a[child]
             best = bk.scan_leaves(ps, a, child_b[child], hit & (kind[child] == 2), o, d, m,
@@ -203,8 +210,13 @@ def render_samples_wide_bvh_stats(table, wn_f, wn_i, cfg: RenderConfig, start_sa
             or boxes.device != table.device or meta.device != table.device:
         raise ValueError("record must be group_record(wn_f, wn_i)")
     bk.check_aligned16(table=table, boxes=boxes, meta=meta)
-    out, segs, launches = bk.launch_split("opt_wide_bvh_launch", (table, boxes, meta), cfg, scan,
-                                          classes, table.shape[0], start_sample, n_samples,
-                                          emi_const, wn_f.shape[0], max_depth, scratch_bytes)
+    out, counters, launches = bk.launch_split("opt_wide_bvh_launch", (table, boxes, meta), cfg,
+                                              scan, classes, table.shape[0], start_sample,
+                                              n_samples, emi_const, wn_f.shape[0], max_depth,
+                                              scratch_bytes, n_counters=4)
     profiling.count("launch.wide_bvh", launches)
-    return out, segs
+    if profiling.tracing():  # the walk's lane counts: a copy from the card, so traced only
+        pops, slots = counters[2:].tolist()
+        profiling.count("wide_bvh.walk_pops", pops)
+        profiling.count("wide_bvh.walk_slots", slots)
+    return out, counters[0]

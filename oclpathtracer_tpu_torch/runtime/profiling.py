@@ -21,7 +21,10 @@ warm-up before its traced window), and where `trace` starts. Counters (`count`,
 `counts`: kernel launches `launch.<kernel>`, builds `build.<compiler>`, the leaf
 size of an 8-wide BVH a render walks with the 8-wide kernel `wide_leaf.<leaf>`, the
 rows of the vertex step's probe launches `vertex.probe_rows`) are plain host integers
-and always on.
+and always on; the 8-wide kernel's lane counts (`wide_bvh.walk_pops`, the lanes that
+popped a child, and `wide_bvh.walk_slots`, 32 for each of a warp's loop iterations that
+popped: their ratio is the walk's busy share of the lanes) are copied from the card
+once a call of its wrapper, and only while a profiler runs (`tracing`).
 """
 
 from __future__ import annotations
@@ -132,6 +135,12 @@ def span_stats() -> dict:
 def count(name: str, n: int = 1) -> None:
     """Add n to the counter `name` (always on)."""
     _counts[name] = _counts.get(name, 0) + n
+
+
+def tracing() -> bool:
+    """Whether a profiler runs: the switch of the counts that cost a copy from the card
+    (the 8-wide kernel's `wide_bvh.walk_pops` and `.walk_slots`), taken only then."""
+    return _profiler_on()
 
 
 def counts() -> dict:

@@ -13,7 +13,8 @@ built from its own sources, and is timed through its own `kernels/selfcheck`, at
 chip_smoke.py phase 5's shapes: the wavefront kernel (tp, Cornell 512², 16
 bounces, 64 spp in one launch from sample 64); the 8-wide BVH kernel (fast, 512²,
 16 bounces, 64 spp from sample 64, on sphere_field() at leaf 32 and on
-sphere_field(80, 3) at leaf 64); the megakernel (tp with the tp0 peel, parity and
+sphere_field(80, 3) at leaf 64, both also at the driver's leaf 6; and tp on the Cornell
+box at leaf 32, an explicit backend="widebvh"'s); the megakernel (tp with the tp0 peel, parity and
 fast, Cornell 512², 4 bounces, 64 spp from sample 64; and parity at the vertex
 recovery's launch, 64², 2 bounces, 8 spp from sample 16); and trace_rays (parity,
 the rim probes' 1,572,864 rows, 3 bounces, 2 spp; and the row counts, bounces and
@@ -75,6 +76,13 @@ CASES = (Timed("wavefront tp cornell", "wavefront", "tp", "cornell", 32, 512, 16
                64),
          Timed("widebvh fast spheres102k leaf 64", "widebvh", "fast", "spheres102k", 64, 512, 16,
                64, 64),
+         # the driver's leaves: render/driver.wide_leaf (6 past 900 triangles; an explicit
+         # backend="widebvh" takes 32 on the Cornell box)
+         Timed("widebvh fast spheres5k leaf 6", "widebvh", "fast", "spheres5k", 6, 512, 16, 64,
+               64),
+         Timed("widebvh fast spheres102k leaf 6", "widebvh", "fast", "spheres102k", 6, 512, 16,
+               64, 64),
+         Timed("widebvh tp cornell leaf 32", "widebvh", "tp", "cornell", 32, 512, 16, 64, 64),
          Timed("megakernel tp cornell 512 b4", "megakernel", "tp", "cornell", 32, 512, 4, 64, 64),
          Timed("megakernel parity cornell 512 b4", "megakernel", "parity", "cornell", 32, 512, 4,
                64, 64),

@@ -130,6 +130,22 @@ def test_plain_wide_walk_is_the_skip_walk_bitwise(scenes, name, scan, leaf):
     assert torch.equal(skip[0], wide[0]) and int(skip[1]) == int(wide[1])
 
 
+@pytest.mark.parametrize("leaf, pops", [(driver.WIDE_BVH_LEAF, 286), (32, 253)])
+@pytest.mark.parametrize("scan", SCANS)
+def test_plain_wide_walk_counts_its_pops(scenes, scan, leaf, pops):
+    """WALK_COUNTS["pops"], the children the plain 8-wide walk pops (the kernel's
+    `wide_bvh.walk_pops` on the same frames), pinned on sphere_field(3, 1, seed=2) at
+    16², 4 bounces, samples 3-4: the same in each leaf form, and each pop is one of
+    the box tests counted."""
+    _, tscene, _, cfg = scenes["spheres244"]
+    cfg = cfg.with_(width=16, height=16, bounces=4)
+    bk.WALK_COUNTS.update(boxes=0, tris=0, pops=0)
+    _, segs = _render("widebvh", tscene, cfg, scan, leaf, start=3, n=2)
+    assert int(segs) == 519
+    assert bk.WALK_COUNTS["pops"] == pops
+    assert bk.WALK_COUNTS["pops"] < bk.WALK_COUNTS["boxes"]
+
+
 @pytest.mark.parametrize("spheres, scan", [((7, 1), scan) for scan in SCANS]
                          + [((16, 2), scan) for scan in ("parity", "fast")])
 def test_the_leaf_only_schedules_the_plain_wide_walk(spheres, scan):

@@ -6,7 +6,9 @@ file needs no fixture of tests/conftest.py, which imports jax). They are
 chip_smoke.py's phase-3 checks at 64×64 (kernels/selfcheck.py holds the cases and
 the pass rule), for the linear and the BVH kernels (with the megakernel's and the
 wavefront's work splits and table routes, the wide kernel on a 14-level tree,
-split into launches and bit for bit at the driver's leaf on sphere_field(), the
+split into launches and bit for bit at the driver's leaf on sphere_field(), on a
+ragged pixel range, with fewer paths than a warp's lanes and in one-sample launches,
+its lane counters' pops those of the plain walk, the
 skip-link kernel bit for bit in each leaf form, split into launches and on the
 driver's route for trees deeper than the wide kernel's stack),
 the adjoint kernel (on a ragged pixel range too) and the arbitrary-ray kernel (at
@@ -24,7 +26,9 @@ import.
 import pytest
 import torch
 
+from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import selfcheck
+from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
 from oclpathtracer_tpu_torch.render import driver
 from oclpathtracer_tpu_torch.runtime import profiling
 
@@ -110,8 +114,6 @@ def test_skip_kernel_renders_a_tree_deeper_than_the_wide_stack(cuda_tables, monk
     """render/driver.py's route: with the wide kernel's stack cut to 13 levels, the
     14-level deep_scene goes to the skip-link kernel, which gives the wide kernel's
     image bit for bit."""
-    from oclpathtracer_tpu_torch.kernels import wide_bvh as wb
-
     deep = cuda_tables.scene("deep")
     cfg = selfcheck.scene_cfg("deep", SIZE, SIZE, 4)
 
@@ -135,6 +137,75 @@ def test_wide_kernel_is_the_skip_kernel_bitwise(cuda_tables):
 def test_wide_kernel_split_into_launches_or_with_the_largest_stack_gives_the_same_bits(
         cuda_tables):
     assert all(selfcheck.wide_chunks_agree(cuda_tables, SIZE, SIZE).values())
+
+
+def _wide_case(scan, width, height, scene="spheres5k"):
+    leaf = selfcheck.DRIVER_WIDE_LEAF if scene != "cornell" else 32
+    return selfcheck.Case("widebvh", scan, width, height, 4, scene=scene, leaf=leaf)
+
+
+# The 8-wide kernel's scans on sphere_field() (no tp: 18 classes) and the Cornell box.
+WIDE_LOOP_SCENES = [("parity", "spheres5k"), ("fast", "spheres5k"), ("tp", "cornell")]
+
+
+@pytest.mark.parametrize("scan, scene", WIDE_LOOP_SCENES)
+def test_wide_kernel_on_a_ragged_pixel_range_is_its_plain_version_bitwise(cuda_tables, scan,
+                                                                          scene):
+    """37×23 pixels, no multiple of a warp or a block: the queue's last items."""
+    result = selfcheck.check_case(_wide_case(scan, 37, 23, scene), cuda_tables)
+    assert result["bitwise"], result
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("scan, scene", WIDE_LOOP_SCENES)
+def test_wide_kernel_with_fewer_paths_than_a_warp_is_its_plain_version_bitwise(cuda_tables,
+                                                                              scan, scene, n):
+    """5×3 pixels and 1 or 2 samples: 15 or 30 paths, fewer than one warp's lanes."""
+    case = _wide_case(scan, 5, 3, scene)
+    got = selfcheck.run(case, cuda_tables, n=n)
+    want = selfcheck.run(case, cuda_tables, plain=True, n=n)
+    assert selfcheck.compare(*got, *want)["bitwise"]
+
+
+@pytest.mark.parametrize("scan, scene", WIDE_LOOP_SCENES)
+def test_wide_kernel_in_one_sample_launches_is_its_plain_version_bitwise(cuda_tables, scan,
+                                                                         scene):
+    """Three samples of 37×23 pixels in three launches, each sum going on from the last."""
+    case = _wide_case(scan, 37, 23, scene)
+    table, wn_f, wn_i, depth, emi, classes = cuda_tables.wide(scene, scan, case.leaf)
+    before = _launches("wide_bvh")[0]
+    got = wb.render_samples_wide_bvh_stats(
+        table, wn_f, wn_i, case.cfg, selfcheck.START_SAMPLE, 3, max_leaf=case.leaf,
+        max_depth=depth, scan=scan, emi_const=emi, classes=classes,
+        record=cuda_tables.record(scene, scan, case.leaf), scratch_bytes=12 * 37 * 23)
+    assert _launches("wide_bvh")[0] - before == 3
+    want = selfcheck.run(case, cuda_tables, plain=True, n=3)
+    assert selfcheck.compare(*got, *want)["bitwise"]
+
+
+@pytest.mark.parametrize("scan, scene", WIDE_LOOP_SCENES)
+def test_wide_kernel_counts_the_plain_walks_pops_under_a_profiler(cuda_tables, scan, scene):
+    """`wide_bvh.walk_pops` is the plain walk's pop count on the same frames, at most
+    `wide_bvh.walk_slots` (32 a warp's loop iteration that popped); without a profiler
+    neither counter moves."""
+    case = _wide_case(scan, 37, 23, scene)
+    names = ("wide_bvh.walk_pops", "wide_bvh.walk_slots")
+
+    def counted():
+        now = profiling.counts()
+        return tuple(now.get(k, 0) for k in names)
+
+    start = counted()
+    selfcheck.run(case, cuda_tables)
+    assert counted() == start
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, segs = selfcheck.run(case, cuda_tables)
+    pops, slots = (b - a for a, b in zip(start, counted()))
+    bk.WALK_COUNTS.update(boxes=0, tris=0, pops=0)
+    _, plain_segs = selfcheck.run(case, cuda_tables, plain=True)
+    assert int(segs) == int(plain_segs)
+    assert pops == bk.WALK_COUNTS["pops"] > 0
+    assert pops <= slots and slots % 32 == 0
 
 
 def test_wavefront_runs_and_routes_give_the_same_bits(cuda_tables):
