@@ -119,17 +119,13 @@ def _cmd_render(args) -> int:
 
         img = render_ao(scene, cfg, rng.make_key(cfg.seed, device), spp=args.spp)
     elif args.integrator == "ao-pallas":
-        from oclpathtracer_tpu_torch.kernels.fast_integrators import render_ao_pallas
-        from oclpathtracer_tpu_torch.kernels.megakernel import pack_scene
+        from oclpathtracer_tpu_torch.kernels import fast_integrators
 
-        img = render_ao_pallas(pack_scene(scene), cfg, 0, args.spp) / args.spp
+        img = fast_integrators.render_ao(scene, cfg, args.spp)
     elif args.integrator == "direct-pallas":
-        from oclpathtracer_tpu_torch.kernels.fast_integrators import (
-            pack_lights, render_direct_pallas)
-        from oclpathtracer_tpu_torch.kernels.megakernel import pack_scene
+        from oclpathtracer_tpu_torch.kernels import fast_integrators
 
-        lt, area = pack_lights(scene)
-        img = render_direct_pallas(pack_scene(scene), lt, area, cfg, 0, args.spp) / args.spp
+        img = fast_integrators.render_direct(scene, cfg, args.spp)
     elif args.integrator == "direct":
         from oclpathtracer_tpu_torch.core import rng
         from oclpathtracer_tpu_torch.integrators.direct import render_direct

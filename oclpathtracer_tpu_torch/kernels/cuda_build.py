@@ -46,8 +46,8 @@ LAUNCHERS = {
     # table, classes, weight -> out, scratch, segs, partials, grads
     "opt_grad_megakernel_launch": (3, 5),
     "opt_trace_rays_launch": (3, 3),       # table, o, d -> out, scratch, segs
-    "opt_ao_launch": (1, 1),               # table -> out
-    "opt_direct_launch": (2, 1),           # table, light table -> out
+    "opt_ao_launch": (1, 2),               # table -> out, rays
+    "opt_direct_launch": (2, 2),           # table, light table -> out, rays
     # table, nodes_f, nodes_i -> the ray state rows in place, segs, the live lists, their
     # counts, the sort keys (or None)
     "opt_sorted_bounce_launch": (3, 5),

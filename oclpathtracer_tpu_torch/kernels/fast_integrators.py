@@ -18,10 +18,20 @@ the 1e-8 clamp sits (after ×4 here, before it there) and in its specular test
 (mtype ≥ 1.5 here, == SPECULAR there), so kernel and twin agree to about 3e-6, as
 the JAX package's do.
 
-`render_ao_pallas` and `render_direct_pallas` keep the JAX names and signatures and
-return the SUM of `n_samples` frames, (n_rays, 3). A CUDA table launches the kernel;
-a CPU table runs the plain version (`_render_ao_plain`, `_render_direct_plain`), the
-same f32 operations in the same order vectorized over pixels.
+`render_ao_stats` and `render_direct_stats` return the SUM of `n_samples` frames,
+(n_rays, 3), and the rays cast, () int64 on the table's device: each camera ray, and
+each second ray where it is cast (AO: where the camera ray hits; direct: where it
+hits, the light lies in front of the surface and the hit is not on a light), the
+count the kernel adds on the card. `render_ao_pallas` and `render_direct_pallas`
+keep the JAX names and signatures and return the image alone. A CUDA table launches
+the kernel; a CPU table runs the plain version (`_render_ao_plain`,
+`_render_direct_plain`), the same f32 operations in the same order vectorized over
+pixels.
+
+`prepare_chunks(scene, cfg, integrator)` packs a render's tables once (the span
+`driver.prepare`) and returns its chunk (start, n) → (SUM image, rays), as every
+kernel module's does; `render_ao` and `render_direct` are `megakernel.mean_of_chunks`
+over it, the CLI's `ao-pallas` and `direct-pallas`.
 
 Both kernels split each pixel's samples over lanes and, where the table fits in
 shared memory (`ao_in_shared`, `direct_in_shared`), run the camera scan over the
@@ -270,6 +280,12 @@ def _new_counts() -> dict:
     return {"camera": 0, "hits": 0, "rays": 0, "tris": 0, "lit": 0, "eye_rows": 0}
 
 
+def rays_cast(counts: dict) -> int:
+    """The rays a kernel casts, from the plain version's counts: every camera ray and
+    every second ray cast."""
+    return counts["camera"] + counts["rays"]
+
+
 def _render_ao_plain(table, cfg: RenderConfig, start_sample: int, n_samples: int,
                      radius: float = DEFAULT_AO_RADIUS, pid_base: int = 0,
                      n_rays: int | None = None, counts: dict | None = None,
@@ -341,11 +357,25 @@ def _check_lanes(lanes: int) -> int:
     return lanes
 
 
+def _plain_stats(render, device, **kw):
+    """(image, rays () int64 on `device`) of a plain version, counted as it runs."""
+    counts = _new_counts()
+    img = render(counts=counts, **kw)
+    return img, torch.tensor(rays_cast(counts), dtype=torch.int64, device=device)
+
+
+def _kernel_outputs(n_pix: int, device):
+    """A launch's outputs: the (n_pix, 3) image and the rays' counter, zero."""
+    return (torch.empty((n_pix, 3), dtype=torch.float32, device=device),
+            torch.zeros((1,), dtype=torch.int64, device=device))
+
+
 @profiling.spanned("kernel.ao")
-def render_ao_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
-                     n_samples: int, radius: float = DEFAULT_AO_RADIUS, pid_base: int = 0,
-                     n_rays: int | None = None, lanes: int | None = None) -> torch.Tensor:
-    """SUM of n_samples 1-spp AO frames (reference streams): (n_rays, 3) f32.
+def render_ao_stats(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
+                    n_samples: int, radius: float = DEFAULT_AO_RADIUS, pid_base: int = 0,
+                    n_rays: int | None = None, lanes: int | None = None):
+    """SUM of n_samples 1-spp AO frames (reference streams) and the rays cast: (img
+    (n_rays, 3) f32, rays () int64).
 
     `table` is pack_scene's. Pixels [pid_base, pid_base + n_rays) keep streams and
     camera keyed on absolute ids. A CUDA table launches `csrc/fast_integrators.cu`
@@ -360,26 +390,36 @@ def render_ao_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
                          f"there), got {n_samples}")
     lanes = ao_lanes(n_samples) if lanes is None else _check_lanes(lanes)
     if table.device.type == "cpu":
-        return _render_ao_plain(table, cfg, start_sample, n_samples, radius, pid_base, n_pix,
-                                lanes=lanes)
+        return _plain_stats(_render_ao_plain, table.device, table=table, cfg=cfg,
+                            start_sample=start_sample, n_samples=n_samples, radius=radius,
+                            pid_base=pid_base, n_rays=n_pix, lanes=lanes)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
     bk.check_aligned16(table=table)
     floats, ints = mk.host_params(cfg, "parity", (), False, table.shape[0], start_sample,
                                   n_samples, pid_base, n_pix, smem=ao_in_shared(table))
-    out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
+    out, rays = _kernel_outputs(n_pix, table.device)
     cuda_build.launch("opt_ao_launch", (table,), floats + [float(np.float32(radius))],
-                      ints + [lanes], out)
+                      ints + [lanes], out, rays)
     profiling.count("launch.ao")
-    return out
+    return out, rays[0]
+
+
+def render_ao_pallas(table: torch.Tensor, cfg: RenderConfig, start_sample: int,
+                     n_samples: int, radius: float = DEFAULT_AO_RADIUS, pid_base: int = 0,
+                     n_rays: int | None = None, lanes: int | None = None) -> torch.Tensor:
+    """SUM of n_samples 1-spp AO frames: (n_rays, 3) f32, render_ao_stats' image."""
+    return render_ao_stats(table, cfg, start_sample, n_samples, radius, pid_base, n_rays,
+                           lanes)[0]
 
 
 @profiling.spanned("kernel.direct")
-def render_direct_pallas(table: torch.Tensor, light_table: torch.Tensor, total_area,
-                         cfg: RenderConfig, start_sample: int, n_samples: int,
-                         pid_base: int = 0, n_rays: int | None = None,
-                         lanes: int | None = None) -> torch.Tensor:
-    """SUM of n_samples 1-spp direct-NEE frames (reference streams): (n_rays, 3) f32.
+def render_direct_stats(table: torch.Tensor, light_table: torch.Tensor, total_area,
+                        cfg: RenderConfig, start_sample: int, n_samples: int,
+                        pid_base: int = 0, n_rays: int | None = None,
+                        lanes: int | None = None):
+    """SUM of n_samples 1-spp direct-NEE frames (reference streams) and the rays
+    cast: (img (n_rays, 3) f32, rays () int64).
 
     `light_table, total_area` are pack_lights' (the area itself: the kernel divides
     1 / area as the JAX kernel does). A CUDA table launches
@@ -394,17 +434,73 @@ def render_direct_pallas(table: torch.Tensor, light_table: torch.Tensor, total_a
     if light_table.device != table.device or light_table.shape[0] < 1:
         raise ValueError("light_table must hold at least one light, on the table's device")
     if table.device.type == "cpu":
-        return _render_direct_plain(table, light_table, total_area, cfg, start_sample,
-                                    n_samples, pid_base, n_pix)
+        return _plain_stats(_render_direct_plain, table.device, table=table,
+                            light_table=light_table, total_area=total_area, cfg=cfg,
+                            start_sample=start_sample, n_samples=n_samples,
+                            pid_base=pid_base, n_rays=n_pix)
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
     bk.check_aligned16(table=table, light_table=light_table)
     floats, ints = mk.host_params(cfg, "parity", (), False, table.shape[0], start_sample,
                                   n_samples, pid_base, n_pix,
                                   smem=direct_in_shared(table, light_table))
-    out = torch.empty((n_pix, 3), dtype=torch.float32, device=table.device)
+    out, rays = _kernel_outputs(n_pix, table.device)
     cuda_build.launch("opt_direct_launch", (table, light_table),
                       floats + [float(np.float32(total_area))],
-                      ints + [light_table.shape[0], lanes], out)
+                      ints + [light_table.shape[0], lanes], out, rays)
     profiling.count("launch.direct")
-    return out
+    return out, rays[0]
+
+
+def render_direct_pallas(table: torch.Tensor, light_table: torch.Tensor, total_area,
+                         cfg: RenderConfig, start_sample: int, n_samples: int,
+                         pid_base: int = 0, n_rays: int | None = None,
+                         lanes: int | None = None) -> torch.Tensor:
+    """SUM of n_samples 1-spp direct-NEE frames: (n_rays, 3) f32, render_direct_stats'
+    image."""
+    return render_direct_stats(table, light_table, total_area, cfg, start_sample, n_samples,
+                               pid_base, n_rays, lanes)[0]
+
+
+# ---- the render seam ---------------------------------------------------------------
+
+INTEGRATORS = ("ao", "direct")
+
+
+def prepare_chunks(scene: Scene, cfg: RenderConfig, integrator: str,
+                   radius: float = DEFAULT_AO_RADIUS):
+    """The AO ("ao") or direct ("direct") kernel's tables, made once under the span
+    `driver.prepare` (pack_scene; pack_lights for direct), and the chunk (start, n) →
+    (SUM image (n_pixels, 3) of samples start .. start + n - 1, rays () int64), as
+    megakernel.prepare_chunks."""
+    if integrator not in INTEGRATORS:
+        raise ValueError(f"integrator must be one of {INTEGRATORS}, got {integrator!r}")
+    with profiling.span("driver.prepare"):
+        table = mk.pack_scene(scene)
+        if integrator == "direct":
+            light_table, total_area = pack_lights(scene)
+
+    if integrator == "ao":
+        def chunk(start: int, n: int):
+            return render_ao_stats(table, cfg, start, n, radius=radius)
+    else:
+        def chunk(start: int, n: int):
+            return render_direct_stats(table, light_table, total_area, cfg, start, n)
+
+    return chunk
+
+
+def render_ao(scene: Scene, cfg: RenderConfig, total_spp: int, samples_per_call: int = 0,
+              radius: float = DEFAULT_AO_RADIUS) -> torch.Tensor:
+    """Mean AO image of samples 0 .. total_spp - 1 through the AO kernel, on the
+    scene's device, in calls of samples_per_call samples (0: one call)."""
+    return mk.mean_of_chunks(prepare_chunks(scene, cfg, "ao", radius), cfg, total_spp,
+                             samples_per_call or total_spp, scene.geometry.p1.device)
+
+
+def render_direct(scene: Scene, cfg: RenderConfig, total_spp: int,
+                  samples_per_call: int = 0) -> torch.Tensor:
+    """Mean direct-NEE image of samples 0 .. total_spp - 1 through the direct kernel,
+    on the scene's device, in calls of samples_per_call samples (0: one call)."""
+    return mk.mean_of_chunks(prepare_chunks(scene, cfg, "direct"), cfg, total_spp,
+                             samples_per_call or total_spp, scene.geometry.p1.device)

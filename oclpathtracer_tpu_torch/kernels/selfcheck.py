@@ -740,7 +740,53 @@ def run_fast(kind: str, tables: Tables, cfg: RenderConfig, start: int, n: int,
     return fi.render_direct_pallas(table, lt, area, cfg, start, n, lanes=lanes, **kw)
 
 
+def run_fast_stats(kind: str, tables: Tables, cfg: RenderConfig, start: int, n: int,
+                   pid_base: int = 0, n_rays: int | None = None, table=None,
+                   lanes: int | None = None):
+    """(SUM image, rays cast) of the AO or direct kernel's stats entry on the Cornell
+    box's parity table (or on `table`)."""
+    own, _, _ = tables.linear("cornell", "parity")
+    table = own if table is None else table
+    kw = dict(pid_base=pid_base, n_rays=n_rays, lanes=lanes)
+    if kind == "ao":
+        return fi.render_ao_stats(table, cfg, start, n, **kw)
+    lt, area = tables.lights("cornell")
+    return fi.render_direct_stats(table, lt, area, cfg, start, n, **kw)
+
+
 DIRECT_SPLIT_SAMPLES = (3, 5)  # no multiple of 2, 8 or 32 lanes
+RAY_SAMPLES = (1, 5)
+RAY_LANES = (1, 2, 4, 8, 16, 32)
+
+
+def fast_ray_checks(tables: Tables, width, height) -> dict:
+    """The AO and direct kernels' rays cast (an int64 on the card) against the camera
+    and second rays their plain versions count, with each image bit for bit the plain
+    version's: at 1 and 5 samples a pixel, at 1 to 32 lanes a pixel, with the table
+    in shared and in global memory, on the whole image and on pixels [1000, 6001).
+    The image holds at least 6001 pixels."""
+    cfg = RenderConfig(width=width, height=height)
+    big = padded_past_shared(tables.linear("cornell", "parity")[0])
+    out = {}
+    for kind in ("ao", "direct"):
+        wrong, rays = [], {}
+        for n in RAY_SAMPLES:
+            for pid_base, n_rays in ((0, None), (1000, 5001)):
+                counts = fi._new_counts()
+                want = run_fast(kind, tables, cfg, START_SAMPLE, n, plain=True,
+                                pid_base=pid_base, n_rays=n_rays, counts=counts)
+                want_rays = rays[f"n={n} from {pid_base}"] = fi.rays_cast(counts)
+                for lanes in RAY_LANES:
+                    for route, table in (("shared", None), ("global", big)):
+                        img, got = run_fast_stats(kind, tables, cfg, START_SAMPLE, n,
+                                                  pid_base, n_rays, table, lanes)
+                        if not (got.dtype == torch.int64 and got.shape == ()
+                                and int(got) == want_rays and torch.equal(img, want)):
+                            wrong.append(f"n={n} from {pid_base} {lanes} lanes {route}: "
+                                         f"{int(got)} rays")
+        out[f"{kind} rays cast are the plain version's count, image bit for bit"] = {
+            "ok": not wrong, "rays": rays, "wrong": wrong}
+    return out
 
 
 def fast_integrator_checks(tables: Tables, width, height, n_samples: int = 4) -> dict:
@@ -750,7 +796,8 @@ def fast_integrator_checks(tables: Tables, width, height, n_samples: int = 4) ->
     table padded past shared memory (read from global memory), the same bits; AO at
     1, 2 and 32 lanes a pixel, the same bits; direct at 1, 2, 8 and 32 lanes a pixel
     and n = 3 and 5, on both routes and (8 lanes) on pixels [1000, 6001), the plain
-    version's bits and the default's. The image holds at least 6001 pixels."""
+    version's bits and the default's; the rays each casts (fast_ray_checks). The image
+    holds at least 6001 pixels."""
     cfg = RenderConfig(width=width, height=height)
     big = padded_past_shared(tables.linear("cornell", "parity")[0])
     out, fulls = {}, {}
@@ -788,6 +835,7 @@ def fast_integrator_checks(tables: Tables, width, height, n_samples: int = 4) ->
                                                                             want[1000:6001]))
     out["direct at 1, 2, 8 and 32 lanes a pixel, n = 3 and 5, both routes, same bits"] = {
         "ok": all(same.values()), **same}
+    out.update(fast_ray_checks(tables, width, height))
     return out
 
 

@@ -1,5 +1,6 @@
 """Each kernel backend's progressive render is its `prepare_chunks` and one loop,
-`megakernel.mean_of_chunks`; the driver's steps run the same chunks.
+`megakernel.mean_of_chunks`; the driver's steps run the same chunks. The AO and
+direct-NEE kernels' chunks return the rays they cast where the others return segments.
 
 Cornell box, 8×8, 2 bounces, 5 spp in calls of 2 (samples 0-1, 2-3 and 4), on the
 CPU (the kernels' plain versions). The expected images are the stats entries' chunk
@@ -12,6 +13,7 @@ import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
+from oclpathtracer_tpu_torch.kernels import fast_integrators as fi
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.kernels import sorted_wavefront as sw
 from oclpathtracer_tpu_torch.kernels import wavefront as wf
@@ -43,6 +45,13 @@ def box():
 
 def _entry(scene, backend):
     """(start, n) → (SUM image, segments) of the backend's stats entry."""
+    if backend == "ao":
+        table = mk.pack_scene(scene)
+        return lambda s, n: fi.render_ao_stats(table, CFG, s, n)
+    if backend == "direct":
+        table = mk.pack_scene(scene)
+        lights, area = fi.pack_lights(scene)
+        return lambda s, n: fi.render_direct_stats(table, lights, area, CFG, s, n)
     if backend in ("pallas", "sharded", "wavefront"):
         scan, table, emi, classes = mk.prepare_scan(scene)
         fn = (wf.render_samples_wavefront_stats if backend == "wavefront"
@@ -76,7 +85,9 @@ def _prepared(scene, backend):
             "wavefront": lambda: wf.prepare_chunks(scene, CFG),
             "bvh": lambda: bk.prepare_chunks(scene, CFG, leaf_size=driver.BVH_LEAF),
             "widebvh": lambda: wb.prepare_chunks(scene, CFG, leaf_size=WIDE_LEAF),
-            "sorted": lambda: sw.prepare_chunks(scene, CFG)}[backend]()
+            "sorted": lambda: sw.prepare_chunks(scene, CFG),
+            "ao": lambda: fi.prepare_chunks(scene, CFG, "ao"),
+            "direct": lambda: fi.prepare_chunks(scene, CFG, "direct")}[backend]()
 
 
 def _public(scene, backend):
@@ -92,11 +103,14 @@ def _public(scene, backend):
                                          leaf_size=driver.BVH_LEAF),
             "sorted": lambda: sw.render_sorted(scene, CFG, TOTAL, samples_per_call=PER_CALL),
             "sharded": lambda: render_pallas_sharded(scene, CFG, MESH, TOTAL,
-                                                     samples_per_call=PER_CALL)}[backend]()
+                                                     samples_per_call=PER_CALL),
+            "ao": lambda: fi.render_ao(scene, CFG, TOTAL, samples_per_call=PER_CALL),
+            "direct": lambda: fi.render_direct(scene, CFG, TOTAL,
+                                               samples_per_call=PER_CALL)}[backend]()
 
 
 @pytest.mark.parametrize("backend", ["pallas", "wavefront", "bvh", "widebvh", "sorted",
-                                     "sharded"])
+                                     "sharded", "ao", "direct"])
 def test_progressive_render_is_the_running_sum_of_its_chunks(box, backend):
     entry = _entry(box, backend)
     chunks = [entry(s, n) for s, n in CHUNKS]

@@ -15,9 +15,10 @@ the adjoint kernel (on a ragged pixel range too) and the arbitrary-ray kernel (a
 runs of 1, 2 and all samples a lane); the AO kernel (at 1, 2 and 32 lanes a pixel,
 and at the CLI's shape) and the direct kernel (at 1, 2, 8 and 32 lanes a pixel and
 n = 3 and 5 on both table routes, and at the CLI's shape), neither taking a table
-off a 16-byte boundary; the sorted wavefront's live-list
-launches (on a ray count no multiple of the block, and on a call whose rays all die
-in the first launch); the vertex step's launches; and the bench
+off a 16-byte boundary, both counting the rays their plain versions cast and both
+renders of the seam (`render_ao`, `render_direct`) the plain sums divided; the sorted
+wavefront's live-list launches (on a ray count no multiple of the block, and on a
+call whose rays all die in the first launch); the vertex step's launches; and the bench
 (`oclpathtracer_tpu_torch/bench.py`) at 64², its segments and images those of the
 plain versions. Whether there is a card is decided inside the fixture, never at
 import.
@@ -394,6 +395,35 @@ def test_direct_kernel_is_its_plain_version_at_the_cli_shape(cuda_tables):
     want = selfcheck.run_fast("direct", cuda_tables, cfg, 0, 64, plain=True)
     assert torch.equal(got, want) and bool(torch.isfinite(got).all())
     assert float(got.mean()) > 64 * 0.1  # lit
+
+
+@pytest.mark.parametrize("kind", ["ao", "direct"])
+def test_fast_integrator_kernels_count_the_rays_their_plain_versions_cast(fast_results, kind):
+    """The stats entries' int64 count is the plain version's camera and second rays,
+    and the image its bits: at 1 and 5 samples, 1 to 32 lanes a pixel, both table
+    routes, on the whole image and on a ragged pixel range."""
+    result = fast_results[f"{kind} rays cast are the plain version's count, image bit for bit"]
+    assert result["ok"], result
+
+
+@pytest.mark.parametrize("kind", ["ao", "direct"])
+def test_the_seams_render_is_the_plain_sum_divided_bitwise(cuda_tables, kind):
+    """render_ao / render_direct (the CLI's ao-pallas and direct-pallas: the tables
+    packed once, one launch of every sample, its image added to zeros and divided) at
+    128², 16 spp: the plain version's sum over one call divided by spp, bit for bit,
+    and the same in calls of 5 samples."""
+    from oclpathtracer_tpu_torch.config import RenderConfig
+    from oclpathtracer_tpu_torch.kernels import fast_integrators as fi
+
+    cfg = RenderConfig(width=128, height=128)
+    scene = cuda_tables.scene("cornell")
+    render = fi.render_ao if kind == "ao" else fi.render_direct
+    want = selfcheck.run_fast(kind, cuda_tables, cfg, 0, 16, plain=True) / 16
+    assert torch.equal(render(scene, cfg, 16), want)
+    parts = torch.zeros_like(want)
+    for start, n in ((0, 5), (5, 5), (10, 5), (15, 1)):
+        parts = parts + selfcheck.run_fast(kind, cuda_tables, cfg, start, n, plain=True)
+    assert torch.equal(render(scene, cfg, 16, samples_per_call=5), parts / 16)
 
 
 @pytest.mark.parametrize("kind", ["ao", "direct"])

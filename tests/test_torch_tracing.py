@@ -113,6 +113,23 @@ def test_the_build_of_a_render_step_is_its_prepare_span(scene):
     assert profiling.span_stats()["driver.prepare"][0] == 1
 
 
+@pytest.mark.parametrize("kind", ["ao", "direct"])
+def test_an_ao_or_direct_render_records_one_build_and_one_launch_span_a_chunk(scene, kind):
+    """render_ao / render_direct in 3 calls (2, 2 and 1 samples): the tables are packed
+    once under `driver.prepare`, each chunk's launch is its own `kernel.<kind>`, and the
+    plain path counts no launch."""
+    from oclpathtracer_tpu_torch.kernels import fast_integrators as fi
+
+    cfg = RenderConfig(4, 4, bounces=1)
+    render = fi.render_ao if kind == "ao" else fi.render_direct
+    before = profiling.counts().get("launch." + kind, 0)
+    parents = _parents(_profiled(lambda: render(scene, cfg, 5, samples_per_call=2)))
+    assert parents == {"driver.prepare": {None}, "kernel." + kind: {None}}
+    stats = profiling.span_stats()
+    assert stats["driver.prepare"][0] == 1 and stats["kernel." + kind][0] == 3
+    assert profiling.counts().get("launch." + kind, 0) == before
+
+
 def test_the_table_starts_afresh_with_a_new_profiler_session(steps, tmp_path):
     _profiled(lambda: _run(steps, 2))
     assert profiling.span_stats()["train.step"][0] == 2
