@@ -5,8 +5,10 @@ Counterpart of `oclpathtracer_tpu.core.bvh`. The build is the JAX package's nump
 code, run as native C++ (`native/bvh_build.cpp`, operation for operation) where the
 library loads and the input is not one whose median split only numpy reproduces, so
 every node array, `order` and `depth` is bitwise the same either way. Each
-`build_bvh` call counts `bvh_build.native` or `bvh_build.fallback`, each `widen_bvh`
-call `bvh_widen.native` or `bvh_widen.fallback` (`runtime/profiling.count`):
+`build_bvh` call counts `bvh_build.native` or `bvh_build.fallback` and adds to
+`bvh_build.tasks` the subtrees the native build ran as tasks on its threads (0 for a
+build on the calling thread alone), each `widen_bvh` call `bvh_widen.native` or
+`bvh_widen.fallback` (`runtime/profiling.count`):
 
   * pre-order depth-first layout with skip links: node i's first child is i+1 and
     `skip[i]` is the node after i's subtree, so a walk is
@@ -134,8 +136,9 @@ def build_bvh(geom: Geometry, leaf_size: int = 4, branching: int = 2) -> FlatBVH
     native = _native()
     arrays = None
     if native is not None:
-        arrays = native.build_bvh(*(p.cpu().numpy() for p in (geom.p1, geom.p2, geom.p3)),
-                                  leaf_size, branching)
+        arrays, tasks = native.build_bvh(
+            *(p.cpu().numpy() for p in (geom.p1, geom.p2, geom.p3)), leaf_size, branching)
+        profiling.count("bvh_build.tasks", tasks)
     if arrays is None:
         profiling.count("bvh_build.fallback")
         return build_bvh_numpy(geom, leaf_size, branching)

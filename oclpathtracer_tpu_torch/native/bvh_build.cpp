@@ -15,18 +15,49 @@
 //     [tri_start, tri_start + tri_count) and the array's ids are `order` at the end.
 // Where the numpy build takes its median split (degenerate centroids, or no split
 // with a finite cost) it calls np.argpartition, whose order this file does not copy:
-// the build returns a status instead, and the caller runs the numpy build. One
-// thread; C ABI for ctypes.
+// the build returns a status instead, and the caller runs the numpy build.
+//
+// Threads. Once a node's groups are fixed, the subtree of each group reads and writes
+// only its own range of the triangle array (and the same range of the partition's
+// spill and bin buffers, which are indexed as that array is). So a group of at least
+// kTaskTris triangles that is no leaf is built as a task, by whichever thread takes it
+// first: the calling thread or a worker of the process's pool (one a further CPU the
+// process may run on). A task writes node arrays of its own and records, in pre-order,
+// items that are its nodes or the tasks it handed on, a node's skip link as the item
+// after its subtree. The join places each task's nodes after the subtrees before them
+// and maps items to node ids, so every array is the one-thread build's, whatever thread
+// built what and in what order. A task that fails stops where the one-thread build
+// would stop; the build returns the first failure in pre-order and writes no output
+// array. A build with no such group runs on the calling thread alone. C ABI for ctypes.
+
+#include <sched.h>
+#include <unistd.h>
 
 #include <algorithm>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
+#include <deque>
+#include <memory>
+#include <mutex>
+#include <system_error>
+#include <thread>
 #include <utility>
 #include <vector>
 
 namespace {
 
 constexpr int kBins = 16;
+
+// The fewest triangles of a subtree built as a task. Swept on the H100's host (8 CPUs),
+// the 102,404 triangles of sphere_field(80, 3) at leaf 6, branching 8, every value in
+// turn, 80 rounds (PERF.md): medians from 512, 1,024, 2,048 and 4,096 triangles 15.04,
+// 15.46, 14.75 and 17.58 ms (82, 66, 17 and 8 tasks), one thread 49.0; on a second
+// host, 30 builds a value, 11.0, 11.6, 12.1 and 11.5 ms, one thread 28.2. 512 keeps
+// the most tasks to share out when a thread is held up, within noise of the fastest;
+// sphere_field()'s 5,124 triangles then run 7 tasks at leaf 32, 1.07 ms against 1.20
+// on one thread.
+constexpr int64_t kTaskTris = 512;
 
 // Build statuses (negative): the caller runs the numpy build instead.
 constexpr int64_t kDegenerate = -1;  // a group's centroids span less than 1e-12
@@ -65,22 +96,139 @@ struct Scratch {
   std::vector<int32_t> bins;
 };
 
-struct Builder {
-  Tri* tris;               // (n,): a node's triangles are one range of it
-  Tri* spill;
-  int32_t* bins;
+// A subtree built by one thread: its nodes in arrays of its own and its items in
+// pre-order, each a node (>= 0: its index here) or a task it handed on (~k:
+// children[k]).
+struct Task {
+  int64_t b, e;                   // its range of the triangle array
+  std::vector<float> mn, mx;      // 3 a node
+  std::vector<int32_t> start, count;
+  std::vector<int64_t> next;      // a node's skip link: the item after its subtree
+  std::vector<int64_t> items;
+  std::vector<std::unique_ptr<Task>> children;
+  int64_t status = 0;
+  int64_t size = 0;               // nodes of the subtree, its tasks' too (the join's)
+
+  Task(int64_t b_, int64_t e_) : b(b_), e(e_) {}
+};
+
+struct Build;
+
+// A task handed to the pool, and its build.
+struct Job {
+  Build* build;
+  Task* task;
+};
+
+// The process's worker threads, one for each CPU it may run on beyond the caller's,
+// started by the first build that hands a task on and kept for the process (starting
+// 7 threads and joining them costs 0.5-1 ms on the H100's host). A caller runs its
+// own build's queued tasks while it waits, so a build completes with any number of
+// workers. A child process of a fork makes its own pool.
+struct Pool {
+  std::mutex m;                   // guards the queue and every build's count
+  std::condition_variable work_cv;
+  std::deque<Job> queue;
+  pid_t pid = getpid();
+
+  static Pool& get() {
+    static std::mutex made;
+    static Pool* current = nullptr;
+    std::lock_guard<std::mutex> lk(made);
+    if (current == nullptr || current->pid != getpid()) {
+      current = new Pool();       // never freed: its threads live as long as the process
+      current->start();
+    }
+    return *current;
+  }
+
+  void start() {
+    cpu_set_t set;
+    int cpus = sched_getaffinity(0, sizeof(set), &set) == 0
+                   ? CPU_COUNT(&set)
+                   : int(std::thread::hardware_concurrency());
+    for (int w = 1; w < cpus; ++w) {
+      try {
+        std::thread([this] { serve(); }).detach();
+      } catch (const std::system_error&) {
+        break;                    // no more threads: the ones there do the work
+      }
+    }
+  }
+
+  void serve();
+};
+
+// One build: the arrays its tasks share, and its count of tasks queued or running.
+struct Build {
+  Tri* tris;                      // (n,): a node's triangles are one range of it
+  Tri* spill;                     // (n,), indexed as `tris`
+  int32_t* bins;                  // (n,), indexed as `tris`
   int64_t leaf_size;
   int64_t branching;
-  float* nodes_min;        // (2n - 1, 3) at most
-  float* nodes_max;
-  int32_t* skip;
-  int32_t* tri_start;
-  int32_t* tri_count;
-  int64_t n_nodes = 0;
-  int64_t status = 0;
+  Pool* pool = nullptr;           // set by the first task handed on, the root's
+  std::condition_variable done_cv;
+  int64_t tasks_left = 0;         // the pool's mutex guards it
+
+  void run(Task& t);
+
+  // Queue a task; only the thread that runs it touches it until the build's join.
+  void hand_on(Task* t) {
+    if (pool == nullptr) pool = &Pool::get();
+    {
+      std::lock_guard<std::mutex> lk(pool->m);
+      ++tasks_left;
+      pool->queue.push_back(Job{this, t});
+    }
+    pool->work_cv.notify_one();
+    done_cv.notify_one();         // the caller may take it while it waits
+  }
+
+  // Build the root task on the calling thread, then run this build's queued tasks
+  // until none is queued or running.
+  void run_all(Task& root) {
+    run(root);
+    if (pool == nullptr) return;
+    std::unique_lock<std::mutex> lk(pool->m);
+    while (tasks_left > 0) {
+      auto it = std::find_if(pool->queue.begin(), pool->queue.end(),
+                             [this](const Job& j) { return j.build == this; });
+      if (it == pool->queue.end()) {
+        done_cv.wait(lk);
+        continue;
+      }
+      Task* t = it->task;
+      pool->queue.erase(it);
+      lk.unlock();
+      run(*t);
+      lk.lock();
+      --tasks_left;
+    }
+  }
+};
+
+void Pool::serve() {
+  std::unique_lock<std::mutex> lk(m);
+  for (;;) {
+    work_cv.wait(lk, [this] { return !queue.empty(); });
+    Job j = queue.front();
+    queue.pop_front();
+    lk.unlock();
+    j.build->run(*j.task);
+    lk.lock();
+    // Under the lock: the build's caller cannot see 0 and end the build before this.
+    if (--j.build->tasks_left == 0) j.build->done_cv.notify_all();
+  }
+}
+
+struct Builder {
+  Build& bld;
+  Task& task;
 
   // Binned-SAH split of tris[b, e): the end of the left side, or a status.
   int64_t split(int64_t b, int64_t e) {
+    Tri* tris = bld.tris;
+    int32_t* bins = bld.bins;
     double cmin[3], cmax[3];
     for (int a = 0; a < 3; ++a) cmin[a] = cmax[a] = tris[b].centroid(a);
     for (int64_t i = b + 1; i < e; ++i)
@@ -108,7 +256,7 @@ struct Builder {
       const Tri& t = tris[i];
       int64_t k = int64_t((t.centroid(axis) - lo) * scale);
       if (k > kBins - 1) k = kBins - 1;
-      bins[i - b] = int32_t(k);
+      bins[i] = int32_t(k);
       ++counts[k];
 #pragma GCC unroll 3
       for (int a = 0; a < 3; ++a) {
@@ -152,9 +300,10 @@ struct Builder {
     if (s_best < 0) return kNoFiniteCost;
 
     // Stable partition: bins <= s_best first, each side in its old order.
+    Tri* spill = bld.spill + b;
     int64_t w = b, r = 0;
     for (int64_t i = b; i < e; ++i) {
-      if (bins[i - b] <= s_best) tris[w++] = tris[i];
+      if (bins[i] <= s_best) tris[w++] = tris[i];
       else spill[r++] = tris[i];
     }
     std::copy(spill, spill + r, tris + w);
@@ -163,7 +312,9 @@ struct Builder {
 
   // Emit the subtree of tris[b, e) in pre-order.
   void emit(int64_t b, int64_t e) {
-    int64_t nid = n_nodes++;
+    const Tri* tris = bld.tris;
+    int64_t nid = int64_t(task.start.size());
+    task.items.push_back(nid);
     float mn[3], mx[3];
     for (int a = 0; a < 3; ++a) { mn[a] = tris[b].mn[a]; mx[a] = tris[b].mx[a]; }
     for (int64_t i = b + 1; i < e; ++i)
@@ -172,22 +323,21 @@ struct Builder {
         mn[a] = pick_min(mn[a], tris[i].mn[a]);
         mx[a] = pick_max(mx[a], tris[i].mx[a]);
       }
-    for (int a = 0; a < 3; ++a) {
-      nodes_min[3 * nid + a] = mn[a];
-      nodes_max[3 * nid + a] = mx[a];
-    }
-    tri_start[nid] = -1;
-    tri_count[nid] = 0;
+    task.mn.insert(task.mn.end(), mn, mn + 3);
+    task.mx.insert(task.mx.end(), mx, mx + 3);
+    task.start.push_back(-1);
+    task.count.push_back(0);
+    task.next.push_back(-1);
 
-    if (e - b <= leaf_size) {
-      tri_start[nid] = int32_t(b);
-      tri_count[nid] = int32_t(e - b);
+    if (e - b <= bld.leaf_size) {
+      task.start[nid] = int32_t(b);
+      task.count[nid] = int32_t(e - b);
     } else {
       // Split the largest group until there are `branching`, each split replacing
       // its group in place (stable child order).
       std::vector<std::pair<int64_t, int64_t>> groups{{b, e}};
-      while (int64_t(groups.size()) < branching) {
-        int64_t gi_best = -1, sz_best = leaf_size;
+      while (int64_t(groups.size()) < bld.branching) {
+        int64_t gi_best = -1, sz_best = bld.leaf_size;
         for (size_t gi = 0; gi < groups.size(); ++gi) {
           int64_t sz = groups[gi].second - groups[gi].first;
           if (sz > sz_best) { gi_best = int64_t(gi); sz_best = sz; }
@@ -195,18 +345,83 @@ struct Builder {
         if (gi_best < 0) break;  // nothing left to split
         auto g = groups[gi_best];
         int64_t m = split(g.first, g.second);
-        if (m < 0) { status = m; return; }
+        if (m < 0) { task.status = m; return; }
         groups[gi_best] = {g.first, m};
         groups.insert(groups.begin() + gi_best + 1, {m, g.second});
       }
       for (const auto& g : groups) {
-        emit(g.first, g.second);
-        if (status < 0) return;
+        int64_t sz = g.second - g.first;
+        if (sz >= kTaskTris && sz > bld.leaf_size) {
+          task.items.push_back(~int64_t(task.children.size()));
+          task.children.push_back(std::make_unique<Task>(g.first, g.second));
+          bld.hand_on(task.children.back().get());
+        } else {
+          emit(g.first, g.second);
+          if (task.status < 0) return;
+        }
       }
     }
-    skip[nid] = int32_t(n_nodes);  // the next pre-order node after this subtree
+    task.next[nid] = int64_t(task.items.size());
   }
 };
+
+void Build::run(Task& t) { Builder{*this, t}.emit(t.b, t.e); }
+
+// The first failure in pre-order: a task stops at its failure, after every task it
+// handed on.
+int64_t first_status(const Task& t) {
+  for (const auto& c : t.children)
+    if (int64_t s = first_status(*c); s < 0) return s;
+  return t.status;
+}
+
+int64_t count_tasks(const Task& t) {
+  int64_t n = int64_t(t.children.size());
+  for (const auto& c : t.children) n += count_tasks(*c);
+  return n;
+}
+
+int64_t measure(Task& t) {
+  t.size = int64_t(t.start.size());
+  for (auto& c : t.children) t.size += measure(*c);
+  return t.size;
+}
+
+struct Out {
+  float* nodes_min;
+  float* nodes_max;
+  int32_t* skip;
+  int32_t* tri_start;
+  int32_t* tri_count;
+};
+
+// Write task t's subtree from node id `base` on (its tasks' sizes measured).
+void place(const Task& t, int64_t base, const Out& out) {
+  size_t n_items = t.items.size();
+  std::vector<int64_t> at(n_items + 1);  // each item's first node id
+  int64_t id = base;
+  for (size_t i = 0; i < n_items; ++i) {
+    at[i] = id;
+    int64_t it = t.items[i];
+    id += it >= 0 ? 1 : t.children[~it]->size;
+  }
+  at[n_items] = id;
+  for (size_t i = 0; i < n_items; ++i) {
+    int64_t it = t.items[i];
+    if (it < 0) {
+      place(*t.children[~it], at[i], out);
+      continue;
+    }
+    int64_t nid = at[i];
+    for (int a = 0; a < 3; ++a) {
+      out.nodes_min[3 * nid + a] = t.mn[3 * it + a];
+      out.nodes_max[3 * nid + a] = t.mx[3 * it + a];
+    }
+    out.skip[nid] = int32_t(at[t.next[it]]);
+    out.tri_start[nid] = t.start[it];
+    out.tri_count[nid] = t.count[it];
+  }
+}
 
 }  // namespace
 
@@ -214,11 +429,13 @@ extern "C" {
 
 // Build the flattened skip-link BVH of n triangles (p1, p2, p3: (n, 3) f32).
 // The node arrays hold room for 2n - 1 nodes; `order` holds n entries. Returns the
-// number of nodes, or a negative status where the numpy build must run instead.
+// number of nodes, or a negative status where the numpy build must run instead (the
+// output arrays then hold nothing). *tasks is the number of subtrees built as tasks.
 int64_t oclpt_bvh_build(const float* p1, const float* p2, const float* p3, int64_t n,
                         int64_t leaf_size, int64_t branching, float* nodes_min,
                         float* nodes_max, int32_t* skip, int32_t* tri_start,
-                        int32_t* tri_count, int32_t* order) {
+                        int32_t* tri_count, int32_t* order, int64_t* tasks) {
+  *tasks = 0;
   if (n < 1 || n > INT32_MAX || leaf_size < 1 || branching < 2) return kBadArgs;
   static thread_local Scratch scratch;
   if (int64_t(scratch.tris.size()) < n) {
@@ -226,10 +443,12 @@ int64_t oclpt_bvh_build(const float* p1, const float* p2, const float* p3, int64
     scratch.spill.resize(n);
     scratch.bins.resize(n);
   }
-  Builder bld;
+  Build bld;
   bld.tris = scratch.tris.data();
   bld.spill = scratch.spill.data();
   bld.bins = scratch.bins.data();
+  bld.leaf_size = leaf_size;
+  bld.branching = branching;
   for (int64_t i = 0; i < n; ++i) {
     Tri& t = bld.tris[i];
     for (int a = 0; a < 3; ++a) {
@@ -240,17 +459,14 @@ int64_t oclpt_bvh_build(const float* p1, const float* p2, const float* p3, int64
     }
     t.id = int32_t(i);
   }
-  bld.leaf_size = leaf_size;
-  bld.branching = branching;
-  bld.nodes_min = nodes_min;
-  bld.nodes_max = nodes_max;
-  bld.skip = skip;
-  bld.tri_start = tri_start;
-  bld.tri_count = tri_count;
-  bld.emit(0, n);
-  if (bld.status < 0) return bld.status;
+  Task root(0, n);
+  bld.run_all(root);
+  *tasks = count_tasks(root);
+  if (int64_t s = first_status(root); s < 0) return s;
+  int64_t n_nodes = measure(root);
+  place(root, 0, Out{nodes_min, nodes_max, skip, tri_start, tri_count});
   for (int64_t i = 0; i < n; ++i) order[i] = bld.tris[i].id;
-  return bld.n_nodes;
+  return n_nodes;
 }
 
 // Regroup a flattened BVH of n nodes into 8-wide groups (core/bvh.py widen_bvh).

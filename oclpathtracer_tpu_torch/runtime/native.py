@@ -35,8 +35,9 @@ from oclpathtracer_tpu_torch.runtime import cache
 NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "native")
 SOURCES = ("scene_loader.cpp", "image_io.cpp", "stopwatch.cpp", "bvh_build.cpp")
 # -ffp-contract=off: no FMA may round the BVH build's areas and costs otherwise than
-# numpy does (GCC contracts a*b + c wherever the target has an FMA).
-CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
+# numpy does (GCC contracts a*b + c wherever the target has an FMA). -pthread: the BVH
+# build's tasks run on threads.
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off", "-pthread")
 
 
 def _source_hash() -> str:
@@ -115,7 +116,8 @@ def _load_library(build_dir: str):
                        ctypes.c_int64)
     lib.oclpt_bvh_build.restype = i64
     lib.oclpt_bvh_build.argtypes = [f32p, f32p, f32p, i64, i64, i64,
-                                    f32p, f32p, i32p, i32p, i32p, i32p]
+                                    f32p, f32p, i32p, i32p, i32p, i32p,
+                                    ctypes.POINTER(i64)]
     lib.oclpt_bvh_widen.restype = i64
     lib.oclpt_bvh_widen.argtypes = [f32p, f32p, i32p, i32p, i32p, i64, i64, i64,
                                     f32p, f32p, i32p, i32p, i32p]
@@ -186,27 +188,29 @@ def _arrays_are(arrays, dtype, shapes) -> bool:
 
 def build_bvh(p1: np.ndarray, p2: np.ndarray, p3: np.ndarray, leaf_size: int,
               branching: int):
-    """Native `core/bvh.build_bvh` on (n, 3) f32 vertex arrays: (nodes_min, nodes_max,
-    skip, tri_start, tri_count, order), the numpy build's arrays bit for bit, or None
+    """Native `core/bvh.build_bvh` on (n, 3) f32 vertex arrays: ((nodes_min, nodes_max,
+    skip, tri_start, tri_count, order), tasks), the numpy build's arrays bit for bit
+    and the number of subtrees built as tasks on the build's threads, or (None, tasks)
     where only the numpy build reproduces its result (degenerate centroids, no split
     with a finite cost, a vertex that is not finite or not f32, arguments it
     rejects)."""
     n = p1.shape[0] if p1.ndim == 2 else 0
     if not _arrays_are((p1, p2, p3), np.float32, [(n, 3)] * 3):
-        return None
+        return None, 0
     lib = _lib()
     p1, p2, p3 = (np.ascontiguousarray(p) for p in (p1, p2, p3))
     room = max(2 * n - 1, 1)
     nodes_min, nodes_max = np.empty((room, 3), np.float32), np.empty((room, 3), np.float32)
     skip, start, count = (np.empty(room, np.int32) for _ in range(3))
     order = np.empty(max(n, 1), np.int32)
+    tasks = ctypes.c_int64(0)
     m = lib.oclpt_bvh_build(_ptr(p1), _ptr(p2), _ptr(p3), n, int(leaf_size),
                             int(branching), _ptr(nodes_min), _ptr(nodes_max), _ptr(skip),
-                            _ptr(start), _ptr(count), _ptr(order))
+                            _ptr(start), _ptr(count), _ptr(order), ctypes.byref(tasks))
     if m < 0:
-        return None
+        return None, tasks.value
     return (nodes_min[:m].copy(), nodes_max[:m].copy(), skip[:m].copy(),
-            start[:m].copy(), count[:m].copy(), order)
+            start[:m].copy(), count[:m].copy(), order), tasks.value
 
 
 def widen_bvh(nodes_min: np.ndarray, nodes_max: np.ndarray, skip: np.ndarray,

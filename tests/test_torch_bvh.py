@@ -5,6 +5,13 @@ numpy code, and the inputs that send them to the numpy code; the per-ray
 which sends a 564-triangle scene to the 8-wide BVH kernel, against JAX's (its Pallas
 kernel in interpret mode)."""
 
+import ctypes
+import os
+import signal
+import sys
+import threading
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,6 +69,23 @@ def _build_counts():
                                       "bvh_widen.native", "bvh_widen.fallback")}
 
 
+def _tasks():
+    return profiling.counts().get("bvh_build.tasks", 0)
+
+
+def _native_build(geom, leaf, branching):
+    """(status or node count, tasks) of the library's build on a port geometry."""
+    lib = native.load_library()[0]
+    ps = [np.ascontiguousarray(p.numpy()) for p in (geom.p1, geom.p2, geom.p3)]
+    n = ps[0].shape[0]
+    outs = ([np.empty((2 * n - 1, 3), np.float32) for _ in range(2)]
+            + [np.empty(2 * n - 1, np.int32) for _ in range(3)] + [np.empty(n, np.int32)])
+    tasks = ctypes.c_int64(-1)
+    m = lib.oclpt_bvh_build(*(native._ptr(p) for p in ps), n, leaf, branching,
+                            *(native._ptr(o) for o in outs), ctypes.byref(tasks))
+    return m, tasks.value
+
+
 def _rose(before, after):
     return {k for k in after if after[k] != before[k]}
 
@@ -111,21 +135,26 @@ def test_random_triangles_and_icosphere_bitwise():
 BUILD_CASES = ([(name, leaf, branching) for branching in (2, 8) for leaf in (4, 8, 32)
                 for name in ("cornell", "random777", "spheres244")]
                + [("spheres5k", leaf, branching) for branching in (2, 8) for leaf in (8, 32)]
-               + [("spheres102k", 64, 8)])
+               + [("spheres102k", leaf, 8) for leaf in (64, 6)])
 
 
 @pytest.mark.parametrize("name,leaf,branching", BUILD_CASES,
                          ids=[f"{n}-{leaf}-{b}" for n, leaf, b in BUILD_CASES])
 def test_build_bvh_bitwise(geoms, name, leaf, branching):
     """The native build and widening, against JAX's and the port's numpy code; each
-    call takes the native route."""
+    call takes the native route. The 102k-triangle builds hand subtrees to the build's
+    threads; the Cornell box's runs on the calling thread alone."""
     jgeom, tgeom = geoms[name]
     ref = jbvh.build_bvh(jgeom, leaf_size=leaf, branching=branching)
-    before = _build_counts()
+    before, tasks = _build_counts(), _tasks()
     got = bvh.build_bvh(tgeom, leaf_size=leaf, branching=branching)
     tw = bvh.widen_bvh(got)
     assert _rose(before, _build_counts()) == {"bvh_build.native", "bvh_widen.native"}
     assert _build_counts()["bvh_build.native"] == before["bvh_build.native"] + 1
+    if name == "spheres102k":
+        assert _tasks() > tasks
+    if name == "cornell":
+        assert _tasks() == tasks
     plain = bvh.build_bvh_numpy(tgeom, leaf_size=leaf, branching=branching)
     for field in bvh.FlatBVH._fields:
         _assert_bitwise(getattr(got, field), getattr(ref, field))
@@ -164,6 +193,102 @@ def test_build_bvh_falls_back_on_coincident_centroids(branching):
     for field in bvh.WideBVH._fields[:-1]:
         _assert_bitwise(getattr(tw, field), getattr(jw, field))
     assert tw.depth == jw.depth
+
+
+def test_build_bvh_falls_back_on_a_failure_inside_a_task(geoms):
+    """3,000 copies of one triangle appended to the 102k field: the group they end in
+    lies below the root's groups, all of which are tasks, so a thread that is not the
+    root's meets the degenerate centroids. The native build returns a status, and the
+    build runs in numpy, bit for bit."""
+    _, tgeom = geoms["spheres102k"]
+    at = 50_000
+    geom = Geometry(*(torch.cat([x, x[at:at + 1].repeat((3000,) + (1,) * (x.dim() - 1))])
+                      for x in tgeom))
+    status, tasks = _native_build(geom, 64, 8)
+    assert status < 0 and tasks > 0
+    before = _build_counts()
+    got = bvh.build_bvh(geom, leaf_size=64, branching=8)
+    after = _build_counts()
+    assert _rose(before, after) == {"bvh_build.fallback"}
+    assert after["bvh_build.fallback"] == before["bvh_build.fallback"] + 1
+    plain = bvh.build_bvh_numpy(geom, leaf_size=64, branching=8)
+    for field in bvh.FlatBVH._fields:
+        _assert_same_bits(getattr(got, field), getattr(plain, field))
+
+
+def test_native_builds_on_python_threads_at_once_match_numpy(geoms):
+    """Twelve Python threads (more than the cores), each building one of two 102k-class
+    geometries three times at once, their tasks on the one pool: every result is its
+    geometry's numpy build, bit for bit."""
+    _, g102k = geoms["spheres102k"]
+    other = procgen.sphere_field(60, 3, seed=1, device="cpu").geometry
+    cases = [(g102k, 64), (other, 32)]
+    plain = [bvh.build_bvh_numpy(g, leaf_size=leaf, branching=8) for g, leaf in cases]
+    results, errors = {}, []
+
+    def build(i):
+        try:
+            g, leaf = cases[i % 2]
+            results[i] = [bvh.build_bvh(g, leaf_size=leaf, branching=8) for _ in range(3)]
+        except BaseException as e:  # noqa: BLE001 -- reported by the main thread
+            errors.append(e)
+            raise
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=build, args=(i,)) for i in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors
+    for i in range(12):
+        for got in results[i]:
+            for field in bvh.FlatBVH._fields:
+                _assert_same_bits(getattr(got, field), getattr(plain[i % 2], field))
+
+
+def test_native_build_in_a_forked_child_matches_the_parents(geoms):
+    """A child forked after the parent's build started the pool builds the 102k field
+    with threads of its own, bit for bit the parent's build, within a time limit."""
+    _, tgeom = geoms["spheres102k"]
+    ps = [p.numpy() for p in (tgeom.p1, tgeom.p2, tgeom.p3)]
+    first, tasks = native.build_bvh(*ps, 64, 8)
+    assert tasks > 0
+    pid = os.fork()
+    if pid == 0:  # the child: exit status 0 only for the parent's bits
+        ok = False
+        try:
+            again, again_tasks = native.build_bvh(*ps, 64, 8)
+            ok = again_tasks == tasks and all(
+                a.tobytes() == b.tobytes() and a.shape == b.shape for a, b in zip(again, first))
+        finally:
+            os._exit(0 if ok else 1)
+    deadline = time.monotonic() + 120
+    while (done := os.waitpid(pid, os.WNOHANG))[0] == 0 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if done[0] == 0:
+        os.kill(pid, signal.SIGKILL)
+        os.waitpid(pid, 0)
+    assert done[0] == pid and os.waitstatus_to_exitcode(done[1]) == 0
+
+
+def test_native_build_repeats_its_bits(geoms):
+    """Five builds of the 102k field at leaf 6 (`driver.wide_leaf`'s) in one process
+    give the first one's arrays, bit for bit, each with the same tasks: a race that one
+    build can hide shows in another."""
+    _, tgeom = geoms["spheres102k"]
+    ps = [p.numpy() for p in (tgeom.p1, tgeom.p2, tgeom.p3)]
+    first, tasks = native.build_bvh(*ps, 6, 8)
+    assert first is not None and tasks > 0
+    for _ in range(4):
+        again, again_tasks = native.build_bvh(*ps, 6, 8)
+        assert again_tasks == tasks
+        for a, b in zip(again, first):
+            assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
 def test_build_bvh_falls_back_without_the_library(geoms, monkeypatch):
