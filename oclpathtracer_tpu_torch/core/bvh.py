@@ -8,7 +8,9 @@ every node array, `order` and `depth` is bitwise the same either way. Each
 `build_bvh` call counts `bvh_build.native` or `bvh_build.fallback` and adds to
 `bvh_build.tasks` the subtrees the native build ran as tasks on its threads (0 for a
 build on the calling thread alone), each `widen_bvh` call `bvh_widen.native` or
-`bvh_widen.fallback` (`runtime/profiling.count`):
+`bvh_widen.fallback` (`runtime/profiling.count`); under a profiler a `build_bvh` call
+is the span `bvh.build` (the vertices' copy to the host and the build) and a
+`widen_bvh` call the span `bvh.widen`:
 
   * pre-order depth-first layout with skip links: node i's first child is i+1 and
     `skip[i]` is the node after i's subtree, so a walk is
@@ -126,6 +128,7 @@ def _native():
         return None
 
 
+@profiling.spanned("bvh.build")
 def build_bvh(geom: Geometry, leaf_size: int = 4, branching: int = 2) -> FlatBVH:
     """Host-side build of the flattened pre-order skip-link BVH.
 
@@ -222,6 +225,7 @@ class WideBVH(NamedTuple):
     depth: int
 
 
+@profiling.spanned("bvh.widen")
 def widen_bvh(bvh: FlatBVH, max_children: int = 8) -> WideBVH:
     """Group each internal node's children into one wide node (host). Runs natively
     where it can, else `widen_bvh_numpy`; both give the same bits and raise the same

@@ -41,9 +41,11 @@ from oclpathtracer_tpu_torch.runtime import profiling
 from oclpathtracer_tpu_torch.scene.types import Scene
 
 # Work the plain walks (skip-link and 8-wide) did: boxes tested and leaf triangles
-# tested by rays that were walking, and the children the 8-wide walk popped (the
-# kernel's `wide_bvh.walk_pops`). chip_smoke.py reads it for the kernels' bounds.
-WALK_COUNTS = {"boxes": 0, "tris": 0, "pops": 0}
+# tested by rays that were walking, and the children the 8-wide walk popped and the
+# groups it expanded (the kernel's `wide_bvh.walk_pops` and `.expand_pops`; its
+# `.boxes` and `.leaf_rows` are this walk's boxes and tris). chip_smoke.py reads it
+# for the kernels' bounds.
+WALK_COUNTS = {"boxes": 0, "tris": 0, "pops": 0, "expands": 0}
 
 
 # ---- packing (numpy, exactly as the JAX package builds it) ---------------------
@@ -70,19 +72,17 @@ def _pad_leaf_window(table: torch.Tensor, leaf_size: int) -> torch.Tensor:
                                          device=table.device)])
 
 
-def _reordered(scene: Scene, leaf_size: int, branching: int):
-    bvh = build_bvh(scene.geometry, leaf_size=leaf_size, branching=branching)
-    return bvh, scene._replace(geometry=reorder_geometry(scene.geometry, bvh))
-
-
 def _pack_bvh(scene: Scene, leaf_size: int, branching: int, scan: str):
     """(table for `scan` in BVH leaf order with the leaf window, nodes_f, nodes_i,
-    classes), on the scene's device."""
-    bvh, rscene = _reordered(scene, leaf_size, branching)
-    dev = scene.geometry.p1.device
-    table, classes = mk.pack_for_scan(rscene, scan)
-    nodes_f, nodes_i = _pack_nodes(bvh)
-    return _pad_leaf_window(table, leaf_size), nodes_f.to(dev), nodes_i.to(dev), classes
+    classes), on the scene's device. Under a profiler: the spans `bvh.build`, then
+    `bvh.pack` (the reorder, the tables' packing and the uploads)."""
+    bvh = build_bvh(scene.geometry, leaf_size=leaf_size, branching=branching)
+    with profiling.span("bvh.pack"):
+        rscene = scene._replace(geometry=reorder_geometry(scene.geometry, bvh))
+        dev = scene.geometry.p1.device
+        table, classes = mk.pack_for_scan(rscene, scan)
+        nodes_f, nodes_i = _pack_nodes(bvh)
+        return _pad_leaf_window(table, leaf_size), nodes_f.to(dev), nodes_i.to(dev), classes
 
 
 def pack_bvh_scene(scene: Scene, leaf_size: int = 8, branching: int = 8):
@@ -239,12 +239,13 @@ def check_aligned16(**tensors) -> None:
 def launch_split(fn_name: str, inputs: tuple, cfg: RenderConfig, scan: str, classes: tuple,
                  n_tris: int, start_sample: int, n_samples: int, emi_const: tuple,
                  n_nodes: int, depth: int = 0, scratch_bytes: int = mk.SCRATCH_MAX_BYTES,
-                 n_counters: int = 1):
+                 n_counters: int = 1, extra_outputs: tuple = ()):
     """Launch a BVH kernel of the per-sample split (csrc/split.cuh) on n_samples
     frames, in launches whose (n, n_pix, 3) f32 scratch fits scratch_bytes, each sum
     going on from the last (the launcher's `init`): (img (n_pixels, 3) f32, the
     kernel's n_counters int64 counters, segments first, added to by every launch,
-    launches made)."""
+    launches made). extra_outputs: the launcher's outputs after the counters, passed
+    to every launch."""
     from oclpathtracer_tpu_torch.kernels import cuda_build
 
     n_pix, dev = cfg.n_pixels, inputs[0].device
@@ -258,7 +259,8 @@ def launch_split(fn_name: str, inputs: tuple, cfg: RenderConfig, scan: str, clas
                                       0, n_pix, emi_const=emi_const, n_nodes=n_nodes,
                                       depth=depth)
         img = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
-        cuda_build.launch(fn_name, (*inputs, out), floats, ints, img, scratch[:n], counters)
+        cuda_build.launch(fn_name, (*inputs, out), floats, ints, img, scratch[:n], counters,
+                          *extra_outputs)
         launches += 1
         out = img
     return out, counters, launches

@@ -132,10 +132,11 @@ constexpr int GROUP_META_VEC4S = 6;
 // Bit c of the result is set where child slot c of group g is a real child
 // (kind != 0; an empty slot's inverted box passes the slab test) and the ray
 // meets its box. All 8 slots are read and tested, then masked by kind. The
-// best-hit prune is left to the pop, with the best of then.
+// best-hit prune is left to the pop, with the best of then. `real`: the group's
+// real children, the box tests the plain walk counts for the expansion.
 static __device__ __forceinline__ uint32_t expand_group(const float4* __restrict__ boxes,
                                                         const int4* __restrict__ meta, int g,
-                                                        const Ray& r) {
+                                                        const Ray& r, unsigned& real) {
   float v[4 * GROUP_BOX_VEC4S];
   const float4* bg = boxes + (size_t)g * GROUP_BOX_VEC4S;
 #pragma unroll
@@ -150,6 +151,7 @@ static __device__ __forceinline__ uint32_t expand_group(const float4* __restrict
   int4 k1 = __ldg(meta + (size_t)g * GROUP_META_VEC4S + 1);
   int kind[WIDE] = {k0.x, k0.y, k0.z, k0.w, k1.x, k1.y, k1.z, k1.w};
   uint32_t mask = 0;
+  real = 0;
 #pragma unroll
   for (int c = 0; c < WIDE; ++c) {
     float b[6];
@@ -158,9 +160,20 @@ static __device__ __forceinline__ uint32_t expand_group(const float4* __restrict
     float t_near;
     bool met = slab(b, r, t_near);
     if (kind[c] != 0 && met) mask |= 1u << c;
+    real += (kind[c] != 0);
   }
   return mask;
 }
+
+// What one call of WideWalk's begin or step did, for wide_bvh.cu's counted form (its
+// uncounted form never reads it, and the compiler drops it): the box tests, counted as
+// the plain walk counts them (the popped child's, and each real child of a group the
+// call expanded, the root's in `begin`), the leaf rows scanned, and whether the popped
+// child was a group that was expanded.
+struct WideWork {
+  unsigned boxes = 0, rows = 0;
+  bool expanded = false;
+};
 
 // 8-wide walk (wide_bvh.py make_wide_traversal, per ray), one pop a call of `step`, so
 // that wide_bvh.cu's loop can run a warp's lanes' walks side by side and start a new
@@ -186,12 +199,13 @@ struct WideWalk {
   // A new walk of the ray (o, d): the root group expanded. Whether it has a child to
   // pop (false: the ray misses the root's children, and the walk has ended).
   __device__ __forceinline__ bool begin(const float4* __restrict__ boxes,
-                                        const int4* __restrict__ meta, float3 o, float3 d) {
+                                        const int4* __restrict__ meta, float3 o, float3 d,
+                                        WideWork& work) {
     Ray r = make_ray<SCAN>(o, d);
     inv_d = r.inv_d;
     m = r.m;
     best = fresh_best();
-    top = expand_group(boxes, meta, 0, r);
+    top = expand_group(boxes, meta, 0, r, work.boxes);
     level = top != 0 ? 0 : -1;
     return level >= 0;
   }
@@ -203,7 +217,8 @@ struct WideWalk {
   __device__ __forceinline__ bool step(const Params& P, Load load,
                                        const float4* __restrict__ boxes,
                                        const int4* __restrict__ meta,
-                                       uint32_t* __restrict__ stack, float3 o, float3 d) {
+                                       uint32_t* __restrict__ stack, float3 o, float3 d,
+                                       WideWork& work) {
     Ray r;
     r.o = o;
     r.d = d;
@@ -216,15 +231,20 @@ struct WideWalk {
     float b[6];
 #pragma unroll
     for (int k = 0; k < 6; ++k) b[k] = __ldg(bg + k * WIDE + c);
+    work.boxes = 1;
     if (box_hit<SCAN>(b, r, best)) {
       const int* mg = (const int*)(meta + (size_t)g * GROUP_META_VEC4S);
       int kind = __ldg(mg + c);
       int a = __ldg(mg + WIDE + c);
       if (kind == 2) {
-        scan_rows4<SCAN, LEAF_UNROLL>(load, TABLE_COLS / 4, a, a + __ldg(mg + 2 * WIDE + c), o,
-                                      d, m, best);
+        int n = __ldg(mg + 2 * WIDE + c);
+        scan_rows4<SCAN, LEAF_UNROLL>(load, TABLE_COLS / 4, a, a + n, o, d, m, best);
+        work.rows = (unsigned)n;
       } else {
-        uint32_t cm = expand_group(boxes, meta, a, r);
+        unsigned real;
+        uint32_t cm = expand_group(boxes, meta, a, r, real);
+        work.boxes += real;
+        work.expanded = true;
         if (cm != 0 && (top & 0xffu) == 0) {
           top = cm | ((uint32_t)a << 8);
         } else if (cm != 0 && level + 1 < P.depth) {

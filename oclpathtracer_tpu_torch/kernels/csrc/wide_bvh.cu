@@ -41,9 +41,11 @@
 //    tree's depth (depth x 4 B x 128 threads) and held by its lane across the
 //    loop, so any tree up to 454 levels walks here; render/driver.py sends a
 //    deeper one to the skip-link kernel;
-//  - one instantiation per leaf form; leaves are read as float4s;
-//  - segments, walk_pops (lanes that popped) and walk_slots (32 a warp's
-//    iteration that popped) are 64-bit counters, one atomic add a warp each.
+//  - one instantiation per leaf form and counting form; leaves are read as float4s;
+//  - segments is a 64-bit counter, one atomic add a warp. The counted form (COUNT,
+//    launched only while a profiler runs) also counts what each iteration did, lane
+//    counts in registers added into the caller's device store at the end, one atomic
+//    a warp each (WalkCount below); the uncounted form keeps no such count.
 // The pop order stays the lowest set bit first (pre-order), with the best-hit
 // prune at the pop: the walk visits exactly the skip walk's leaves in its order
 // and gives its bits (the TPU kernel prunes at expansion, which a triangle and
@@ -72,15 +74,31 @@ static __device__ __forceinline__ void count_warp(unsigned long long* __restrict
   if ((threadIdx.x & 31) == 0 && n != 0) atomicAdd(counter, n);
 }
 
-// counters: [0] segments, [1] the queue's head (zero on entry), [2] walk_pops, the
-// lanes that popped in the loop iterations that popped, [3] walk_slots, 32 x those
-// iterations.
-template <int SCAN>
+// The counted form's slots of the caller's store, in kernels/wide_bvh.py WALK_COUNTERS'
+// order. A "slot" is one lane of one warp iteration (or shading round): 32 a warp's.
+enum WalkCount {
+  WALK_POPS,       // lanes that popped a child
+  WALK_SLOTS,      // 32 x the warp's loop iterations that popped (every iteration does)
+  LEAF_ROWS,       // triangle rows the leaf scans read
+  LEAF_ROW_SLOTS,  // 32 x the most rows a lane of the warp scanned, over its iterations
+  EXPAND_POPS,     // lanes whose popped child was a group that was expanded
+  EXPAND_SLOTS,    // 32 x the warp's iterations in which a lane expanded
+  BOXES,           // box tests: each popped child, each real child of an expanded group
+  SHADE_SLOTS,     // 32 x the warp's shading rounds in which a lane shaded
+  SEGMENTS,        // the walks begun, as counters[0]
+  WALK_COUNTS
+};
+
+// counters: [0] segments, [1] the queue's head (zero on entry). walk (COUNT only): the
+// WalkCount slots, added to. A lane's counts are 32-bit, as its segments are: one
+// lane's share of one launch.
+template <int SCAN, bool COUNT>
 __global__ void __launch_bounds__(BLOCK) wide_bvh(const float* __restrict__ table,
                                                 const float4* __restrict__ boxes,
                                                 const int4* __restrict__ meta, const Params P,
                                                 float* __restrict__ scratch,
-                                                unsigned long long* __restrict__ counters) {
+                                                unsigned long long* __restrict__ counters,
+                                                unsigned long long* __restrict__ walk) {
   enum { IDLE, WALK, PARKED };
   extern __shared__ uint32_t wide_stack[];
   uint32_t* stack = wide_stack + threadIdx.x;
@@ -94,7 +112,7 @@ __global__ void __launch_bounds__(BLOCK) wide_bvh(const float* __restrict__ tabl
   p.o = p.d = v3(0.0f, 0.0f, 0.0f);
   int state = IDLE, s = 0, idx = 0, b = 0, sg = 0;
   bool drained = false;
-  unsigned long long pops = 0, iters = 0;
+  unsigned c[WALK_COUNTS] = {};  // COUNT only (the uncounted form never reads them)
   while (true) {
     unsigned walking = __ballot_sync(0xffffffffu, state == WALK);
     if (walking == 0 || __popc(__ballot_sync(0xffffffffu, state == PARKED)) >= REFILL) {
@@ -102,6 +120,7 @@ __global__ void __launch_bounds__(BLOCK) wide_bvh(const float* __restrict__ tabl
       // that ends stores its sample and its lane takes the next path of the queue (one
       // atomic a warp for all its idle lanes, consecutive items: neighbouring pixels of
       // one sample).
+      if (COUNT) c[SHADE_SLOTS] += __any_sync(0xffffffffu, state == PARKED);
       bool fresh = false;
       if (state == PARKED) {
         shade(P, p, decode<SCAN>(P, table, w.best));
@@ -132,7 +151,9 @@ __global__ void __launch_bounds__(BLOCK) wide_bvh(const float* __restrict__ tabl
       }
       if (fresh) {
         sg += 1;
-        state = w.begin(boxes, meta, p.o, p.d) ? WALK : PARKED;
+        WideWork work;
+        state = w.begin(boxes, meta, p.o, p.d, work) ? WALK : PARKED;
+        if (COUNT) c[BOXES] += work.boxes;
       }
       walking = __ballot_sync(0xffffffffu, state == WALK);
       if (walking == 0) {
@@ -140,22 +161,38 @@ __global__ void __launch_bounds__(BLOCK) wide_bvh(const float* __restrict__ tabl
         break;  // no lane has a path, and the queue is drained
       }
     }
-    iters += 1;
-    if (state == WALK) {
-      pops += 1;
-      if (!w.step(P, load, boxes, meta, stack, p.o, p.d)) state = PARKED;
+    WideWork work;
+    bool popped = state == WALK;
+    if (popped && !w.step(P, load, boxes, meta, stack, p.o, p.d, work)) state = PARKED;
+    if (COUNT) {
+      c[WALK_POPS] += popped;
+      c[WALK_SLOTS] += 1;
+      c[LEAF_ROWS] += work.rows;
+      c[LEAF_ROW_SLOTS] += __reduce_max_sync(0xffffffffu, work.rows);
+      c[EXPAND_POPS] += work.expanded;
+      c[EXPAND_SLOTS] += __any_sync(0xffffffffu, work.expanded);
+      c[BOXES] += work.boxes;
     }
   }
   count_segments(&counters[0], sg);
-  count_warp(&counters[2], pops);
-  count_warp(&counters[3], lane == 0 ? 32 * iters : 0);
+  if (COUNT) {
+    c[SEGMENTS] = (unsigned)sg;
+#pragma unroll
+    for (int k = 0; k < WALK_COUNTS; ++k) {
+      // the warp-wide counts are each lane's alike: lane 0's, times 32
+      bool per_warp = k == WALK_SLOTS || k == LEAF_ROW_SLOTS || k == EXPAND_SLOTS ||
+                      k == SHADE_SLOTS;
+      count_warp(&walk[k], per_warp ? (lane == 0 ? 32ull * c[k] : 0ull) : c[k]);
+    }
+  }
 }
 
-template <int SCAN>
+template <int SCAN, bool COUNT>
 static int launch_wide(const float* table, const float* boxes, const int* meta, const Params& P,
                        const float* init, float* out, float* scratch,
-                       unsigned long long* counters, cudaStream_t stream) {
-  auto kernel = wide_bvh<SCAN>;
+                       unsigned long long* counters, unsigned long long* walk,
+                       cudaStream_t stream) {
+  auto kernel = wide_bvh<SCAN, COUNT>;
   size_t smem = (size_t)P.depth * BLOCK * sizeof(uint32_t);
   int grid;
   cudaError_t err = persistent_grid(kernel, smem, (long long)P.n_samples * P.n_rays, &grid);
@@ -164,30 +201,45 @@ static int launch_wide(const float* table, const float* boxes, const int* meta, 
       cudaSuccess)
     return (int)err;
   kernel<<<grid, BLOCK, smem, stream>>>(table, (const float4*)boxes, (const int4*)meta, P, scratch,
-                                        counters);
+                                        counters, walk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return launch_sample_sum(scratch, P.n_samples, P.n_rays, 1, init, out, stream);
+}
+
+template <int SCAN>
+static int launch_wide(const float* table, const float* boxes, const int* meta, const Params& P,
+                       const float* init, float* out, float* scratch,
+                       unsigned long long* counters, unsigned long long* walk,
+                       cudaStream_t stream) {
+  if (walk != nullptr)
+    return launch_wide<SCAN, true>(table, boxes, meta, P, init, out, scratch, counters, walk,
+                                   stream);
+  return launch_wide<SCAN, false>(table, boxes, meta, P, init, out, scratch, counters, nullptr,
+                                  stream);
 }
 
 }  // namespace opt
 
 // boxes (G, 6, 8) f32 and meta (G, 3, 8) i32: the group record; init: null, or
 // the (n_pix, 3) sum of the samples before start_sample, which out goes on from;
-// scratch is (n_samples, n_pix, 3); counters is four int64s, segments, the queue's
-// head (zeroed here), walk_pops and walk_slots, the three counts added to. P.depth
-// sizes the stack.
+// scratch is (n_samples, n_pix, 3); counters is two int64s, segments, added to, and the
+// queue's head (zeroed here); walk: null (the uncounted form), or the WalkCount int64
+// slots the counted form adds to. P.depth sizes the stack.
 extern "C" int opt_wide_bvh_launch(const float* table, const float* boxes, const int* meta,
                                    const float* init, const float* host_f, const int* host_i,
-                                   float* out, float* scratch, long long* segs, void* stream) {
+                                   float* out, float* scratch, long long* segs, long long* walk,
+                                   void* stream) {
   opt::Params P = opt::params_from_host(host_f, host_i);
   if (P.depth < 1 || P.depth > opt::WIDE_MAX_DEPTH) return (int)cudaErrorInvalidValue;
   auto* counter = (unsigned long long*)segs;
+  auto* count = (unsigned long long*)walk;
   auto s = (cudaStream_t)stream;
   if (P.scan == opt::SCAN_TP)
-    return opt::launch_wide<opt::SCAN_TP>(table, boxes, meta, P, init, out, scratch, counter, s);
+    return opt::launch_wide<opt::SCAN_TP>(table, boxes, meta, P, init, out, scratch, counter,
+                                          count, s);
   if (P.scan == opt::SCAN_FAST)
     return opt::launch_wide<opt::SCAN_FAST>(table, boxes, meta, P, init, out, scratch, counter,
-                                            s);
+                                            count, s);
   return opt::launch_wide<opt::SCAN_PARITY>(table, boxes, meta, P, init, out, scratch, counter,
-                                            s);
+                                            count, s);
 }

@@ -42,7 +42,8 @@ LAUNCHERS = {
     "opt_megakernel_launch": (1, 3),       # table -> out, scratch, segs
     "opt_wavefront_launch": (2, 3),        # table, scan table -> out, scratch, segs
     "opt_bvh_megakernel_launch": (4, 3),   # table, nodes_f, nodes_i, init -> out, scratch, segs
-    "opt_wide_bvh_launch": (4, 3),         # table, boxes, meta, init -> out, scratch, counters
+    # table, boxes, meta, init -> out, scratch, counters, the walk's counts (or None)
+    "opt_wide_bvh_launch": (4, 4),
     # table, classes, weight -> out, scratch, segs, partials, grads
     "opt_grad_megakernel_launch": (3, 5),
     "opt_trace_rays_launch": (3, 3),       # table, o, d -> out, scratch, segs

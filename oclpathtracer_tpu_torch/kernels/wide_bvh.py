@@ -26,13 +26,21 @@ pops one child an iteration, parks when its walk ends, and the warp's parked lan
 shade together and start their next walk or path (one queue atomic a warp), so a
 warp stops waiting on its longest walk at every bounce. Each path's max(rad, 0) goes
 to a (n_samples, n_pix, 3) scratch buffer and a second kernel adds the samples in
-order, the megakernel's sum. The kernel counts the lanes that popped
-(`wide_bvh.walk_pops`) and 32 for each of a warp's iterations that popped
-(`wide_bvh.walk_slots`) on the card; the wrapper adds them to the host counters once
-a call, only under a profiler. `render_samples_wide_bvh_stats` launches the kernel
-for CUDA tensors, or raises; for CPU tensors it runs
-`_render_samples_wide_bvh_stats_plain`, the same walk vectorized over rays with
-one stack per ray, through the same per-sample scratch and in-order sum.
+order, the megakernel's sum.
+
+While a profiler runs, the wrapper launches the kernel's counted form, which adds what
+each loop iteration did into the device's store of counters (`runtime/profiling`
+`device_counters`, WALK_COUNTERS below) on the card, with no copy from it;
+`profiling.counts()` reads them once. A lane's count of a kind is the work it did, and
+the kind's slots are 32 for each warp iteration (or shading round) in which the work
+ran, weighted for leaf scans by the most rows a lane scanned: their ratio is the kind's
+busy share of the lanes. Without a profiler the uncounted form runs and no counter
+moves; both forms give the same bits. The plain walk counts the same pops, box tests,
+leaf rows and expansions into `bvh_megakernel.WALK_COUNTS`.
+`render_samples_wide_bvh_stats` launches the kernel for CUDA tensors, or raises; for
+CPU tensors it runs `_render_samples_wide_bvh_stats_plain`, the same walk vectorized
+over rays with one stack per ray, through the same per-sample scratch and in-order
+sum.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from oclpathtracer_tpu_torch.config import RenderConfig
-from oclpathtracer_tpu_torch.core.bvh import widen_bvh
+from oclpathtracer_tpu_torch.core.bvh import build_bvh, reorder_geometry, widen_bvh
 from oclpathtracer_tpu_torch.kernels import bvh_megakernel as bk
 from oclpathtracer_tpu_torch.kernels import megakernel as mk
 from oclpathtracer_tpu_torch.runtime import profiling
@@ -52,6 +60,16 @@ WIDE = 8
 WIDE_MAX_DEPTH = mk.SMEM_TABLE_MAX_BYTES // (4 * 128)
 MAX_GROUPS = 1 << 24
 
+# The counted kernel's device counters, in csrc/wide_bvh.cu WalkCount's order: the
+# lanes that popped a child and 32 a warp's loop iteration; the leaf rows scanned and
+# 32 x the most a lane scanned in an iteration; the lanes that expanded their popped
+# group and 32 a warp's iteration in which one did; the box tests (each popped child,
+# each real child of an expanded group, the root's included); 32 a warp's shading round
+# in which a lane shaded; the segments (walks begun).
+WALK_COUNTERS = tuple("wide_bvh." + k for k in (
+    "walk_pops", "walk_slots", "leaf_rows", "leaf_row_slots", "expand_pops", "expand_slots",
+    "boxes", "shade_slots", "segments"))
+
 # Index of the lowest set bit of an 8-bit mask (0 for 0).
 _LOWEST_BIT = torch.tensor([(m & -m).bit_length() - 1 if m else 0 for m in range(256)])
 
@@ -59,14 +77,18 @@ _LOWEST_BIT = torch.tensor([(m & -m).bit_length() - 1 if m else 0 for m in range
 def pack_wide_bvh_scene(scene: Scene, leaf_size: int = 32, scan: str = "parity"):
     """(table, wn_f (G, 8, 6) f32, wn_i (G, 8, 3) i32, depth, classes), on the scene's
     device: the build and leaf order of pack_bvh_scene (branching 8), regrouped.
-    The table follows the scan (pack_scene_tp's for tp, else pack_scene's)."""
-    bvh, rscene = bk._reordered(scene, leaf_size, WIDE)
+    The table follows the scan (pack_scene_tp's for tp, else pack_scene's). Under a
+    profiler: the spans `bvh.build`, `bvh.widen`, then `bvh.pack` (the reorder, the
+    table's packing and the uploads)."""
+    bvh = build_bvh(scene.geometry, leaf_size=leaf_size, branching=WIDE)
     wide = widen_bvh(bvh, WIDE)
-    table, classes = mk.pack_for_scan(rscene, scan)
-    dev = scene.geometry.p1.device
-    wn_f = torch.cat([wide.child_min, wide.child_max], -1).to(dev)
-    wn_i = torch.stack([wide.child_kind, wide.child_a, wide.child_b], -1).to(dev)
-    return bk._pad_leaf_window(table, leaf_size), wn_f, wn_i, wide.depth, classes
+    with profiling.span("bvh.pack"):
+        rscene = scene._replace(geometry=reorder_geometry(scene.geometry, bvh))
+        table, classes = mk.pack_for_scan(rscene, scan)
+        dev = scene.geometry.p1.device
+        wn_f = torch.cat([wide.child_min, wide.child_max], -1).to(dev)
+        wn_i = torch.stack([wide.child_kind, wide.child_a, wide.child_b], -1).to(dev)
+        return bk._pad_leaf_window(table, leaf_size), wn_f, wn_i, wide.depth, classes
 
 
 def group_record(wn_f: torch.Tensor, wn_i: torch.Tensor):
@@ -141,6 +163,7 @@ def _wide_walk_nearest(ps, wn_f, wn_i, depth: int):
             best = bk.scan_leaves(ps, a, child_b[child], hit & (kind[child] == 2), o, d, m,
                                   best)
             inner = hit & (kind[child] == 1)
+            bk.WALK_COUNTS["expands"] += int(inner.sum())
             if bool(inner.any()):
                 cm = expand(torch.where(inner, a, 0), o, inv_d, inner)
                 push = cm != 0
@@ -210,13 +233,10 @@ def render_samples_wide_bvh_stats(table, wn_f, wn_i, cfg: RenderConfig, start_sa
             or boxes.device != table.device or meta.device != table.device:
         raise ValueError("record must be group_record(wn_f, wn_i)")
     bk.check_aligned16(table=table, boxes=boxes, meta=meta)
+    walk = profiling.device_counters(WALK_COUNTERS, table.device)  # None: uncounted form
     out, counters, launches = bk.launch_split("opt_wide_bvh_launch", (table, boxes, meta), cfg,
                                               scan, classes, table.shape[0], start_sample,
                                               n_samples, emi_const, wn_f.shape[0], max_depth,
-                                              scratch_bytes, n_counters=4)
+                                              scratch_bytes, n_counters=2, extra_outputs=(walk,))
     profiling.count("launch.wide_bvh", launches)
-    if profiling.tracing():  # the walk's lane counts: a copy from the card, so traced only
-        pops, slots = counters[2:].tolist()
-        profiling.count("wide_bvh.walk_pops", pops)
-        profiling.count("wide_bvh.walk_slots", slots)
     return out, counters[0]

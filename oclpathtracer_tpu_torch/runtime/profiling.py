@@ -21,10 +21,15 @@ warm-up before its traced window), and where `trace` starts. Counters (`count`,
 `counts`: kernel launches `launch.<kernel>`, builds `build.<compiler>`, the leaf
 size of an 8-wide BVH a render walks with the 8-wide kernel `wide_leaf.<leaf>`, the
 rows of the vertex step's probe launches `vertex.probe_rows`) are plain host integers
-and always on; the 8-wide kernel's lane counts (`wide_bvh.walk_pops`, the lanes that
-popped a child, and `wide_bvh.walk_slots`, 32 for each of a warp's loop iterations that
-popped: their ratio is the walk's busy share of the lanes) are copied from the card
-once a call of its wrapper, and only while a profiler runs (`tracing`).
+and always on. Device counters are counted by kernels on the card, only while a
+profiler runs: `device_counters` hands a kernel's wrapper its slots of the device's
+store, one int64 tensor a device that the kernel adds into with no copy from the card,
+and None without a profiler (the wrapper then launches the kernel's uncounted form).
+The 8-wide kernel's are `wide_bvh.<count>` (kernels/wide_bvh.py WALK_COUNTERS: the
+walk's pops, leaf rows, expansions, box tests, shading rounds and segments, each
+kind's lanes and its warp slots). `counts` copies every store from the card, one
+synchronize a device, and merges it with the host counters: both count since the
+process started.
 """
 
 from __future__ import annotations
@@ -48,6 +53,8 @@ _Range = getattr(torch._C._profiler, "_RecordFunctionFast", None) \
 _spans: dict = {}      # name -> [calls, total_s, self_s] of the latest profiler session
 _open: list = []       # the open spans, innermost last
 _counts: dict = {}     # name -> count
+_slots: dict = {}      # device counter name -> its index in every device's store
+_stores: dict = {}     # torch.device -> the device counters, (len(_slots),) int64 on it
 _stale = True          # a span saw no profiler since the table's last span: start afresh
 
 
@@ -137,15 +144,42 @@ def count(name: str, n: int = 1) -> None:
     _counts[name] = _counts.get(name, 0) + n
 
 
-def tracing() -> bool:
-    """Whether a profiler runs: the switch of the counts that cost a copy from the card
-    (the 8-wide kernel's `wide_bvh.walk_pops` and `.walk_slots`), taken only then."""
-    return _profiler_on()
+def device_counters(names: tuple, device) -> torch.Tensor | None:
+    """Under a profiler: the slots of `names`, in their order, of `device`'s store of
+    device counters, a (len(names),) int64 view that a kernel adds its counts into on
+    the card. Without a profiler: None (count nothing). A name keeps its slot for the
+    process; `names` are given their slots together the first time, and always come
+    together in that order."""
+    if not _profiler_on():
+        return None
+    if names[0] not in _slots:
+        if any(n in _slots for n in names):
+            raise ValueError(f"device counters {names} overlap others' slots")
+        base = len(_slots)
+        _slots.update((n, base + i) for i, n in enumerate(names))
+    first = _slots[names[0]]
+    if any(_slots.get(n) != first + i for i, n in enumerate(names)):
+        raise ValueError(f"device counters {names} do not hold consecutive slots")
+    device = torch.device(device)
+    store = _stores.get(device)
+    if store is None or store.shape[0] < len(_slots):
+        grown = torch.zeros(len(_slots), dtype=torch.int64, device=device)
+        if store is not None:
+            grown[:store.shape[0]] = store
+        store = _stores[device] = grown
+    return store[first:first + len(names)]
 
 
 def counts() -> dict:
-    """{name: count} of every counter since the process started."""
-    return dict(_counts)
+    """{name: count} of every counter since the process started: the host counters and
+    the device counters, these copied from the card (one synchronize a device) and
+    added to a host counter of the same name."""
+    out = dict(_counts)
+    names = sorted(_slots, key=_slots.get)
+    for store in _stores.values():
+        for name, n in zip(names, store.tolist()):
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def _table() -> str:
@@ -155,7 +189,7 @@ def _table() -> str:
     for name, (calls, total, self_s) in sorted(_spans.items(), key=lambda kv: -kv[1][2]):
         lines.append(f"{name:<24} {calls:>8} {total * 1e3:>12.3f} {self_s * 1e3:>12.3f}")
     lines.append(f"{'counter':<24} {'count':>8}")
-    lines += [f"{name:<24} {n:>8}" for name, n in sorted(_counts.items())]
+    lines += [f"{name:<24} {n:>8}" for name, n in sorted(counts().items())]
     return "\n".join(lines) + "\n"
 
 

@@ -13,8 +13,9 @@ built from its own sources, and is timed through its own `kernels/selfcheck`, at
 chip_smoke.py phase 5's shapes: the wavefront kernel (tp, Cornell 512², 16
 bounces, 64 spp in one launch from sample 64); the 8-wide BVH kernel (fast, 512²,
 16 bounces, 64 spp from sample 64, on sphere_field() at leaf 32 and on
-sphere_field(80, 3) at leaf 64, both also at the driver's leaf 6; and tp on the Cornell
-box at leaf 32, an explicit backend="widebvh"'s); the megakernel (tp with the tp0 peel, parity and
+sphere_field(80, 3) at leaf 64, both also at the driver's leaf 6, sphere_field(80, 3)
+at leaf 6 also in its counted form, under a profiler that records host events only;
+and tp on the Cornell box at leaf 32, an explicit backend="widebvh"'s); the megakernel (tp with the tp0 peel, parity and
 fast, Cornell 512², 4 bounces, 64 spp from sample 64; and parity at the vertex
 recovery's launch, 64², 2 bounces, 8 spp from sample 16); and trace_rays (parity,
 the rim probes' 1,572,864 rows, 3 bounces, 2 spp; and the row counts, bounces and
@@ -39,7 +40,8 @@ defaults. A kernel's time is device time: CUDA events around the launch, queued
 behind a 0.1 s spin kernel, median of 5 after a warm-up. The train step's is wall
 time, as chip_smoke.py phase 5 takes it: the host clock around a step and a
 synchronize, median of 7 after a warm-up (the host's launch work is part of it).
-Each line also carries the segment counts and the tree's ptxas lines (registers,
+Each line also carries the segment counts, a digest of each image's bits (where the
+case returns one) and the tree's ptxas lines (registers,
 stack, spills of every kernel), and the paired run says which
 kernels of both trees have the same lines. The paired order cancels drift of the
 card's clocks; compare the two trees only within one call.
@@ -47,6 +49,8 @@ card's clocks; compare the two trees only within one call.
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import os
 import statistics
@@ -69,6 +73,7 @@ class Timed(NamedTuple):
     start: int      # first sample (trace_rays: selfcheck.PROBE_START)
     n: int          # samples
     rows: int = 0   # trace_rays only: rays from selfcheck.probe_rays
+    profiled: bool = False  # under a profiler of host events: the kernel's counted form
 
 
 CASES = (Timed("wavefront tp cornell", "wavefront", "tp", "cornell", 32, 512, 16, 64, 64),
@@ -82,6 +87,8 @@ CASES = (Timed("wavefront tp cornell", "wavefront", "tp", "cornell", 32, 512, 16
                64),
          Timed("widebvh fast spheres102k leaf 6", "widebvh", "fast", "spheres102k", 6, 512, 16,
                64, 64),
+         Timed("widebvh fast spheres102k leaf 6 counted", "widebvh", "fast", "spheres102k", 6,
+               512, 16, 64, 64, profiled=True),
          Timed("widebvh tp cornell leaf 32", "widebvh", "tp", "cornell", 32, 512, 16, 64, 64),
          Timed("megakernel tp cornell 512 b4", "megakernel", "tp", "cornell", 32, 512, 4, 64, 64),
          Timed("megakernel parity cornell 512 b4", "megakernel", "parity", "cornell", 32, 512, 4,
@@ -141,8 +148,8 @@ def time_tree(tree: str, words=()) -> dict:
     out = {"tree": tree, "device": torch.cuda.get_device_name(0),
            "ptxas": [ln.strip() for ln in info.log.splitlines()
                      if "Compiling entry" in ln or "registers" in ln or "spill" in ln],
-           "ms": {}, "segments": {}}
-    for label, kernel, scan, scene, leaf, size, bounces, start, n, rows in CASES:
+           "ms": {}, "segments": {}, "bits": {}}
+    for label, kernel, scan, scene, leaf, size, bounces, start, n, rows, profiled in CASES:
         if words and not any(w in label for w in words):
             continue
         case = selfcheck.Case(kernel, scan, size, size, bounces, scene=scene, leaf=leaf)
@@ -203,30 +210,43 @@ def time_tree(tree: str, words=()) -> dict:
             def call(case=case, start=start, n=n):
                 return selfcheck.run(case, tables, start=start, n=n)
 
-        call()
-        torch.cuda.synchronize()
-        times, segs = [], 0  # a train step's segments are its adjoint launches'
-        if kernel in ("train", "sorted_call"):
-            for _ in range(TRAIN_REPS):
-                t0 = time.perf_counter()
-                got = call()
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-                segs = got[-1] if kernel == "sorted_call" else 0
-        else:
-            for _ in range(5):
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                torch.cuda._sleep(SPIN_CYCLES)
-                a.record()
-                got = call()
-                b.record()
-                torch.cuda.synchronize()
-                segs = got[-1]
-                times.append(got[0] if kernel.startswith("sorted_kernels") else a.elapsed_time(b))
+        host_events = [torch.profiler.ProfilerActivity.CPU]
+        with torch.profiler.profile(activities=host_events) if profiled \
+                else contextlib.nullcontext():
+            times, segs, got = time_case(kernel, call)
         out["ms"][label] = statistics.median(times)
         out["segments"][label] = int(segs)
+        if isinstance(got[0], torch.Tensor):
+            out["bits"][label] = hashlib.sha256(got[0].cpu().numpy().tobytes()).hexdigest()[:16]
     return out
+
+
+def time_case(kernel: str, call):
+    """(times in ms, segments, the last result) of one case, after a warm-up."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    times, segs = [], 0  # a train step's segments are its adjoint launches'
+    if kernel in ("train", "sorted_call"):
+        for _ in range(TRAIN_REPS):
+            t0 = time.perf_counter()
+            got = call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            segs = got[-1] if kernel == "sorted_call" else 0
+    else:
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            got = call()
+            b.record()
+            torch.cuda.synchronize()
+            segs = got[-1]
+            times.append(got[0] if kernel.startswith("sorted_kernels") else a.elapsed_time(b))
+    return times, segs, got
 
 
 def by_kernel(ptxas: list) -> dict:
@@ -267,8 +287,10 @@ def main() -> int:
               flush=True)
     for label in runs[0][1]["ms"]:
         seg = {lab: row["segments"][label] for lab, row in runs}
+        bits = {row.get("bits", {}).get(label) for _, row in runs}
         print(f"[pair] {label}: parent, change, change, parent = "
-              f"{[round(row['ms'][label], 3) for _, row in runs]} ms; segments {seg}", flush=True)
+              f"{[round(row['ms'][label], 3) for _, row in runs]} ms; segments {seg}; "
+              f"image digests {sorted(map(str, bits))}", flush=True)
     parent, change = (by_kernel(runs[i][1]["ptxas"]) for i in (0, 1))
     both = sorted(set(parent) & set(change))
     print(f"[pair] ptxas lines of the {len(both)} kernels in both trees: the same for "

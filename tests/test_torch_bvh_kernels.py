@@ -146,6 +146,23 @@ def test_plain_wide_walk_counts_its_pops(scenes, scan, leaf, pops):
     assert bk.WALK_COUNTS["pops"] < bk.WALK_COUNTS["boxes"]
 
 
+@pytest.mark.parametrize("leaf, expands, boxes, tris",
+                         [(driver.WIDE_BVH_LEAF, 30, 4636, 647), (32, 23, 4451, 1050)])
+@pytest.mark.parametrize("scan", SCANS)
+def test_plain_wide_walk_counts_its_expansions(scenes, scan, leaf, expands, boxes, tris):
+    """WALK_COUNTS["expands"], the popped groups the plain 8-wide walk expands (the
+    kernel's `wide_bvh.expand_pops`), with its box tests and leaf rows (the kernel's
+    `.boxes`, `.leaf_rows`), pinned on the frames of test_plain_wide_walk_counts_its_pops
+    at both leaves: the same in each leaf form, each expansion one of the pops."""
+    _, tscene, _, cfg = scenes["spheres244"]
+    cfg = cfg.with_(width=16, height=16, bounces=4)
+    bk.WALK_COUNTS.update(boxes=0, tris=0, pops=0, expands=0)
+    _render("widebvh", tscene, cfg, scan, leaf, start=3, n=2)
+    assert bk.WALK_COUNTS["expands"] == expands
+    assert (bk.WALK_COUNTS["boxes"], bk.WALK_COUNTS["tris"]) == (boxes, tris)
+    assert bk.WALK_COUNTS["expands"] < bk.WALK_COUNTS["pops"]
+
+
 @pytest.mark.parametrize("spheres, scan", [((7, 1), scan) for scan in SCANS]
                          + [((16, 2), scan) for scan in ("parity", "fast")])
 def test_the_leaf_only_schedules_the_plain_wide_walk(spheres, scan):

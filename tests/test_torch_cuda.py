@@ -8,7 +8,8 @@ the pass rule), for the linear and the BVH kernels (with the megakernel's and th
 wavefront's work splits and table routes, the wide kernel on a 14-level tree,
 split into launches and bit for bit at the driver's leaf on sphere_field(), on a
 ragged pixel range, with fewer paths than a warp's lanes and in one-sample launches,
-its lane counters' pops those of the plain walk, the
+its counted form's pops, box tests, leaf rows, expansions and segments those of the
+plain walk, its bits the uncounted form's, no copy from the card in its wrapper, the
 skip-link kernel bit for bit in each leaf form, split into launches and on the
 driver's route for trees deeper than the wide kernel's stack),
 the adjoint kernel (on a ragged pixel range too) and the arbitrary-ray kernel (at
@@ -207,6 +208,70 @@ def test_wide_kernel_counts_the_plain_walks_pops_under_a_profiler(cuda_tables, s
     assert int(segs) == int(plain_segs)
     assert pops == bk.WALK_COUNTS["pops"] > 0
     assert pops <= slots and slots % 32 == 0
+
+
+def _walk_counts() -> dict:
+    """The wide kernel's device counters so far, by kind (`wide_bvh.<kind>`)."""
+    now = profiling.counts()
+    return {k.split(".", 1)[1]: now.get(k, 0) for k in wb.WALK_COUNTERS}
+
+
+def _host_events():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+@pytest.mark.parametrize("scan, scene", WIDE_LOOP_SCENES)
+def test_wide_kernel_counts_each_kind_of_iteration_as_the_plain_walk(cuda_tables, scan, scene):
+    """On 37×23 pixels the counted kernel's pops, box tests, leaf rows, expansions and
+    segments are the plain walk's; each kind's slots are whole warps' and no fewer than
+    its lanes; each segment is shaded in a round that counts a slot."""
+    case = _wide_case(scan, 37, 23, scene)
+    before = _walk_counts()
+    with _host_events():
+        _, segs = selfcheck.run(case, cuda_tables)
+    got = {k: v - before[k] for k, v in _walk_counts().items()}
+    bk.WALK_COUNTS.update(boxes=0, tris=0, pops=0, expands=0)
+    _, plain_segs = selfcheck.run(case, cuda_tables, plain=True)
+    plain = bk.WALK_COUNTS
+    assert got["segments"] == int(segs) == int(plain_segs) > 0
+    assert (got["walk_pops"], got["boxes"], got["leaf_rows"], got["expand_pops"]) == \
+        (plain["pops"], plain["boxes"], plain["tris"], plain["expands"])
+    for lanes, slots in (("walk_pops", "walk_slots"), ("leaf_rows", "leaf_row_slots"),
+                         ("expand_pops", "expand_slots"), ("segments", "shade_slots")):
+        assert got[slots] % 32 == 0 and got[lanes] <= got[slots], (lanes, got)
+
+
+# Host calls that copy from the card or wait for it.
+HOST_COPIES = {"aten::_local_scalar_dense", "aten::item", "aten::_to_copy", "aten::copy_",
+               "cudaMemcpy", "cudaMemcpyAsync", "cudaStreamSynchronize",
+               "cudaDeviceSynchronize"}
+
+
+@pytest.mark.parametrize("scan, scene", WIDE_LOOP_SCENES)
+def test_wide_kernels_counted_form_gives_its_bits_and_copies_nothing_from_the_card(
+        cuda_tables, scan, scene):
+    """The counted form (under a profiler) gives the uncounted form's image and segments
+    bit for bit; without a profiler no counter moves; under one, no host call inside the
+    wrapper's `kernel.wide_bvh` range copies from the card or waits for it."""
+    case = _wide_case(scan, 37, 23, scene)
+    before = _walk_counts()
+    img, segs = selfcheck.run(case, cuda_tables)
+    assert _walk_counts() == before
+    with _host_events():
+        selfcheck.run(case, cuda_tables)  # the store made, its first slots handed out
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        counted, counted_segs = selfcheck.run(case, cuda_tables)
+        torch.cuda.synchronize()
+    assert torch.equal(counted, img) and int(counted_segs) == int(segs)
+    assert _walk_counts()["segments"] == before["segments"] + 2 * int(segs)
+    events = prof.events()
+    spans = [e.time_range for e in events if e.name == "kernel.wide_bvh"]
+    assert len(spans) == 1
+    inside = {e.name for e in events
+              if spans[0].start <= e.time_range.start and e.time_range.end <= spans[0].end}
+    assert any(n.startswith("cuda") for n in inside)  # the runtime's calls are traced
+    assert not inside & HOST_COPIES, inside & HOST_COPIES
 
 
 def test_wavefront_runs_and_routes_give_the_same_bits(cuda_tables):

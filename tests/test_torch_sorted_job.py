@@ -44,11 +44,14 @@ def test_a_call_records_its_build_once_and_a_kernel_span_a_chunk():
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         img = call()
     stats = profiling.span_stats()
-    assert set(stats) == {"sorted.prepare", "kernel.sorted"}
+    stages = ("bvh.build", "bvh.pack")  # the build's stages, inside sorted.prepare
+    assert set(stats) == {"sorted.prepare", "kernel.sorted", *stages}
     assert stats["sorted.prepare"][0] == 1 and stats["kernel.sorted"][0] == 3
+    assert all(stats[name][0] == 1 for name in stages)
     parents = {e.name: e.cpu_parent for e in prof.events()
-               if e.name in ("sorted.prepare", "kernel.sorted")}
-    assert all(p is None for p in parents.values())
+               if e.name in ("sorted.prepare", "kernel.sorted", *stages)}
+    assert parents["sorted.prepare"] is None and parents["kernel.sorted"] is None
+    assert all(parents[name].name == "sorted.prepare" for name in stages)
     assert torch.equal(img, call())  # the span changes nothing of the image
 
 

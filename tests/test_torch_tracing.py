@@ -60,7 +60,7 @@ def _parents(prof) -> dict:
     """{span name: the set of its events' parent names} of the program's spans."""
     out = {}
     for e in prof.events():
-        if e.name.split(".")[0] in ("driver", "kernel", "train", "vertex"):
+        if e.name.split(".")[0] in ("driver", "kernel", "train", "vertex", "sorted", "bvh"):
             out.setdefault(e.name, set()).add(e.cpu_parent.name if e.cpu_parent else None)
     return out
 
@@ -111,6 +111,54 @@ def test_the_build_of_a_render_step_is_its_prepare_span(scene):
     prof = _profiled(lambda: driver.make_kernel_render_step(scene, RENDER, 1))
     assert _parents(prof) == {"driver.prepare": {None}}
     assert profiling.span_stats()["driver.prepare"][0] == 1
+
+
+@pytest.mark.parametrize("backend", ["widebvh", "bvh", "sorted"])
+def test_a_bvh_build_names_its_stages_inside_its_prepare_span(scene, backend):
+    """The tables of a BVH render (the Cornell box): inside `driver.prepare` (the
+    sorted wavefront's `sorted.prepare`) the spans `bvh.build`, `bvh.widen` for the
+    8-wide tree, and `bvh.pack`, once each and in that order."""
+    from oclpathtracer_tpu_torch.kernels import sorted_wavefront as sw
+
+    if backend == "sorted":
+        outer = "sorted.prepare"
+        prof = _profiled(lambda: sw.prepare_chunks(scene, RENDER))
+    else:
+        outer = "driver.prepare"
+        prof = _profiled(lambda: driver.make_kernel_render_step(scene, RENDER, 1, backend))
+    stages = ["bvh.build", "bvh.widen", "bvh.pack"] if backend == "widebvh" \
+        else ["bvh.build", "bvh.pack"]
+    assert _parents(prof) == {outer: {None}, **{name: {outer} for name in stages}}
+    starts = {e.name: e.time_range.start for e in prof.events() if e.name in stages}
+    assert sorted(stages, key=starts.get) == stages
+    stats = profiling.span_stats()
+    assert all(stats[name][0] == 1 for name in (outer, *stages))
+    assert sum(stats[name][1] for name in stages) <= stats[outer][1]
+
+
+def test_device_counters_add_up_and_counts_merges_them_with_the_host_counters(tmp_path):
+    """A CPU tensor stands in for the card: the slots a profiled call is handed add up
+    over calls, `counts()` adds them to the host counter of the same name, a later
+    name gets a slot after them, and a profiler's summary lists them; without a
+    profiler no slots are handed out."""
+    names = ("test.device_a", "test.device_b")
+    assert profiling.device_counters(names, CPU) is None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for n in (1, 2):
+            profiling.device_counters(names, CPU).add_(torch.tensor([n, 10 * n]))
+    profiling.count("test.device_a", 100)
+    got = profiling.counts()
+    assert (got["test.device_a"], got["test.device_b"]) == (103, 30)
+    with profiling.trace(str(tmp_path), cuda=False):
+        profiling.device_counters(("test.device_c",), CPU).add_(7)
+        profiling.device_counters(names, CPU).add_(torch.tensor([1, 1]))
+        with pytest.raises(ValueError):
+            profiling.device_counters(names[::-1], CPU)
+    got = profiling.counts()
+    assert [got[f"test.device_{k}"] for k in "abc"] == [104, 31, 7]
+    summary = (tmp_path / "summary.txt").read_text()
+    rows = {line.split()[0]: line.split()[1:] for line in summary.splitlines() if line}
+    assert rows["test.device_b"] == ["31"] and rows["test.device_c"] == ["7"]
 
 
 @pytest.mark.parametrize("kind", ["ao", "direct"])
